@@ -1,0 +1,398 @@
+"""PGTC encoder chain on torch — the 7-stage pipeline of
+pgrc_tpu/archive/encoder.py (`encode` + `_encode_tail`, :102-506).
+
+This is the port's one deliberate copy: the reference hard-wires its own
+sweep and matcher, so the chain is repeated here calling the port's
+(`overlap.greedy_scs`, `align.matcher`) on an explicit `device`, without
+`mesh`. Every stream writer, the checkpoint chain, `pgseq`, `order` and the
+stage-7 self-match come from the reference, so the archive bytes are the
+reference's own.
+"""
+from __future__ import annotations
+
+import io
+import os
+import time
+
+import numpy as np
+
+from pgrc_tpu import ARCHIVE_MAGIC
+from pgrc_tpu.archive import order as order_enc
+from pgrc_tpu.archive import pgseq
+from pgrc_tpu.archive.encoder import (EncodeStats, _append_report,
+                                      _dump_validation, _gather_flat_mismatches,
+                                      _load_ckpt, _save_ckpt, _stage_done,
+                                      _submit_self_match, _write_hq_section,
+                                      _write_plain_pg_section)
+from pgrc_tpu.config import (MODE_MIN_PE, MODE_ORD_PE, MODE_ORD_SE, MODE_PE,
+                             PgRCParams, matching_chars_correction)
+from pgrc_tpu.core import fastq, packed
+from pgrc_tpu.pg.reconstruct import extract_mismatches
+from pgrc_tpu.utils import dna
+from pgrc_tpu.utils.trace import span
+from pgrc_tpu.utils.varint import write_varint
+
+from ..align import matcher as align_matcher
+from ..overlap import greedy_scs
+
+
+def encode(params: PgRCParams, out_path: str | None = None, *, device) -> EncodeStats:
+    """Run the 7-stage encoder chain with the device stages on `device`."""
+    t = {}
+    t0 = time.time()
+    params.resolve()
+    if params.dump_streams:
+        from pgrc_tpu.streams import container as _container
+
+        _container.set_stream_dump_dir(params.output + ".streams")
+    if params.verbosity:
+        from pgrc_tpu.utils import logchan
+
+        logchan.set_verbosity(params.verbosity)
+    stats = EncodeStats(stage_times=t)
+    B, E = params.begin_stage, params.end_stage
+    ck = _load_ckpt(params, B - 1) if B > 1 else {}
+
+    # ---- input (chunked: quality bytes never outlive one IO window) ----
+    reads = fastq.read_divided(
+        params.src_fastq, params.pair_fastq or None, params.revcomp_pair_file,
+        params.error_limit_promils / 1000.0, params.simplified_suffix_mode,
+    )
+    params.read_len = reads.read_len
+    L = reads.read_len
+    if L > 255:
+        raise ValueError("constant-length reads up to 255 bp supported (reference parity)")
+    n_total = reads.count
+    stats.reads_total, stats.read_len = n_total, L
+    _stage_done(t, "input", t0)
+
+    # ---- stage 1: quality division ----
+    t0 = time.time()
+    codes = reads.codes
+    if B <= 1:
+        hq_mask = reads.hq_mask
+        n_mask = reads.n_mask
+        if params.separate_n_reads:
+            n_idx = np.nonzero(n_mask)[0]
+            lq_idx = np.nonzero(~n_mask & ~hq_mask)[0]
+            hq_idx = np.nonzero(~n_mask & hq_mask)[0]
+        else:
+            # N reads always go to LQ (reference nReadsLQ / !separateNReads path)
+            n_idx = np.zeros(0, dtype=np.int64)
+            lq_idx = np.nonzero(n_mask | ~hq_mask)[0]
+            hq_idx = np.nonzero(~n_mask & hq_mask)[0]
+    else:
+        empty = np.zeros(0, dtype=np.int64)
+        hq_idx = ck.get("hq_idx", empty)
+        lq_idx = ck.get("lq_idx", empty)
+        n_idx = ck.get("n_idx", empty)
+    _stage_done(t, "div", t0)
+    if E == 1:
+        _save_ckpt(params, 1, hq_idx=hq_idx, lq_idx=lq_idx, n_idx=n_idx)
+        return stats
+
+    # ---- stages 2+3: generator-based division + HQ pg generation, fused
+    # into one full-depth sweep when both run in this invocation ----
+    t0 = time.time()
+    fused = None
+    if B <= 2:
+        if params.gen_quality_coef > 0 and hq_idx.size > 1:
+            if E >= 3:
+                keep, f_pg, f_order, f_pos = greedy_scs.divide_and_generate(
+                    codes[hq_idx], params.gen_quality_coef, device=device)
+                fused = (f_pg, f_order, f_pos)
+            else:
+                res = greedy_scs.find_overlaps(
+                    codes[hq_idx], coef=params.gen_quality_coef, device=device)
+                keep = greedy_scs.both_sides_overlapped(res)
+            lq_idx = np.concatenate([lq_idx, hq_idx[~keep]])
+            lq_idx.sort()
+            hq_idx = hq_idx[keep]
+    _stage_done(t, "pgdiv", t0)
+    _dump_validation(params, "stage2", hq_idx=hq_idx, lq_idx=lq_idx,
+                     n_idx=n_idx)
+    if E == 2:
+        _save_ckpt(params, 2, hq_idx=hq_idx, lq_idx=lq_idx, n_idx=n_idx)
+        return stats
+
+    # ---- stage 3: HQ pg generation ----
+    t0 = time.time()
+    if fused is not None:
+        hq_pg, hq_order, hq_pos = fused
+        hq_org = hq_idx[hq_order] if hq_idx.size else np.zeros(0, dtype=np.int64)
+    elif B <= 3:
+        hq_pg, hq_order, hq_pos = greedy_scs.generate_pseudogenome(
+            codes[hq_idx], device=device)
+        hq_org = hq_idx[hq_order] if hq_idx.size else np.zeros(0, dtype=np.int64)
+    else:
+        hq_pg = ck["hq_pg"]
+        hq_org = ck.get("hq_org", np.zeros(0, dtype=np.int64))
+        hq_pos = ck.get("hq_pos", np.zeros(0, dtype=np.int64))
+    _stage_done(t, "good", t0)
+    _dump_validation(params, "stage3", hq_pg=hq_pg)
+    if E == 3:
+        _save_ckpt(params, 3, hq_idx=hq_idx, lq_idx=lq_idx, n_idx=n_idx,
+                   hq_pg=hq_pg, hq_org=hq_org, hq_pos=hq_pos)
+        return stats
+    # the stage-7 hq self-match runs in a worker thread, overlapping stage 4
+    s7_fut = _submit_self_match(params, hq_pg)
+
+    # ---- stage 4: map LQ (and N) reads onto HQ pg ----
+    t0 = time.time()
+    if B > 4:
+        hq_entries = {k[2:]: ck[k] for k in ck if k.startswith("e_")}
+        stats.matched_count = int(ck["matched_count"])
+        stats.hq_count = hq_entries["org"].size
+        t["match"] = 0.0
+        empty = np.zeros(0, dtype=np.int64)
+        stage5 = None
+        if "lq_pg" in ck:  # B = 6: stage-5 outputs come from the ckpt too
+            stage5 = (ck["lq_pg"], ck["lq_org"], ck["lq_pos"],
+                      ck["n_pg"], ck["n_org"], ck["n_pos"])
+        lq_un_ck = ck.get("lq_un", empty)
+        n_un_ck = ck.get("n_un", empty)
+        lq_codes, n_codes = codes[lq_un_ck], codes[n_un_ck]
+        reads.codes = None
+        del codes
+        return _encode_tail(params, stats, t, lq_codes, n_codes, hq_pg,
+                            hq_entries, lq_un_ck, n_un_ck,
+                            out_path, stage5, device=device, s7_fut=s7_fut)
+
+    cand_idx = np.concatenate([lq_idx, n_idx]) if params.separate_n_reads else lq_idx
+    n_begin = lq_idx.size
+    if cand_idx.size and hq_pg.size >= L:
+        k = params.seed_k + matching_chars_correction(len(hq_pg))
+        k = min(k, L)
+        with span(f"stage4 cand gather n={cand_idx.size}"):
+            cand_codes = codes[cand_idx]
+        has_n = (cand_codes == dna.N).any(axis=1)
+        max_mis = L // params.min_chars_per_mismatch
+        index = align_matcher.build_index(hq_pg, k=k, device_sort=True)
+        # reads with N probe with N->A (2-bit packing collapses N); their true
+        # mismatch count is restored by an exact re-verify below
+        mres = align_matcher.match_reads(
+            cand_codes, index, hq_pg,
+            max_mismatches=max_mis,
+            cap=params.match_cap,
+            accept_mis=params.prematch_accept_mis,
+            device=device,
+        )
+        if has_n.any():
+            rows = np.nonzero(has_n & (mres.pos >= 0))[0]
+            if rows.size:
+                win = hq_pg[mres.pos[rows, None] + np.arange(L, dtype=np.int64)[None, :]].copy()
+                rc = mres.rc[rows]
+                win[rc] = packed.revcomp_codes_matrix(win[rc])
+                true_mis = (cand_codes[rows] != win).sum(axis=1)
+                bad = true_mis > max_mis
+                mres.pos[rows[bad]] = -1
+                mres.mis[rows[bad]] = 255
+                mres.mis[rows[~bad]] = true_mis[~bad].astype(np.uint8)
+        matched = mres.pos >= 0
+    else:
+        matched = np.zeros(cand_idx.size, dtype=bool)
+        mres = align_matcher.MatchResult(
+            np.full(cand_idx.size, -1, np.int64),
+            np.zeros(cand_idx.size, bool),
+            np.full(cand_idx.size, 255, np.uint8),
+        )
+    stats.matched_count = int(matched.sum())
+    if cand_idx.size and hq_pg.size >= L:
+        cand_codes = None  # matched rows re-gather below
+
+    # build combined hq reads-list entries: base reads + matched reads
+    _t4 = span("stage4 entries merge")
+    _t4.__enter__()
+    m_org = cand_idx[matched]
+    m_pos = mres.pos[matched]
+    m_rc_stored = mres.rc[matched]
+    # final-output coordinates: pair-file reads are un-revcomped on output
+    if params.revcomp_pair_file:
+        odd = (m_org & 1) == 1
+        m_rc_out = m_rc_stored ^ odd
+    else:
+        m_rc_out = m_rc_stored.copy()
+    # target read in final-output orientation
+    m_codes_out = codes[m_org].copy()
+    if params.revcomp_pair_file and m_org.size:
+        odd_rows = (m_org & 1) == 1
+        m_codes_out[odd_rows] = packed.revcomp_codes_matrix(m_codes_out[odd_rows])
+    # window in decoder orientation
+    if m_pos.size:
+        from pgrc_tpu import native
+
+        fast = native.extract_mismatches(
+            hq_pg, m_pos, m_rc_out, m_codes_out,
+            L // params.min_chars_per_mismatch)
+        if fast is not None:
+            m_cnt, m_sym, m_off = fast
+        else:
+            win = hq_pg[m_pos[:, None] + np.arange(L, dtype=np.int64)[None, :]].copy()
+            if m_rc_out.any():
+                win[m_rc_out] = packed.revcomp_codes_matrix(win[m_rc_out])
+            m_cnt, m_sym, m_off = extract_mismatches(
+                m_codes_out, win, L // params.min_chars_per_mismatch
+            )
+    else:
+        m_cnt = np.zeros(0, np.uint8)
+        m_sym = np.zeros(0, np.uint8)
+        m_off = np.zeros(0, np.uint8)
+    m_codes_out = None  # free the matched-row gather before the merge
+
+    # merge base + matched entries
+    base_cnt = hq_org.size
+    # base entries are embedded in the pg in STORED orientation; in final-output
+    # coordinates a pair-file (odd-org) base read must be emitted rev-complemented
+    if params.revcomp_pair_file:
+        base_rc = (hq_org & 1) == 1
+    else:
+        base_rc = np.zeros(base_cnt, bool)
+    all_pos = np.concatenate([hq_pos, m_pos])
+    all_org = np.concatenate([hq_org, m_org])
+    all_rc = np.concatenate([base_rc, m_rc_out])
+    all_mis_cnt = np.concatenate([np.zeros(base_cnt, np.uint8), m_cnt])
+    is_base = np.concatenate([np.ones(base_cnt, np.uint8), np.zeros(m_org.size, np.uint8)])
+    perm = np.lexsort((is_base, all_pos))  # matched before base at equal pos
+    hq_entries = dict(
+        pos=all_pos[perm], org=all_org[perm], rc=all_rc[perm], mis_cnt=all_mis_cnt[perm]
+    )
+    # reorder flat mismatch streams to entry order (base rows contribute 0)
+    mis_src_cum = np.zeros(base_cnt + m_org.size + 1, dtype=np.int64)
+    np.cumsum(np.concatenate([np.zeros(base_cnt, np.uint8), m_cnt]), out=mis_src_cum[1:])
+    hq_entries["mis_sym"], hq_entries["mis_off"] = _gather_flat_mismatches(
+        perm, hq_entries["mis_cnt"], mis_src_cum, m_sym, m_off
+    )
+    stats.hq_count = base_cnt + m_org.size
+    _t4.__exit__()
+    unmatched = ~matched
+    lq_un = cand_idx[unmatched & (np.arange(cand_idx.size) < n_begin)]
+    n_un = cand_idx[unmatched & (np.arange(cand_idx.size) >= n_begin)]
+    _stage_done(t, "match", t0)
+    if params.dump_validation_files and cand_idx.size:
+        _dump_validation(
+            params, "stage4",
+            matches=np.stack([cand_idx, mres.pos,
+                              mres.rc.astype(np.int64),
+                              mres.mis.astype(np.int64)], axis=1),
+        )
+    if E == 4:
+        _save_ckpt(params, 4, lq_un=lq_un, n_un=n_un,
+                   matched_count=np.int64(stats.matched_count),
+                   e_pos=hq_entries["pos"], e_org=hq_entries["org"],
+                   e_rc=hq_entries["rc"], e_mis_cnt=hq_entries["mis_cnt"],
+                   e_mis_sym=hq_entries["mis_sym"], e_mis_off=hq_entries["mis_off"],
+                   hq_pg=hq_pg)
+        return stats
+    # gather the (small) unmatched subsets and release the full code matrix
+    lq_codes, n_codes = codes[lq_un], codes[n_un]
+    reads.codes = None
+    del codes
+    return _encode_tail(params, stats, t, lq_codes, n_codes, hq_pg,
+                        hq_entries, lq_un, n_un, out_path, device=device,
+                        s7_fut=s7_fut)
+
+
+def _encode_tail(params, stats, t, lq_codes, n_codes, hq_pg, hq_entries,
+                 lq_un, n_un, out_path, stage5=None, *, device, s7_fut=None):
+    """Stage 5 (LQ/N pgs) + archive write (stages 6-7). Receives only the
+    unmatched-read code subsets — the full matrix is freed by the caller."""
+    L = stats.read_len
+    n_total = stats.reads_total
+
+    # ---- stage 5: LQ pg and N pg from unmatched reads ----
+    t0 = time.time()
+    if stage5 is not None:
+        lq_pg, lq_org, lq_pos, n_pg, n_org, n_pos = stage5
+    else:
+        lq_pg, lq_order, lq_pos = greedy_scs.generate_pseudogenome(lq_codes, device=device)
+        lq_org = lq_un[lq_order] if lq_un.size else np.zeros(0, dtype=np.int64)
+        n_pg, n_order, n_pos = greedy_scs.generate_pseudogenome(n_codes, device=device)
+        n_org = n_un[n_order] if n_un.size else np.zeros(0, dtype=np.int64)
+    stats.lq_count, stats.n_count = lq_org.size, n_org.size
+    stats.hq_pg_len, stats.lq_pg_len, stats.n_pg_len = len(hq_pg), len(lq_pg), len(n_pg)
+    _stage_done(t, "bad", t0)
+    if params.end_stage == 5:
+        _save_ckpt(params, 5, lq_pg=lq_pg, lq_org=lq_org, lq_pos=lq_pos,
+                   n_pg=n_pg, n_org=n_org, n_pos=n_pos, hq_pg=hq_pg,
+                   matched_count=np.int64(stats.matched_count),
+                   e_pos=hq_entries["pos"], e_org=hq_entries["org"],
+                   e_rc=hq_entries["rc"], e_mis_cnt=hq_entries["mis_cnt"],
+                   e_mis_sym=hq_entries["mis_sym"], e_mis_off=hq_entries["mis_off"])
+        return stats
+
+    # ---- write archive ----
+    # stage 7 (pg sequences) is compressed in a worker thread concurrently
+    # with the hq-section/order compression; its buffer is spliced at the end
+    s7_buf = io.BytesIO()
+    s7_write = None
+    if params.end_stage >= 7:
+        from concurrent.futures import ThreadPoolExecutor
+
+        _ex7 = ThreadPoolExecutor(max_workers=1)
+        s7_write = _ex7.submit(
+            pgseq.write_pg_sequences, s7_buf, hq_pg, lq_pg, n_pg,
+            params.target_pg_match_length, params.compression_level,
+            s7_fut.result() if s7_fut is not None else None)
+        _ex7.shutdown(wait=False)
+    t0 = time.time()
+    mode = params.mode()
+    out = io.BytesIO()
+    header = bytearray()
+    header += ARCHIVE_MAGIC
+    header += bytes([1, 1, mode])
+    flags = (1 if params.separate_n_reads else 0) | (2 if params.revcomp_pair_file else 0)
+    header.append(flags)
+    write_varint(header, L)
+    write_varint(header, n_total)
+    write_varint(header, stats.hq_count)
+    write_varint(header, lq_org.size)
+    write_varint(header, n_org.size)
+    write_varint(header, len(hq_pg))
+    write_varint(header, len(lq_pg))
+    write_varint(header, len(n_pg))
+    out.write(bytes(header))
+
+    ord_mode = mode in (MODE_ORD_SE, MODE_ORD_PE)
+    if ord_mode:
+        entry_perm = np.argsort(hq_entries["org"], kind="stable")
+    else:
+        entry_perm = np.arange(stats.hq_count)
+    _write_hq_section(out, hq_entries, entry_perm, store_off=not ord_mode,
+                      read_len=L, rev_offsets=params.rev_offset_mismatches)
+    _write_plain_pg_section(out, lq_pos)
+    if params.separate_n_reads:
+        _write_plain_pg_section(out, n_pos)
+
+    # ---- stage 6: order info ----
+    if mode in (MODE_PE, MODE_MIN_PE):
+        joined_org = np.concatenate([hq_entries["org"], lq_org, n_org])
+        order_enc.encode_pair_order(out, joined_org, store_file_flags=(mode == MODE_PE))
+    elif ord_mode:
+        pos_by_org = np.zeros(n_total, dtype=np.int64)
+        pos_by_org[hq_entries["org"]] = hq_entries["pos"]
+        pos_by_org[lq_org] = lq_pos + len(hq_pg)
+        pos_by_org[n_org] = n_pos + len(hq_pg) + len(lq_pg)
+        if mode == MODE_ORD_PE:
+            order_enc.encode_positions_pe(out, pos_by_org)
+        else:
+            order_enc.encode_positions_se(out, pos_by_org)
+    _stage_done(t, "order", t0)
+
+    # ---- stage 7: pg sequences (compressed concurrently above) ----
+    t0 = time.time()
+    if s7_write is not None:
+        s7_write.result()
+        out.write(s7_buf.getvalue())
+    _stage_done(t, "pgseq", t0)
+
+    blob = out.getvalue()
+    stats.archive_bytes = len(blob)
+    if out_path is None:
+        out_path = params.output
+    tmp = out_path + ".temp"
+    with open(tmp, "wb") as f:
+        f.write(blob)
+    os.replace(tmp, out_path)
+    if params.report_path:
+        _append_report(params, stats)
+    return stats

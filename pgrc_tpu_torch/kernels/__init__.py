@@ -1,0 +1,62 @@
+"""Hand-written CUDA kernels, each beside its plain PyTorch version.
+
+Every wrapper dispatches on where its tensors live: CPU tensors run the
+plain version (the CPU tests and the kernels' reference), CUDA tensors
+launch the kernel — with no try and no fallback: a build or launch failure
+raises. `launches` counts kernel launches per kernel, so a run can show
+that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+launches = {"verify_best": 0, "index_kmer_hash": 0, "probe_kmer_hash": 0,
+            "sweep_roll_entries": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def on_cpu(*tensors: torch.Tensor | None) -> bool:
+    """True for all-CPU tensors, False for all-CUDA ones; anything else raises."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"}:
+        if len({t.device for t in tensors if t is not None}) != 1:
+            raise ValueError("kernel inputs lie on different CUDA devices")
+        return False
+    raise ValueError(f"kernel inputs must all lie on the CPU or all on one CUDA "
+                     f"device, got {sorted(kinds)}")
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
+    """Raise unless `t` has `dtype`, `shape` (None = any extent) and is
+    contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(s is not None and s != d
+                                    for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call a C entry point on `device` and PyTorch's current stream there;
+    raise if it reports a CUDA error."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    err = getattr(build.lib(), entry)(index, ctypes.c_void_p(stream), *args)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err}")

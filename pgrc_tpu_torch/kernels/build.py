@@ -1,0 +1,101 @@
+"""Build the CUDA kernels in `csrc/` and load them with ctypes.
+
+`nvcc -gencode arch=compute_90a,code=sm_90a` compiles every `csrc/*.cu`
+into one shared library with a plain C interface, in `build/` beside this
+file, named by a hash of the sources and flags: a changed source builds
+anew, an unchanged one loads the library already there. Nothing is built
+when this module is imported; the first kernel launch (or an explicit
+`build()`) runs nvcc. Each entry point returns the `cudaError_t` of its
+launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _I64, _U32, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                            ctypes.c_uint32, ctypes.c_uint64)
+# entry point -> argtypes; every pointer and the stream are c_void_p
+SIGNATURES = {
+    "pgrc_verify_best": [_I, _P, _P, _I64, _I, _I, _P, _P, _I, _P, _I64,
+                         ctypes.c_int32, _U32, _I, _I, _P, _P],
+    "pgrc_index_kmer_hash": [_I, _P, _P, _I64, _I, _I, _I64, _I64, _P, _P],
+    "pgrc_probe_kmer_hash": [_I, _P, _P, _I64, _I, _P, _I, _I, _P],
+    "pgrc_sweep_roll_entries": [_I, _P, _I64, _P, _I, _P, _I, _P, _P, _P, _I,
+                                _I, _U64, _U64, _U64, _U64, _P, _P, _P, _P,
+                                _P, _P, _P, _P],
+}
+
+
+@dataclass
+class Build:
+    path: str
+    seconds: float      # 0.0 when an up-to-date library was already there
+    log: str            # nvcc's output (register and spill report)
+
+
+_lock = threading.Lock()
+_lib = None
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, /usr/local/cuda/bin, then PATH."""
+    home = os.environ.get("CUDA_HOME")
+    for cand in (home and os.path.join(home, "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                       "cannot be built on this machine")
+
+
+def build() -> Build:
+    """Compile `csrc/*.cu` unless a library of the same sources exists."""
+    srcs = sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            digest.update(f.read())
+    so = os.path.join(BUILD_DIR, f"libpgrc_kernels_{digest.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return Build(so, 0.0, "")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    t0 = time.time()
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)
+    return Build(so, time.time() - t0, proc.stdout + proc.stderr)
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build().path)
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib

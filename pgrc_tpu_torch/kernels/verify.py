@@ -1,0 +1,93 @@
+"""Kernel A, `verify_best`: best-of-n packed pg-window verify (csrc/verify.cu).
+
+Replaces `exp_pallas_verify.kernel` (the repo's one Pallas kernel) and
+`pgrc_tpu.align.matcher._make_probe._verify` with its best-of-n loop
+(matcher.py:191-206, :268-308).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.packed import popcount_u32
+from ..utils.uint import U32_MASK, i32_to_u32
+from . import check, launch, launches, on_cpu, ptr
+
+
+def lane_mask(L: int) -> list[int]:
+    """Per-lane u32 masks of a read of length L (the last lane's tail)."""
+    W = (L + 15) // 16
+    tail = L - (W - 1) * 16
+    return [U32_MASK] * (W - 1) + [(U32_MASK << (32 - 2 * tail)) & U32_MASK]
+
+
+def window_mismatches(read_lanes: torch.Tensor, starts: torch.Tensor,
+                      pg_lanes: torch.Tensor, L: int) -> torch.Tensor:
+    """Packed mismatch count of the pg window at each start [R] against each
+    read [R, >=W] (plain version of matcher._verify)."""
+    W = (L + 15) // 16
+    masks = lane_mask(L)
+    pg = i32_to_u32(pg_lanes)
+    last = pg.numel() - 1
+    q = starts >> 4
+    s2 = (starts & 15) << 1
+    mis = torch.zeros_like(starts)
+    for c in range(W):
+        a = pg[(q + c).clamp(max=last)]
+        b = pg[(q + c + 1).clamp(max=last)]
+        # int64 carrier: b < 2^32, so b >> 32 == 0 covers the s2 == 0 case
+        # that a 32-bit shift would leave undefined
+        aligned = (((a << s2) & U32_MASK) | (b >> (32 - s2))) & masks[c]
+        x = aligned ^ (i32_to_u32(read_lanes[:, c]) & masks[c])
+        mis += popcount_u32((x | (x >> 1)) & 0x55555555)
+    return mis
+
+
+def verify_best_plain(read_lanes, start_all, in_range, pg_lanes, pg_top: int,
+                      L: int, max_mis: int, n_verify: int):
+    """Per read: verify the first `n_verify` in-range starts in slot order,
+    each clipped to [0, pg_top]; keep the (mismatches, position) minimum;
+    accept it when mismatches <= max_mis. -> (mis uint8 [R], 255 = none;
+    pos int32 [R], -1 = none)."""
+    R, S = start_all.shape
+    taken = in_range & (torch.cumsum(in_range.to(torch.int32), dim=1) <= n_verify)
+    st_all = start_all.to(torch.int64).clamp(0, pg_top)
+    best_mis = torch.full((R,), 255, dtype=torch.int64, device=read_lanes.device)
+    best_pos = torch.full((R,), 2**31 - 1, dtype=torch.int64, device=read_lanes.device)
+    for j in range(S):
+        st = st_all[:, j]
+        mis = window_mismatches(read_lanes, st, pg_lanes, L)
+        better = taken[:, j] & ((mis < best_mis) | ((mis == best_mis) & (st < best_pos)))
+        best_mis = torch.where(better, mis, best_mis)
+        best_pos = torch.where(better, st, best_pos)
+    ok = best_mis <= max_mis
+    return (torch.where(ok, best_mis, 255).to(torch.uint8),
+            torch.where(ok, best_pos, -1).to(torch.int32))
+
+
+def verify_best(read_lanes: torch.Tensor, start_all: torch.Tensor,
+                in_range: torch.Tensor, pg_lanes: torch.Tensor, pg_top: int,
+                L: int, max_mis: int, n_verify: int):
+    """read_lanes [R, W+1] int32, start_all [R, S] int32, in_range [R, S]
+    bool, pg_lanes [PGL] int32 (zero pad lane included). See
+    `verify_best_plain` for the semantics; CUDA tensors run kernel A."""
+    W = (L + 15) // 16
+    R, S = start_all.shape
+    check(read_lanes, "read_lanes", torch.int32, (R, None))
+    check(start_all, "start_all", torch.int32, (R, S))
+    check(in_range, "in_range", torch.bool, (R, S))
+    check(pg_lanes, "pg_lanes", torch.int32, (None,))
+    if not 1 <= W <= 16 or read_lanes.shape[1] < W:
+        raise ValueError(f"read length {L} needs 1..16 lanes per read")
+    if not 0 <= max_mis < 255:
+        raise ValueError("max_mis must lie in [0, 255): 255 means 'no match'")
+    if on_cpu(read_lanes, start_all, in_range, pg_lanes):
+        return verify_best_plain(read_lanes, start_all, in_range, pg_lanes,
+                                 pg_top, L, max_mis, n_verify)
+    out_mis = torch.empty((R,), dtype=torch.uint8, device=read_lanes.device)
+    out_pos = torch.empty((R,), dtype=torch.int32, device=read_lanes.device)
+    launch("pgrc_verify_best", read_lanes.device, ptr(read_lanes), R, W,
+           read_lanes.shape[1], ptr(start_all), ptr(in_range), S, ptr(pg_lanes),
+           pg_lanes.numel(), pg_top, lane_mask(L)[-1], max_mis, n_verify,
+           ptr(out_mis), ptr(out_pos))
+    launches["verify_best"] += 1
+    return out_mis, out_pos

@@ -1,0 +1,67 @@
+"""State carried between the reference's numpy world and the port's tensors.
+
+Every device-program input or output of `pgrc_tpu` has a numpy form (what
+the host layer produces and consumes) and a tensor form on a device (what
+the port's kernels take). These functions move each one across, bit for
+bit, in both directions; the parity tests feed the same state through both
+packages with them.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pgrc_tpu.core import packed as ref_packed
+
+from .utils import uint
+
+
+def lanes_to_device(lanes: np.ndarray, nmask: np.ndarray | None, device):
+    """`packed.pack_lanes` output ([n, W+1] u32 lanes, [n, Wn+1] u32 N mask or
+    None) -> (int32 lanes, int32 N mask or None) on `device`."""
+    lanes_t = uint.np_u32_to_tensor(lanes, device)
+    nmask_t = None if nmask is None else uint.np_u32_to_tensor(nmask, device)
+    return lanes_t, nmask_t
+
+
+def lanes_from_device(lanes_t: torch.Tensor, nmask_t: torch.Tensor | None):
+    return (uint.tensor_to_np_u32(lanes_t),
+            None if nmask_t is None else uint.tensor_to_np_u32(nmask_t))
+
+
+def hashes_to_device(h: np.ndarray, device) -> torch.Tensor:
+    """u64 rolling hashes (`h0`, `h0b`, ...) -> int64 bit patterns."""
+    return uint.np_u64_to_tensor(h, device)
+
+
+def hashes_from_device(h_t: torch.Tensor) -> np.ndarray:
+    return uint.tensor_to_np_u64(h_t)
+
+
+def pg_lanes_to_device(pg_codes: np.ndarray, device) -> torch.Tensor:
+    """Packed pg text (16 symbols per u32, N packed as A) plus ONE zero lane,
+    so a verify window's `+1` lane never reads out of bounds (the reference
+    pads with zeros the same way, matcher.py:535-536)."""
+    lanes = ref_packed.pack_text_2bit(pg_codes)
+    lanes = np.concatenate([lanes, np.zeros(1, np.uint32)])
+    return uint.np_u32_to_tensor(lanes, device)
+
+
+def index_to_device(ihash: np.ndarray, ipos: np.ndarray, device):
+    """Sampled k-mer table (u32 hashes, positions with -1 = inert) ->
+    (int32 hash bits, int32 positions)."""
+    if ipos.size and int(ipos.max()) >= (1 << 31):
+        raise NotImplementedError("index positions past 2^31 need the wide probe "
+                                  "(ROADMAP queue 1 item 8)")
+    return (uint.np_u32_to_tensor(ihash.astype(np.uint32), device),
+            torch.from_numpy(ipos.astype(np.int32)).to(device))
+
+
+def index_from_device(ihash_t: torch.Tensor, ipos_t: torch.Tensor):
+    return uint.tensor_to_np_u32(ihash_t), ipos_t.cpu().numpy()
+
+
+def match_from_device(mis_t: torch.Tensor, pos_t: torch.Tensor):
+    """Probe outputs (uint8 mismatches, 255 = none; int32 positions, -1 =
+    none) -> the reference's host dtypes (uint8, int64)."""
+    return mis_t.cpu().numpy().astype(np.uint8), pos_t.cpu().numpy().astype(np.int64)

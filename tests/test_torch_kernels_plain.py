@@ -1,0 +1,199 @@
+"""Each kernel's plain PyTorch version against the JAX reference, at the main
+path's shapes, shrunk. Every value is an integer: equality is exact."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pgrc_tpu.align import matcher as ref_matcher
+from pgrc_tpu.core import packed as ref_packed
+from pgrc_tpu.overlap import greedy_scs as ref_scs
+from pgrc_tpu_torch import state
+from pgrc_tpu_torch.align import matcher as port_matcher
+from pgrc_tpu_torch.core import packed as port_packed
+from pgrc_tpu_torch.kernels import kmer_hash, sweep, verify
+from pgrc_tpu_torch.utils import uint
+
+L = 100
+R = 1024
+
+
+@pytest.fixture(scope="module")
+def pg_case():
+    """A pg whose length is not a lane multiple, reads sampled from it with
+    ~3% substitutions, a quarter of them random junk, and the reference's
+    device index (lazy: built on its device from the packed pg)."""
+    rng = np.random.default_rng(11)
+    pg = rng.integers(0, 4, size=40_013, dtype=np.uint8)
+    starts = rng.integers(0, pg.size - L + 1, R)
+    reads = pg[starts[:, None] + np.arange(L)[None, :]].copy()
+    err = rng.random(reads.shape) < 0.03
+    reads[err] = (reads[err] + 1) % 4
+    reads[: R // 4] = rng.integers(0, 4, size=(R // 4, L), dtype=np.uint8)
+    return pg, reads
+
+
+def _ref_device_index(pg, k, k1=4):
+    index = ref_matcher.build_index(pg, k=k, k1=k1, device_sort=True)
+    blocks, pg_lanes_d, wpf, i_pad = ref_matcher.device_index(index, pg)
+    assert len(blocks) == 1
+    ihash, ipos = (np.asarray(a) for a in blocks[0])
+    return index, ihash, ipos, np.asarray(pg_lanes_d), wpf, i_pad
+
+
+@pytest.mark.parametrize("n_verify", [6, 1])
+def test_probe_verify_matches_make_probe(pg_case, n_verify):
+    """Kernel A (with C and the join before it): the port's probe against
+    the reference's jitted `_make_probe` on the same lanes, index and pg."""
+    pg, reads = pg_case
+    k = 32
+    index, ihash, ipos, pg_lanes, wpf, i_pad = _ref_device_index(pg, k)
+    offs = ref_matcher.probe_offsets(L, k, 3)
+    lanes, _ = ref_packed.pack_lanes(reads)
+    fn = jax.jit(ref_matcher._make_probe(R, L, offs, k, i_pad, wpf, 33,
+                                         n_verify=n_verify))
+    mis_r, pos_r = jax.device_get(fn(jnp.asarray(lanes), jnp.asarray(ihash),
+                                     jnp.asarray(ipos), jnp.asarray(pg_lanes),
+                                     index.pg_len))
+    ih_t, ip_t = state.index_to_device(ihash, ipos, "cpu")
+    mis, pos = port_matcher.probe(
+        uint.np_u32_to_tensor(lanes, "cpu"), torch.tensor(offs, dtype=torch.int32),
+        ih_t, ip_t, uint.np_u32_to_tensor(pg_lanes, "cpu"), index.pg_len, L, k,
+        33, n_verify)
+    np.testing.assert_array_equal(mis.numpy(), mis_r)
+    np.testing.assert_array_equal(pos.numpy(), pos_r)
+    assert 0.5 < (mis_r != 255).mean() < 1.0
+
+
+def _run_xla_numpy(pg, rl, st):
+    """exp_pallas_verify.run_xla (the Pallas kernel's plain reference) in
+    numpy: per-start packed mismatch counts, 9 pg lanes per window, W = 7
+    read lanes of 8 (lane 7 masked out)."""
+    W = (L + 15) // 16
+    lane_mask = np.full(8, 0xFFFFFFFF, dtype=np.uint64)
+    lane_mask[W - 1] = (0xFFFFFFFF << (32 - 2 * (L - (W - 1) * 16))) & 0xFFFFFFFF
+    lane_mask[7] = 0
+    q = st >> 4
+    s2 = ((st & 15) << 1).astype(np.uint64)[..., None]
+    lane_ids = np.clip(q[..., None] + np.arange(9)[None, None, :], 0, pg.size - 1)
+    tl = pg[lane_ids].astype(np.uint64)
+    hi = (tl[..., :8] << s2) & np.uint64(0xFFFFFFFF)
+    lo = np.where(s2 > 0, tl[..., 1:9] >> (np.uint64(32) - s2), np.uint64(0))
+    x = ((hi | lo) & lane_mask) ^ (rl[:, None, :].astype(np.uint64) & lane_mask)
+    y = (x | (x >> np.uint64(1))) & np.uint64(0x55555555)
+    bits = np.unpackbits(y.astype("<u4").view(np.uint8), axis=-1)
+    return bits.reshape(*y.shape, 32).sum(axis=(-1, -2)).astype(np.int64)
+
+
+def test_verify_matches_pallas_plain_reference():
+    """Kernel A's window count against the Pallas experiment's own plain
+    reference: R=1024, S=3, random lanes, start residues 0 and 15 included."""
+    rng = np.random.default_rng(5)
+    pgl, S = 1 << 12, 3
+    pg = rng.integers(0, 2**32, size=pgl, dtype=np.uint64).astype(np.uint32)
+    rl = rng.integers(0, 2**32, size=(R, 8), dtype=np.uint64).astype(np.uint32)
+    st = rng.integers(0, (pgl - 8) * 16, size=(R, S)).astype(np.int64)
+    st[:, 0] -= st[:, 0] % 16           # residue 0: no cross-lane shift
+    st[:, 1] += 15 - st[:, 1] % 16      # residue 15: the widest shift
+    want = _run_xla_numpy(pg, rl, st)
+    rl_t, pg_t = uint.np_u32_to_tensor(rl, "cpu"), uint.np_u32_to_tensor(pg, "cpu")
+    st_t = torch.from_numpy(st)
+    for j in range(S):
+        got = verify.window_mismatches(rl_t, st_t[:, j], pg_t, L)
+        np.testing.assert_array_equal(got.numpy(), want[:, j])
+    # best over all slots, ties to the lower start: the (mis, pos) minimum
+    mis, pos = verify.verify_best_plain(
+        rl_t, st_t.to(torch.int32), torch.ones((R, S), dtype=torch.bool), pg_t,
+        pgl * 16, L, 254, S)
+    best = np.lexsort((st, want), axis=1)[:, 0]
+    np.testing.assert_array_equal(mis.numpy(), want[np.arange(R), best])
+    np.testing.assert_array_equal(pos.numpy(), st[np.arange(R), best])
+
+
+@pytest.mark.parametrize("k,k1", [(32, 4), (24, 2)])
+def test_index_hash_matches_reference(pg_case, k, k1):
+    """Kernel B against the reference's device build_fn and against the host
+    `_window_hashes` sampled every k1, up to the last window."""
+    pg, _ = pg_case
+    index, ihash, ipos, pg_lanes, _, _ = _ref_device_index(pg, k, k1)
+    pg_t = state.pg_lanes_to_device(pg, "cpu")
+    m = (pg_t.numel() - 1) * 16 // k1
+    h_t, p_t = kmer_hash.index_kmer_hash_plain(pg_t, k, k1, pg.size, m)
+    h, p = uint.tensor_to_np_u32(h_t), p_t.numpy()
+    np.testing.assert_array_equal(p, ipos[:m])
+    assert (ipos[m:] == -1).all()
+    valid = p >= 0
+    np.testing.assert_array_equal(h[valid], ihash[:m][valid])
+    host = ref_matcher._window_hashes(pg, k)[::k1]
+    assert valid.sum() == host.size and p[valid][-1] > pg.size - k - k1
+    np.testing.assert_array_equal(h[valid], host)
+
+
+@pytest.mark.parametrize("k", [32, 24])
+def test_probe_hash_matches_window_hashes(pg_case, k):
+    """Kernel C: the anchor hash at every probe offset equals the
+    reference's k-window hash of the read."""
+    _, reads = pg_case
+    offs = ref_matcher.probe_offsets(L, k, 3)
+    lanes, _ = ref_packed.pack_lanes(reads)
+    got = uint.tensor_to_np_u32(kmer_hash.probe_kmer_hash_plain(
+        uint.np_u32_to_tensor(lanes, "cpu"), torch.tensor(offs, dtype=torch.int32), k))
+    want = np.stack([ref_matcher._window_hashes(r, k)[list(offs)] for r in reads])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("with_n", [False, True])
+def test_sweep_roll_entries_matches_reference_rounds(with_n):
+    """Kernel D: rounds 1..6 of roll + entries against the reference's
+    round arithmetic in numpy (`_pow_table64`, the inverse bases)."""
+    rng = np.random.default_rng(7 + with_n)
+    n = 500
+    codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
+    if with_n:
+        codes[rng.random((n, L)) < 0.02] = 4
+    v = codes.astype(np.uint64)
+    a_s = rng.random(n) < 0.7
+    a_p = rng.random(n) < 0.7
+    hs = [rng.integers(0, 2**64, n, dtype=np.uint64) for _ in range(4)]
+    lanes, nmask = state.lanes_to_device(*ref_packed.pack_lanes(codes), "cpu")
+    assert (nmask is not None) == with_n
+    gid = torch.arange(n, dtype=torch.int32)
+    ts = [state.hashes_to_device(h.copy(), "cpu") for h in hs]
+    pa, pb = ref_scs._pow_table64(L), ref_scs._pow_table64(L, ref_scs.HASH_BASE64B)
+    h, p, h2, p2 = hs
+    INV64, INV32 = np.uint64(2**64 - 1), 0xFFFFFFFF
+    with np.errstate(over="ignore"):
+        for i in range(1, 7):
+            h = h - v[:, i - 1] * pa[L - i]
+            h2 = h2 - v[:, i - 1] * pb[L - i]
+            p = (p - v[:, L - i]) * ref_scs.HASH_BASE64_INV
+            p2 = (p2 - v[:, L - i]) * ref_scs.HASH_BASE64B_INV
+            k1, k2, orig, v2 = sweep.sweep_roll_entries_plain(
+                lanes, nmask, gid, torch.from_numpy(a_s), torch.from_numpy(a_p),
+                i, L, *ts)
+            np.testing.assert_array_equal(
+                uint.tensor_to_np_u64(uint.from_order_key64(k1)),
+                np.concatenate([np.where(a_p, p, INV64), np.where(a_s, h, INV64)]))
+            ids = np.arange(n, dtype=np.int64)
+            np.testing.assert_array_equal(k2.numpy(), np.concatenate(
+                [np.where(a_p, ids, INV32), np.where(a_s, ids | 0x80000000, INV32)]))
+            np.testing.assert_array_equal(orig.numpy(), np.arange(2 * n))
+            np.testing.assert_array_equal(uint.tensor_to_np_u64(v2),
+                                          np.concatenate([p2, h2]))
+            for t, want in zip(ts, (h, p, h2, p2)):
+                np.testing.assert_array_equal(uint.tensor_to_np_u64(t), want)
+
+
+@pytest.mark.parametrize("L_rc,with_n", [(100, False), (100, True), (80, True), (37, True)])
+def test_revcomp_lanes_matches_reference(L_rc, with_n):
+    """The matcher's reverse-complement prep (K8) against packed.revcomp_lanes."""
+    rng = np.random.default_rng(L_rc)
+    codes = rng.integers(0, 4, size=(200, L_rc), dtype=np.uint8)
+    if with_n:
+        codes[rng.random(codes.shape) < 0.03] = 4
+    lanes, nmask = ref_packed.pack_lanes(codes)
+    want = ref_packed.revcomp_lanes(lanes, L_rc, nmask)
+    lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
+    got = uint.tensor_to_np_u32(port_packed.revcomp_lanes(lt, L_rc, nt))
+    np.testing.assert_array_equal(got, want)

@@ -1,0 +1,112 @@
+"""The port's device sweep against the reference's (both forced past their
+numpy mirror with _HOST_SWEEP_MAX = 0): identical links, bit for bit."""
+import numpy as np
+import pytest
+
+from pgrc_tpu.core import packed as ref_packed
+from pgrc_tpu.overlap import greedy_scs as ref
+from pgrc_tpu_torch import state
+from pgrc_tpu_torch.overlap import greedy_scs as port
+from pgrc_tpu_torch.utils import uint
+from test_overlap import sample_genome_reads
+
+N_READS, L = 2500, 100   # one padded shape (3072 rows) for every reference call
+
+
+@pytest.fixture(autouse=True)
+def device_sweep_both(monkeypatch):
+    monkeypatch.setattr(ref, "_HOST_SWEEP_MAX", 0)
+    monkeypatch.setattr(port, "_HOST_SWEEP_MAX", 0)
+
+
+def reads(seed, n_frac=0.0, dup_frac=0.05):
+    """Genome reads at ~10x, a few exact duplicates, N in a fraction of rows."""
+    codes = sample_genome_reads(N_READS, L, 25_000, seed=seed)
+    rng = np.random.default_rng(seed)
+    dup = np.nonzero(rng.random(N_READS) < dup_frac)[0]
+    codes[dup] = codes[rng.integers(0, N_READS, dup.size)]
+    rows = np.nonzero(rng.random(N_READS) < n_frac)[0]
+    codes[rows, rng.integers(0, L, rows.size)] = 4
+    return codes
+
+
+def assert_same_links(a, b):
+    np.testing.assert_array_equal(a.succ, b.succ)
+    np.testing.assert_array_equal(a.overlap, b.overlap)
+    assert (a.succ >= 0).sum() > N_READS // 2
+
+
+@pytest.mark.parametrize("seed,coef,n_frac", [
+    (1, 1.0, 0.0), (2, 1.0, 0.0), (3, 1.0, 0.0),   # three seeds
+    (4, 1.0, 0.05),                                # reads with N
+    (5, 0.65, 0.0), (6, 0.65, 0.05),               # the division's depth
+])
+def test_find_overlaps_matches_reference(seed, coef, n_frac):
+    codes = reads(seed, n_frac)
+    assert_same_links(ref.find_overlaps(codes, coef),
+                      port.find_overlaps(codes, coef, device="cpu"))
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_repair_mode_matches_reference(seed):
+    """init_active: only the given ends take part, no duplicate linking."""
+    codes = reads(seed, 0.02)
+    rng = np.random.default_rng(seed)
+    act = (rng.random(N_READS) < 0.6, rng.random(N_READS) < 0.6)
+    a = ref.find_overlaps(codes, 1.0, init_active=act)
+    b = port.find_overlaps(codes, 1.0, init_active=act, device="cpu")
+    np.testing.assert_array_equal(a.succ, b.succ)
+    np.testing.assert_array_equal(a.overlap, b.overlap)
+    assert (a.succ >= 0).any()
+
+
+@pytest.mark.parametrize("seed", [9, 10])
+def test_compaction_keeps_links(monkeypatch, seed):
+    """With the one-segment threshold lowered the port compacts its table
+    between segments; the reference's table is small enough to never
+    compact. Compaction moves rows only, so the links stay the reference's."""
+    monkeypatch.setattr(port, "_ONE_SEGMENT_MAX_ROWS", 64)
+    compactions = []
+    real_round = port._round
+
+    def spy(i, L_, t, succ_g, ovl_g):
+        compactions.append(t["ids"].numel())
+        return real_round(i, L_, t, succ_g, ovl_g)
+
+    monkeypatch.setattr(port, "_round", spy)
+    codes = reads(seed, 0.02)
+    assert_same_links(ref.find_overlaps(codes, 1.0),
+                      port.find_overlaps(codes, 1.0, device="cpu"))
+    assert len(set(compactions)) > 3 and min(compactions) < N_READS // 4
+
+
+@pytest.mark.parametrize("with_n", [False, True])
+def test_init_hashes_and_links_match_reference(with_n):
+    """K1/K4: both full-read hashes and the duplicate links of the init."""
+    n = 3072  # a bucket size, so the reference adds no padding rows
+    rng = np.random.default_rng(12 + with_n)
+    codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
+    codes[rng.integers(0, n, 800)] = codes[rng.integers(0, n, 800)]
+    if with_n:
+        codes[rng.random((n, L)) < 0.002] = 4
+    lanes, nmask = ref_packed.pack_lanes(codes)
+    init_fn = ref._build_init_fn(n, L, with_n)
+    nm = nmask if with_n else np.zeros((n, 1), np.uint32)
+    want = [np.asarray(x) for x in init_fn(lanes, nm, np.int32(n))]
+    lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
+    h0, h0b = port._full_hashes(lt, nt, L)
+    succ, ovl, a_s, a_p = port._init_links(h0, h0b, L)
+    got = [uint.tensor_to_np_u64(h0), uint.tensor_to_np_u64(h0b), a_s.numpy(),
+           a_p.numpy(), succ.numpy(), ovl.numpy()]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert (want[4] >= 0).sum() > 100
+
+
+def test_divide_and_generate_matches_reference():
+    codes = reads(13, 0.0)
+    k_r, pg_r, order_r, pos_r = ref.divide_and_generate(codes, 0.65)
+    k_p, pg_p, order_p, pos_p = port.divide_and_generate(codes, 0.65, device="cpu")
+    for a, b in ((k_r, k_p), (pg_r, pg_p), (order_r, order_p), (pos_r, pos_p)):
+        np.testing.assert_array_equal(a, b)
+    assert 0 < pg_r.size < N_READS * L // 4
