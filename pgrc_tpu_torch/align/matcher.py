@@ -1,13 +1,17 @@
-"""Read -> pseudogenome matcher on torch: the single-pass path of
-pgrc_tpu/align/matcher.py `match_reads` (:584-760).
+"""Read -> pseudogenome matcher on torch: pgrc_tpu/align/matcher.py
+`match_reads` (:584-760) on one device.
 
 Per read and strand: hash a k-mer anchor at every probe offset (kernel C),
-join the anchors with the pg's sampled k-mer table (kernel B) so each gets
-the lowest-position index entry of exactly its hash, turn anchors into
-candidate starts, and verify the first n_verify in-range starts against the
-packed pg, keeping the (mismatches, position) minimum (kernel A). Reads both
-strands missed go to the reference's host rescue. Results are bit-identical
-to the reference's; the host pieces (offsets, batch cap, rescue) are its own.
+join the anchors with each block of the pg's sampled k-mer table (kernel B)
+so each gets the block's lowest-position index entry of exactly its hash,
+turn anchors into candidate starts, and verify the first n_verify in-range
+starts against the packed pg, keeping the (mismatches, position) minimum
+(kernel A). Blocks merge by the reference's rule (matcher.py:447-458).
+With `accept_mis > 0` (`-l N`) a spread-offset first pass accepts reads
+early and only the others fan out (:625-724). Reads both strands missed go
+to the reference's host rescue. Pgs past 2^31 symbols carry int64
+positions (the wide probe). Results are bit-identical to the reference's;
+the host pieces (offsets, batch cap, rescue) are its own.
 """
 from __future__ import annotations
 
@@ -17,9 +21,9 @@ import numpy as np
 import torch
 
 from pgrc_tpu.align.matcher import (  # noqa: F401  (re-exported host layer)
-    DEFAULT_CAP, DEFAULT_K2, KmerIndex, MatchResult,
-    _MAX_INDEX_BLOCK, _POS_BITS, _batch_cap, _build_rescue_index,
-    _interleaved_rescue, build_index, probe_offsets)
+    DEFAULT_CAP, DEFAULT_K2, KmerIndex, MatchResult, _POS_BITS, _batch_cap,
+    _build_rescue_index, _interleaved_rescue, _probe_bucket, _spread_offsets,
+    build_index, probe_offsets)
 from pgrc_tpu.core import packed as ref_packed
 from pgrc_tpu.utils.trace import span
 
@@ -31,29 +35,50 @@ from ..utils.uint import U32_MASK, i32_to_u32
 
 _POS_MASK = (1 << _POS_BITS) - 1
 _JOIN_MAX = 1 << 28   # the carry pack stays below 2^63 while seg_start < 2^28
+# index entries per block, the reference's value (matcher.py:466); read at
+# call time, so setting it here reaches every call
+_MAX_INDEX_BLOCK = 1 << 26
 
 
-def device_index(index: KmerIndex, pg_codes: np.ndarray, device):
-    """(ihash int32 bits, ipos int32, pg_lanes int32) on `device`.
+def device_index(index: KmerIndex, pg_codes: np.ndarray, device, wide: bool = False,
+                 max_block: int | None = None):
+    """(blocks, pg_lanes int32, i_pad): the index as a list of (ihash int32
+    bits, ipos) blocks on `device`, ipos int64 when `wide`, else int32;
+    i_pad is the reference's padded block size, which sets the batch cap.
 
-    A lazy index (`build_index(..., device_sort=True)`, the encoder's) is
-    built by kernel B from the packed pg, one entry every k1 symbols over the
-    pg's lanes, positions past pg_len - k inert (-1). A host-built table is
-    moved across as it is."""
+    Block boundaries are the reference's (matcher.py:537-581), because each
+    block's join picks its own lowest-position entry per hash and so decides
+    which equally good match a read gets. A lazy index
+    (`build_index(..., device_sort=True)`, the encoder's) splits the pg's
+    lanes, padded to the reference's pow2 bucket, into uniform blocks and
+    builds each with kernel B from the packed pg; a block past the pg's last
+    k-mer holds only inert entries and is skipped, as are the inert entries
+    past the pg's last lane. A host-built table is cut into `per`-entry
+    blocks and moved across."""
     pg_lanes = state.pg_lanes_to_device(pg_codes, device)
+    n_lanes = pg_lanes.numel() - 1
+    max_block = max_block or _MAX_INDEX_BLOCK
+    blocks = []
     if index.hash_sorted is None:
         if 16 % index.k1:
             raise ValueError("the device index build needs k1 to divide 16")
-        m = (pg_lanes.numel() - 1) * 16 // index.k1
-        if m > _MAX_INDEX_BLOCK:
-            raise NotImplementedError(
-                f"a {m}-entry index needs blocked probing (ROADMAP queue 1 item 8)")
-        ihash, ipos = index_kmer_hash(pg_lanes, index.k, index.k1, index.pg_len, m)
-    else:
-        if index.pos_sorted.size > _MAX_INDEX_BLOCK:
-            raise NotImplementedError("blocked index probing is ROADMAP queue 1 item 8")
-        ihash, ipos = state.index_to_device(index.hash_sorted, index.pos_sorted, device)
-    return ihash, ipos, pg_lanes
+        wpf = _probe_bucket(n_lanes + 1)
+        n_blocks = max(1, -(-(wpf * 16 // index.k1) // max_block))
+        wp = min(_probe_bucket(-(-wpf // n_blocks)), wpf)
+        for lane_off in range(0, wpf, wp):
+            if lane_off * 16 > index.pg_len - index.k:
+                break
+            m = (min(lane_off + wp, n_lanes) - lane_off) * 16 // index.k1
+            blocks.append(index_kmer_hash(pg_lanes, index.k, index.k1, index.pg_len,
+                                          m, lane_off, wide))
+        return blocks, pg_lanes, wp * 16 // index.k1
+    n_ent = index.pos_sorted.size
+    n_blocks = max(1, -(-n_ent // max_block))
+    per = -(-max(n_ent, 1) // n_blocks)
+    for lo in range(0, n_ent, per):
+        blocks.append(state.index_to_device(index.hash_sorted[lo:lo + per],
+                                            index.pos_sorted[lo:lo + per], device, wide))
+    return blocks, pg_lanes, _probe_bucket(per)
 
 
 def join_anchors(hashes: torch.Tensor, ihash: torch.Tensor, ipos: torch.Tensor):
@@ -97,56 +122,107 @@ def join_anchors(hashes: torch.Tensor, ihash: torch.Tensor, ipos: torch.Tensor):
 
 def probe(read_lanes, offs_t, ihash, ipos, pg_lanes, pg_len: int, L: int,
           k: int, max_mis: int, n_verify: int):
-    """Probe + verify of one row batch (matcher.py:208-308): (mis uint8,
-    pos int32) per row."""
+    """Probe + verify of one row batch against one index block
+    (matcher.py:208-308): (mis uint8, pos) per row, pos int64 for an int64
+    (wide) block, else int32."""
     hashes = probe_kmer_hash(read_lanes, offs_t, k)
     res = join_anchors(hashes, ihash, ipos)
     start_all = res - 1 - offs_t.to(torch.int64)[None, :]
     in_range = (res > 0) & (start_all >= 0) & (start_all <= pg_len - L)
-    return verify_best(read_lanes, start_all.to(torch.int32), in_range, pg_lanes,
+    if ipos.dtype != torch.int64:
+        start_all = start_all.to(torch.int32)
+    return verify_best(read_lanes, start_all, in_range, pg_lanes,
                        max(pg_len - L, 0), L, max_mis, n_verify)
+
+
+def probe_rows(lanes, offs, blocks, pg_lanes, pg_len: int, L: int, k: int,
+               max_mis: int, n_verify: int, batch: int):
+    """Probe every row of `lanes` in batches of `batch` rows against every
+    index block; per batch the blocks merge by the reference's rule
+    (matcher.py:447-458): fewer mismatches win, and on equal mismatches a
+    valid position below the current one. -> host (mis uint8, pos int64)."""
+    offs_t = torch.tensor(offs, dtype=torch.int32, device=pg_lanes.device)
+    mis_parts, pos_parts = [], []
+    for lo in range(0, lanes.shape[0], batch):
+        rows = lanes[lo:lo + batch]
+        best_m = best_p = None
+        for ihash, ipos in blocks:
+            mis, pos = probe(rows, offs_t, ihash, ipos, pg_lanes, pg_len, L, k,
+                             max_mis, n_verify)
+            pos = pos.to(torch.int64)
+            if best_m is None:   # merging into (255, -1) takes the block as it is
+                best_m, best_p = mis, pos
+                continue
+            better = (mis < best_m) | ((mis == best_m) & (pos >= 0)
+                                       & ((best_p < 0) | (pos < best_p)))
+            best_m = torch.where(better, mis, best_m)
+            best_p = torch.where(better, pos, best_p)
+        mis_parts.append(best_m)
+        pos_parts.append(best_p)
+    return state.match_from_device(torch.cat(mis_parts), torch.cat(pos_parts))
 
 
 def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
                 max_mismatches: int, cap: int = DEFAULT_CAP, k2: int = DEFAULT_K2,
-                accept_mis: int = 0, *, device) -> MatchResult:
-    """Match every read against the indexed pg, both strands, in one
-    full-fan-out pass (the reference's single-pass mode, accept_mis <= 0,
-    which the NORMAL level uses). N symbols probe as A; the encoder
-    re-verifies N rows exactly."""
+                accept_mis: int = 0, *, force_wide: bool = False,
+                index_block: int | None = None, device) -> MatchResult:
+    """Match every read against the indexed pg, both strands.
+
+    With accept_mis <= 0 (the NORMAL level's default) one full-fan-out pass
+    probes every read, unless `PGRC_TPU_TWO_PASS` is set, as in the
+    reference; otherwise pass 1 probes the k1 spread offsets and verifies
+    the first anchor, and only reads with more than accept_mis mismatches on
+    both strands fan out in pass 2, which replaces a result only with
+    strictly fewer mismatches. N symbols probe as A; the encoder re-verifies
+    N rows exactly. pgs past 2^31 symbols take the wide (int64 position)
+    probe, which `force_wide` selects on any input; `index_block` overrides
+    the entries per index block."""
     n, L = read_codes.shape
     out_pos = np.full(n, -1, dtype=np.int64)
     out_rc = np.zeros(n, dtype=bool)
     out_mis = np.full(n, 255, dtype=np.uint8)
     if n == 0 or index.n_entries == 0 or index.pg_len < L:
         return MatchResult(out_pos, out_rc, out_mis)
-    if accept_mis > 0 or os.environ.get("PGRC_TPU_TWO_PASS"):
-        raise NotImplementedError("two-pass matching (-l N) is ROADMAP queue 1 item 8")
-    if index.pg_len > 0x7FFF0000 - L:
-        raise NotImplementedError("pgs past 2^31 symbols need the wide i64 probe "
-                                  "(ROADMAP queue 1 item 8)")
+    wide = force_wide or index.pg_len > 0x7FFF0000 - L
+    if index.pg_len > (1 << 35):
+        raise NotImplementedError("pg longer than 2^35 symbols exceeds the "
+                                  "35-bit position field of the join")
     with span(f"match device_index pg={index.pg_len}"):
-        ihash, ipos, pg_lanes = device_index(index, pg_codes, device)
-    offs = probe_offsets(L, index.k, k2)
-    offs_t = torch.tensor(offs, dtype=torch.int32, device=pg_lanes.device)
-    n_verify = max(2, min(cap, 6))
-    batch = _batch_cap(ihash.numel(), len(offs))
+        blocks, pg_lanes, i_pad = device_index(index, pg_codes, device, wide,
+                                               index_block)
+    offs_full = probe_offsets(L, index.k, k2)
+    single_pass = accept_mis <= 0 and not os.environ.get("PGRC_TPU_TWO_PASS")
+    offs_p1 = offs_full if single_pass else _spread_offsets(offs_full, index.k1)
+    n_verify2 = max(2, min(cap, 6))
     with span(f"match pack n={n}"):
         lanes, nmask = state.lanes_to_device(*ref_packed.pack_lanes(read_codes),
                                              pg_lanes.device)
         # rows [0, n) forward, [n, 2n) reverse complement
         lanes_fr = torch.cat([lanes, revcomp_lanes(lanes, L, nmask)])
-    mis_parts, pos_parts = [], []
-    with span(f"match probe rows=2x{n} offs={len(offs)}"):
-        for lo in range(0, 2 * n, batch):
-            mis_b, pos_b = probe(lanes_fr[lo:lo + batch], offs_t, ihash, ipos,
-                                 pg_lanes, index.pg_len, L, index.k,
-                                 max_mismatches, n_verify)
-            mis_parts.append(mis_b)
-            pos_parts.append(pos_b)
-        bm, bp = state.match_from_device(torch.cat(mis_parts), torch.cat(pos_parts))
+    args = (blocks, pg_lanes, index.pg_len, L, index.k, max_mismatches)
+    with span(f"match pass1 rows=2x{n} offs={len(offs_p1)} blocks={len(blocks)}"):
+        bm, bp = probe_rows(lanes_fr, offs_p1, *args,
+                            n_verify2 if single_pass else 1,
+                            _batch_cap(i_pad, len(offs_p1)))
     fm, rm = bm[:n].copy(), bm[n:].copy()
     fp, rp = bp[:n].copy(), bp[n:].copy()
+
+    # pass 2: the full fan-out on both strands of the reads pass 1 did not
+    # accept (matcher.py:696-724); the row take is the reference's p2gather
+    rows = (np.zeros(0, dtype=np.int64) if single_pass
+            else np.nonzero(np.minimum(fm, rm) > accept_mis)[0])
+    if rows.size:
+        k = rows.size
+        take = torch.from_numpy(np.concatenate([rows, n + rows])).to(pg_lanes.device)
+        with span(f"match pass2 rows={2 * k}"):
+            mis_t, pos_t = probe_rows(torch.index_select(lanes_fr, 0, take), offs_full,
+                                      *args, n_verify2, _batch_cap(i_pad, len(offs_full)))
+        better_f = mis_t[:k] < fm[rows]
+        fm[rows] = np.where(better_f, mis_t[:k], fm[rows])
+        fp[rows] = np.where(better_f, pos_t[:k], fp[rows])
+        better_r = mis_t[k:] < rm[rows]
+        rm[rows] = np.where(better_r, mis_t[k:], rm[rows])
+        rp[rows] = np.where(better_r, pos_t[k:], rp[rows])
 
     # interleaved-anchor rescue for reads both strands missed (host, the
     # reference's own pass 3, matcher.py:726-752)

@@ -5,9 +5,9 @@ The flags of `pgrc_tpu.cli` plus `--device` (default `cuda`):
   decompress: python -m pgrc_tpu_torch.cli -d <archive> (writes <archive>_out[_1|_2])
   validate:   python -m pgrc_tpu_torch.cli -d -i <orig.fastq> [orig2.fastq] <archive>
 
-Decompression and validation are host code and delegate to
-`pgrc_tpu.archive.decoder`. Paths the port does not have yet raise
-NotImplementedError naming their ROADMAP item; they never run something else.
+Every mode (SE, PE, MIN_PE, SE_ORD, PE_ORD) and flag of the reference runs
+on one device. Decompression and validation are host code and delegate to
+`pgrc_tpu.archive.decoder`.
 """
 from __future__ import annotations
 
@@ -97,8 +97,6 @@ def main(argv=None) -> int:
                                   args.i[1] if len(args.i) > 1 else None)
         print(props.summary())
         return 0
-    if args.l:
-        raise NotImplementedError("two-pass matching (-l N, N > 0) is ROADMAP queue 1 item 8")
     from pgrc_tpu.config import PgRCParams
 
     from .archive import encoder

@@ -3,8 +3,9 @@
 Every wrapper dispatches on where its tensors live: CPU tensors run the
 plain version (the CPU tests and the kernels' reference), CUDA tensors
 launch the kernel — with no try and no fallback: a build or launch failure
-raises. `launches` counts kernel launches per kernel, so a run can show
-that its main path went through the kernels.
+raises. `launches` counts kernel launches per kernel, and per position type
+where a kernel has an int64 form (`<name>.int64`, the wide probe of pgs past
+2^31 symbols), so a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -14,8 +15,8 @@ import torch
 
 from . import build
 
-launches = {"verify_best": 0, "index_kmer_hash": 0, "probe_kmer_hash": 0,
-            "sweep_roll_entries": 0}
+launches = {"verify_best": 0, "verify_best.int64": 0, "index_kmer_hash": 0,
+            "index_kmer_hash.int64": 0, "probe_kmer_hash": 0, "sweep_roll_entries": 0}
 
 
 def reset_launches() -> None:

@@ -1,12 +1,12 @@
 """Build the CUDA kernels in `csrc/` and load them with ctypes.
 
 `nvcc -gencode arch=compute_90a,code=sm_90a` compiles every `csrc/*.cu`
-into one shared library with a plain C interface, in `build/` beside this
-file, named by a hash of the sources and flags: a changed source builds
-anew, an unchanged one loads the library already there. Nothing is built
-when this module is imported; the first kernel launch (or an explicit
-`build()`) runs nvcc. Each entry point returns the `cudaError_t` of its
-launch.
+(one nvcc per source, all started together) and links the objects into one
+shared library with a plain C interface, in `build/` beside this file,
+named by a hash of the sources and flags: a changed source builds anew, an
+unchanged one loads the library already there. Nothing is built when this
+module is imported; the first kernel launch (or an explicit `build()`) runs
+nvcc. Each entry point returns the `cudaError_t` of its launch.
 """
 from __future__ import annotations
 
@@ -24,15 +24,16 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _I64, _U32, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                             ctypes.c_uint32, ctypes.c_uint64)
 # entry point -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
-    "pgrc_verify_best": [_I, _P, _P, _I64, _I, _I, _P, _P, _I, _P, _I64,
-                         ctypes.c_int32, _U32, _I, _I, _P, _P],
-    "pgrc_index_kmer_hash": [_I, _P, _P, _I64, _I, _I, _I64, _I64, _P, _P],
+    "pgrc_verify_best": [_I, _P, _P, _I64, _I, _I, _P, _P, _I, _P, _I64, _I64,
+                         _U32, _I, _I, _I, _P, _P],
+    "pgrc_index_kmer_hash": [_I, _P, _P, _I64, _I, _I, _I64, _I64, _I64, _I,
+                             _P, _P],
     "pgrc_probe_kmer_hash": [_I, _P, _P, _I64, _I, _P, _I, _I, _P],
     "pgrc_sweep_roll_entries": [_I, _P, _I64, _P, _I, _P, _I, _P, _P, _P, _I,
                                 _I, _U64, _U64, _U64, _U64, _P, _P, _P, _P,
@@ -78,13 +79,29 @@ def build() -> Build:
         return Build(so, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
     t0 = time.time()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    log, failed = "", []
+    for s, p in zip(srcs, procs):
+        out = p.communicate()[0]
+        log += out
+        if p.returncode != 0:
+            failed.append(f"{os.path.basename(s)} ({p.returncode}):\n{out}")
+    if not failed:
+        link = subprocess.run([nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr}")
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, so)
-    return Build(so, time.time() - t0, proc.stdout + proc.stderr)
+    return Build(so, time.time() - t0, log)
 
 
 def lib() -> ctypes.CDLL:

@@ -1,9 +1,11 @@
 // Kernels B and C: u32 polynomial k-mer hashes over packed 2-bit lanes.
 //
 // B, index_kmer_hash, replaces pgrc_tpu/align/matcher.py
-// `_build_index_build_fn.build_fn` (:469-517): the sampled k-mer table of
-// the pseudogenome, one entry every k1 symbols, positions past pg_len - k
-// marked -1 (inert to the probe join).
+// `_build_index_build_fn.build_fn` (:469-517): one block of the sampled k-mer
+// table of the pseudogenome, the entries of the lanes from lane_off on, one
+// every k1 symbols (entry e at position lane_off*16 + e*k1), positions past
+// pg_len - k marked -1 (inert to the probe join). Positions are int32, or
+// int64 for the wide probe of pgs past 2^31 symbols (matcher.py:485, 512).
 // C, probe_kmer_hash, replaces the anchor hashes of `_make_probe.probe_fn`
 // (:213-223): for every read and every probe offset, the hash of the k
 // symbols starting there.
@@ -45,16 +47,17 @@ __device__ __forceinline__ uint32_t kmer_hash(const uint32_t* __restrict__ lanes
   return h;
 }
 
+template <typename Pos>
 __global__ void index_kmer_hash_kernel(const uint32_t* __restrict__ pg,
                                        int64_t n_lanes, int k, int k1,
-                                       int64_t pg_len, int64_t m,
+                                       int64_t pos0, int64_t pg_len, int64_t m,
                                        uint32_t* __restrict__ ihash,
-                                       int32_t* __restrict__ ipos) {
+                                       Pos* __restrict__ ipos) {
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= m) return;
-  const int64_t pos = e * k1;
+  const int64_t pos = pos0 + e * k1;
   ihash[e] = kmer_hash(pg, n_lanes, pos, k);
-  ipos[e] = pos <= pg_len - k ? (int32_t)pos : -1;
+  ipos[e] = pos <= pg_len - k ? (Pos)pos : (Pos)-1;
 }
 
 __global__ void probe_kmer_hash_kernel(const uint32_t* __restrict__ reads,
@@ -71,17 +74,24 @@ __global__ void probe_kmer_hash_kernel(const uint32_t* __restrict__ reads,
 
 }  // namespace
 
+// wide != 0: ipos is int64_t, else int32_t (every valid position < 2^31)
 extern "C" int pgrc_index_kmer_hash(int device, void* stream, const void* pg,
                                     int64_t n_lanes, int k, int k1,
-                                    int64_t pg_len, int64_t m, void* ihash,
-                                    void* ipos) {
+                                    int64_t lane_off, int64_t pg_len, int64_t m,
+                                    int wide, void* ihash, void* ipos) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (m == 0) return 0;
-  index_kmer_hash_kernel<<<(unsigned)((m + 255) / 256), 256, 0,
-                           (cudaStream_t)stream>>>(
-      (const uint32_t*)pg, n_lanes, k, k1, pg_len, m, (uint32_t*)ihash,
-      (int32_t*)ipos);
+  const unsigned grid = (unsigned)((m + 255) / 256);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (wide)
+    index_kmer_hash_kernel<int64_t><<<grid, 256, 0, s>>>(
+        (const uint32_t*)pg, n_lanes, k, k1, lane_off * 16, pg_len, m,
+        (uint32_t*)ihash, (int64_t*)ipos);
+  else
+    index_kmer_hash_kernel<int32_t><<<grid, 256, 0, s>>>(
+        (const uint32_t*)pg, n_lanes, k, k1, lane_off * 16, pg_len, m,
+        (uint32_t*)ihash, (int32_t*)ipos);
   return (int)cudaGetLastError();
 }
 

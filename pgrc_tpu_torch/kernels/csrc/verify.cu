@@ -28,13 +28,20 @@ __device__ __forceinline__ int64_t clamp_lane(int64_t i, int64_t n) {
   return i < n ? i : n - 1;
 }
 
-template <int W>
+// Pos: int32_t, or int64_t for the wide probe of pgs past 2^31 symbols
+// (matcher.py:180-181, positions up to 2^35). Its largest value starts the
+// best position, as the reference's big_pos does.
+template <typename Pos> struct PosMax;
+template <> struct PosMax<int32_t> { static constexpr int32_t value = INT32_MAX; };
+template <> struct PosMax<int64_t> { static constexpr int64_t value = INT64_MAX; };
+
+template <int W, typename Pos>
 __global__ void verify_best_kernel(
     const uint32_t* __restrict__ reads, int64_t n_reads, int ld_reads,
-    const int32_t* __restrict__ start_all, const uint8_t* __restrict__ in_range,
+    const Pos* __restrict__ start_all, const uint8_t* __restrict__ in_range,
     int n_slots, const uint32_t* __restrict__ pg, int64_t pg_lanes_len,
-    int32_t pg_top, uint32_t tail_mask, int max_mis, int n_verify,
-    uint8_t* __restrict__ out_mis, int32_t* __restrict__ out_pos) {
+    Pos pg_top, uint32_t tail_mask, int max_mis, int n_verify,
+    uint8_t* __restrict__ out_mis, Pos* __restrict__ out_pos) {
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_reads) return;
   uint32_t rl[W];
@@ -43,14 +50,14 @@ __global__ void verify_best_kernel(
   rl[W - 1] &= tail_mask;
 
   int best_mis = 255;
-  int32_t best_pos = INT32_MAX;
+  Pos best_pos = PosMax<Pos>::value;
   int taken = 0;
   for (int j = 0; j < n_slots && taken < n_verify; ++j) {
     if (!in_range[r * n_slots + j]) continue;
     ++taken;
-    int32_t st = start_all[r * n_slots + j];
+    Pos st = start_all[r * n_slots + j];
     st = st < 0 ? 0 : (st > pg_top ? pg_top : st);
-    const int64_t q = st >> 4;
+    const int64_t q = (int64_t)st >> 4;
     const uint32_t s2 = (uint32_t)(st & 15) << 1;
     int mis = 0;
     uint32_t cur = pg[clamp_lane(q, pg_lanes_len)];
@@ -72,27 +79,40 @@ __global__ void verify_best_kernel(
   }
   const bool ok = best_mis <= max_mis;
   out_mis[r] = ok ? (uint8_t)best_mis : (uint8_t)255;
-  out_pos[r] = ok ? best_pos : -1;
+  out_pos[r] = ok ? best_pos : (Pos)-1;
+}
+
+template <int W, typename Pos>
+void launch_verify(dim3 grid, dim3 block, cudaStream_t s, const void* reads,
+                   int64_t n_reads, int ld_reads, const void* start_all,
+                   const void* in_range, int n_slots, const void* pg,
+                   int64_t pg_lanes_len, int64_t pg_top, uint32_t tail_mask,
+                   int max_mis, int n_verify, void* out_mis, void* out_pos) {
+  verify_best_kernel<W, Pos><<<grid, block, 0, s>>>(
+      (const uint32_t*)reads, n_reads, ld_reads, (const Pos*)start_all,
+      (const uint8_t*)in_range, n_slots, (const uint32_t*)pg, pg_lanes_len,
+      (Pos)pg_top, tail_mask, max_mis, n_verify, (uint8_t*)out_mis,
+      (Pos*)out_pos);
 }
 
 }  // namespace
 
-#define PGRC_VERIFY_CASE(WW)                                                  \
-  case WW:                                                                    \
-    verify_best_kernel<WW><<<grid, block, 0, s>>>(                            \
-        (const uint32_t*)reads, n_reads, ld_reads, (const int32_t*)start_all, \
-        (const uint8_t*)in_range, n_slots, (const uint32_t*)pg, pg_lanes_len, \
-        pg_top, tail_mask, max_mis, n_verify, (uint8_t*)out_mis,              \
-        (int32_t*)out_pos);                                                   \
+#define PGRC_VERIFY_CASE(WW)                                                 \
+  case WW:                                                                   \
+    (wide ? launch_verify<WW, int64_t> : launch_verify<WW, int32_t>)(        \
+        grid, block, s, reads, n_reads, ld_reads, start_all, in_range,       \
+        n_slots, pg, pg_lanes_len, pg_top, tail_mask, max_mis, n_verify,     \
+        out_mis, out_pos);                                                   \
     break;
 
+// wide != 0: start_all and out_pos are int64_t, else int32_t
 extern "C" int pgrc_verify_best(int device, void* stream, const void* reads,
                                 int64_t n_reads, int W, int ld_reads,
                                 const void* start_all, const void* in_range,
                                 int n_slots, const void* pg,
-                                int64_t pg_lanes_len, int32_t pg_top,
+                                int64_t pg_lanes_len, int64_t pg_top,
                                 uint32_t tail_mask, int max_mis, int n_verify,
-                                void* out_mis, void* out_pos) {
+                                int wide, void* out_mis, void* out_pos) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_reads == 0) return 0;

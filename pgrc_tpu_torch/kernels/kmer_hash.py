@@ -1,6 +1,7 @@
 """Kernels B and C: u32 k-mer hashes of packed lanes (csrc/kmer_hash.cu).
 
-B, `index_kmer_hash`, replaces matcher.py `_build_index_build_fn` (:469-517);
+B, `index_kmer_hash`, replaces matcher.py `_build_index_build_fn` (:469-517),
+one index block per launch, int32 or (wide) int64 positions;
 C, `probe_kmer_hash`, replaces the anchor hashes of `_make_probe` (:213-223).
 H = sum_t v[t] * HASH_BASE^(k-1-t) mod 2^32 over the k 2-bit symbols.
 """
@@ -29,25 +30,33 @@ def _horner(lanes_u: torch.Tensor, sym0: torch.Tensor, k: int) -> torch.Tensor:
     return h
 
 
-def index_kmer_hash_plain(pg_lanes, k: int, k1: int, pg_len: int, m: int):
-    """Entries e = 0..m-1 at pg position e*k1: (hash int32 bits, position
-    int32, -1 past pg_len - k)."""
-    pos = torch.arange(m, dtype=torch.int64, device=pg_lanes.device) * k1
+def index_kmer_hash_plain(pg_lanes, k: int, k1: int, pg_len: int, m: int,
+                          lane_off: int = 0, wide: bool = False):
+    """Entries e = 0..m-1 of the block starting at lane `lane_off`, at pg
+    position lane_off*16 + e*k1: (hash int32 bits, position, -1 past
+    pg_len - k). Positions are int64 when `wide`, else int32."""
+    pos = lane_off * 16 + torch.arange(m, dtype=torch.int64, device=pg_lanes.device) * k1
     h = _horner(i32_to_u32(pg_lanes), pos, k)
-    return u32_to_i32(h), torch.where(pos <= pg_len - k, pos, -1).to(torch.int32)
+    ipos = torch.where(pos <= pg_len - k, pos, -1)
+    return u32_to_i32(h), ipos if wide else ipos.to(torch.int32)
 
 
-def index_kmer_hash(pg_lanes: torch.Tensor, k: int, k1: int, pg_len: int, m: int):
-    """Sampled k-mer table of the packed pg: `m` entries, one every k1
-    symbols. CUDA tensors run kernel B."""
+def index_kmer_hash(pg_lanes: torch.Tensor, k: int, k1: int, pg_len: int, m: int,
+                    lane_off: int = 0, wide: bool = False):
+    """One block of the sampled k-mer table of the packed pg: `m` entries
+    from lane `lane_off` on, one every k1 symbols. CUDA tensors run kernel B."""
     check(pg_lanes, "pg_lanes", torch.int32, (None,))
+    if not wide and pg_len - k >= 1 << 31:
+        raise ValueError("int32 index positions end at 2^31: use the wide form")
     if on_cpu(pg_lanes):
-        return index_kmer_hash_plain(pg_lanes, k, k1, pg_len, m)
+        return index_kmer_hash_plain(pg_lanes, k, k1, pg_len, m, lane_off, wide)
     ihash = torch.empty((m,), dtype=torch.int32, device=pg_lanes.device)
-    ipos = torch.empty((m,), dtype=torch.int32, device=pg_lanes.device)
+    ipos = torch.empty((m,), dtype=torch.int64 if wide else torch.int32,
+                       device=pg_lanes.device)
     launch("pgrc_index_kmer_hash", pg_lanes.device, ptr(pg_lanes),
-           pg_lanes.numel(), k, k1, pg_len, m, ptr(ihash), ptr(ipos))
-    launches["index_kmer_hash"] += 1
+           pg_lanes.numel(), k, k1, lane_off, pg_len, m, int(wide), ptr(ihash),
+           ptr(ipos))
+    launches["index_kmer_hash.int64" if wide else "index_kmer_hash"] += 1
     return ihash, ipos
 
 

@@ -2,7 +2,8 @@
 
 Replaces `exp_pallas_verify.kernel` (the repo's one Pallas kernel) and
 `pgrc_tpu.align.matcher._make_probe._verify` with its best-of-n loop
-(matcher.py:191-206, :268-308).
+(matcher.py:191-206, :268-308), with int32 or (the wide probe, :180-181)
+int64 positions.
 """
 from __future__ import annotations
 
@@ -47,12 +48,13 @@ def verify_best_plain(read_lanes, start_all, in_range, pg_lanes, pg_top: int,
     """Per read: verify the first `n_verify` in-range starts in slot order,
     each clipped to [0, pg_top]; keep the (mismatches, position) minimum;
     accept it when mismatches <= max_mis. -> (mis uint8 [R], 255 = none;
-    pos int32 [R], -1 = none)."""
+    pos [R] of start_all's dtype, int32 or int64, -1 = none)."""
     R, S = start_all.shape
     taken = in_range & (torch.cumsum(in_range.to(torch.int32), dim=1) <= n_verify)
     st_all = start_all.to(torch.int64).clamp(0, pg_top)
     best_mis = torch.full((R,), 255, dtype=torch.int64, device=read_lanes.device)
-    best_pos = torch.full((R,), 2**31 - 1, dtype=torch.int64, device=read_lanes.device)
+    best_pos = torch.full((R,), torch.iinfo(start_all.dtype).max, dtype=torch.int64,
+                          device=read_lanes.device)
     for j in range(S):
         st = st_all[:, j]
         mis = window_mismatches(read_lanes, st, pg_lanes, L)
@@ -61,33 +63,37 @@ def verify_best_plain(read_lanes, start_all, in_range, pg_lanes, pg_top: int,
         best_pos = torch.where(better, st, best_pos)
     ok = best_mis <= max_mis
     return (torch.where(ok, best_mis, 255).to(torch.uint8),
-            torch.where(ok, best_pos, -1).to(torch.int32))
+            torch.where(ok, best_pos, -1).to(start_all.dtype))
 
 
 def verify_best(read_lanes: torch.Tensor, start_all: torch.Tensor,
                 in_range: torch.Tensor, pg_lanes: torch.Tensor, pg_top: int,
                 L: int, max_mis: int, n_verify: int):
-    """read_lanes [R, W+1] int32, start_all [R, S] int32, in_range [R, S]
-    bool, pg_lanes [PGL] int32 (zero pad lane included). See
-    `verify_best_plain` for the semantics; CUDA tensors run kernel A."""
+    """read_lanes [R, W+1] int32, start_all [R, S] int32 (or int64: the wide
+    form, for pgs past 2^31 symbols), in_range [R, S] bool, pg_lanes [PGL]
+    int32 (zero pad lane included). See `verify_best_plain` for the
+    semantics; CUDA tensors run kernel A."""
     W = (L + 15) // 16
     R, S = start_all.shape
+    wide = start_all.dtype == torch.int64
     check(read_lanes, "read_lanes", torch.int32, (R, None))
-    check(start_all, "start_all", torch.int32, (R, S))
+    check(start_all, "start_all", torch.int64 if wide else torch.int32, (R, S))
     check(in_range, "in_range", torch.bool, (R, S))
     check(pg_lanes, "pg_lanes", torch.int32, (None,))
     if not 1 <= W <= 16 or read_lanes.shape[1] < W:
         raise ValueError(f"read length {L} needs 1..16 lanes per read")
     if not 0 <= max_mis < 255:
         raise ValueError("max_mis must lie in [0, 255): 255 means 'no match'")
+    if not wide and pg_top >= 1 << 31:
+        raise ValueError("int32 starts end at 2^31: use the wide (int64) form")
     if on_cpu(read_lanes, start_all, in_range, pg_lanes):
         return verify_best_plain(read_lanes, start_all, in_range, pg_lanes,
                                  pg_top, L, max_mis, n_verify)
     out_mis = torch.empty((R,), dtype=torch.uint8, device=read_lanes.device)
-    out_pos = torch.empty((R,), dtype=torch.int32, device=read_lanes.device)
+    out_pos = torch.empty((R,), dtype=start_all.dtype, device=read_lanes.device)
     launch("pgrc_verify_best", read_lanes.device, ptr(read_lanes), R, W,
            read_lanes.shape[1], ptr(start_all), ptr(in_range), S, ptr(pg_lanes),
            pg_lanes.numel(), pg_top, lane_mask(L)[-1], max_mis, n_verify,
-           ptr(out_mis), ptr(out_pos))
-    launches["verify_best"] += 1
+           int(wide), ptr(out_mis), ptr(out_pos))
+    launches["verify_best.int64" if wide else "verify_best"] += 1
     return out_mis, out_pos

@@ -28,7 +28,7 @@ import torch
 from pgrc_tpu.core import packed as ref_packed
 from pgrc_tpu.overlap.greedy_scs import (  # noqa: F401  (re-exported host layer)
     HASH_BASE64, HASH_BASE64B, OverlapResult, _SEG_PLAN, _SEG_TAIL,
-    _SWEEP_MAX_ROWS, _find_overlaps_host, _layout_and_assemble, _verify_links,
+    _find_overlaps_host, _layout_and_assemble, _verify_links,
     both_sides_overlapped)
 from pgrc_tpu.utils.trace import span
 
@@ -43,6 +43,11 @@ _HOST_SWEEP_MAX = 3072
 # a table of at most this many rows runs all its remaining rounds as one
 # segment (no more compaction)
 _ONE_SEGMENT_MAX_ROWS = 32768
+# rows of one sweep table, the reference's value (greedy_scs.py:559-565);
+# larger inputs sweep in parts and repair across them. Read at call time, so
+# setting it here reaches every call. Raising it changes the links (and so
+# the archive bytes) of inputs past 48M rows.
+_SWEEP_MAX_ROWS = 48_000_000
 
 _A = s64(int(HASH_BASE64))
 _B = s64(int(HASH_BASE64B))
@@ -142,9 +147,7 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
             codes, coef, init_state=(np.full(n, -1, np.int32), np.zeros(n, np.int32),
                                      a_s0.copy(), a_p0.copy()))
     if n > _SWEEP_MAX_ROWS and init_active is None:
-        raise NotImplementedError(
-            f"{n} reads exceed the one-table sweep ({_SWEEP_MAX_ROWS} rows); the "
-            "partitioned sweep is ROADMAP queue 1 item 9")
+        return _find_overlaps_partitioned(codes, coef, device=device)
     if n >= (1 << 30):
         raise NotImplementedError("overlap rounds index reads with 31-bit ids")
     with span(f"sweep pack+upload n={n}"):
@@ -188,8 +191,32 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
     return res
 
 
-def repair_links(codes: np.ndarray, res: OverlapResult, *, device) -> None:
-    """Re-match the free suffix/prefix ends of a link set, in place (port of
+def _find_overlaps_partitioned(codes: np.ndarray, coef: float, *,
+                               device) -> OverlapResult:
+    """Inputs past `_SWEEP_MAX_ROWS` rows (port of
+    greedy_scs._find_overlaps_partitioned, :1070-1094): equal row parts
+    swept one after another, then a repair sweep across the parts with only
+    the free suffix/prefix ends active."""
+    n, L = codes.shape
+    parts = -(-n // _SWEEP_MAX_ROWS)
+    per = -(-n // parts)
+    res = OverlapResult(np.full(n, -1, dtype=np.int32), np.zeros(n, dtype=np.int32), L)
+    for p in range(parts):
+        lo, hi = p * per, min((p + 1) * per, n)
+        with span(f"sweep part {p + 1}/{parts} rows={hi - lo}"):
+            sub = find_overlaps(codes[lo:hi], coef=coef, device=device)
+        has = sub.succ >= 0
+        res.succ[lo:hi][has] = sub.succ[has] + np.int32(lo)
+        res.overlap[lo:hi][has] = sub.overlap[has]
+    with span("sweep cross-part repair"):
+        repair_links(codes, res, coef=coef, device=device)
+    return res
+
+
+def repair_links(codes: np.ndarray, res: OverlapResult, coef: float = 1.0, *,
+                 device) -> None:
+    """Re-match the free suffix/prefix ends of a link set, in place, in
+    tables of at most `_SWEEP_MAX_ROWS` rows (port of
     greedy_scs.repair_links, :1097-1124)."""
     n = res.succ.shape[0]
     if n <= 1:
@@ -204,7 +231,7 @@ def repair_links(codes: np.ndarray, res: OverlapResult, *, device) -> None:
         return
     for lo in range(0, rows.size, _SWEEP_MAX_ROWS):
         r = rows[lo : lo + _SWEEP_MAX_ROWS]
-        sub = find_overlaps(codes[r], coef=1.0, init_active=(a_s[r], a_p[r]),
+        sub = find_overlaps(codes[r], coef=coef, init_active=(a_s[r], a_p[r]),
                             device=device)
         new = sub.succ >= 0
         res.succ[r[new]] = r[sub.succ[new]].astype(np.int32)

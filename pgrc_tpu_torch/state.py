@@ -11,8 +11,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pgrc_tpu.core import packed as ref_packed
-
 from .utils import uint
 
 
@@ -39,22 +37,38 @@ def hashes_from_device(h_t: torch.Tensor) -> np.ndarray:
 
 
 def pg_lanes_to_device(pg_codes: np.ndarray, device) -> torch.Tensor:
-    """Packed pg text (16 symbols per u32, N packed as A) plus ONE zero lane,
-    so a verify window's `+1` lane never reads out of bounds (the reference
-    pads with zeros the same way, matcher.py:535-536)."""
-    lanes = ref_packed.pack_text_2bit(pg_codes)
-    lanes = np.concatenate([lanes, np.zeros(1, np.uint32)])
+    """Packed pg text (16 symbols per u32, N packed as A, the layout of
+    `pgrc_tpu.core.packed.pack_text_2bit`) plus ONE zero lane, so a verify
+    window's `+1` lane never reads out of bounds (the reference pads with
+    zeros the same way, matcher.py:535-536)."""
+    lanes = np.zeros(-(-pg_codes.shape[0] // 16) + 1, np.uint32)
+    pack_text_2bit(pg_codes, lanes[:-1])
     return uint.np_u32_to_tensor(lanes, device)
 
 
-def index_to_device(ihash: np.ndarray, ipos: np.ndarray, device):
+def pack_text_2bit(codes: np.ndarray, out: np.ndarray,
+                   chunk_lanes: int = 1 << 22) -> None:
+    """`pgrc_tpu.core.packed.pack_text_2bit` into `out` [ceil(n/16)] u32, in
+    byte operations on chunks: four 2-bit codes make a byte, four bytes read
+    big-endian make a lane. Peak memory stays two chunks, and a
+    2G-symbol pg packs in seconds (the reference's u32 temporaries take
+    about 9 bytes per symbol at once, ~21 GB at 2.3G symbols)."""
+    for lo in range(0, out.shape[0], chunk_lanes):
+        hi = min(lo + chunk_lanes, out.shape[0])
+        seg = codes[lo * 16 : hi * 16]
+        buf = np.zeros(((hi - lo), 4, 4), np.uint8)
+        np.bitwise_and(seg, 3, out=buf.reshape(-1)[: seg.shape[0]])
+        byte = (buf[:, :, 0] << 6) | (buf[:, :, 1] << 4) | (buf[:, :, 2] << 2) | buf[:, :, 3]
+        out[lo:hi] = byte.view(">u4").reshape(hi - lo)
+
+
+def index_to_device(ihash: np.ndarray, ipos: np.ndarray, device, wide: bool = False):
     """Sampled k-mer table (u32 hashes, positions with -1 = inert) ->
-    (int32 hash bits, int32 positions)."""
-    if ipos.size and int(ipos.max()) >= (1 << 31):
-        raise NotImplementedError("index positions past 2^31 need the wide probe "
-                                  "(ROADMAP queue 1 item 8)")
+    (int32 hash bits, positions: int64 for the wide probe, else int32)."""
+    if not wide and ipos.size and int(ipos.max()) >= (1 << 31):
+        raise ValueError("index positions past 2^31 need the wide probe")
     return (uint.np_u32_to_tensor(ihash.astype(np.uint32), device),
-            torch.from_numpy(ipos.astype(np.int32)).to(device))
+            torch.from_numpy(ipos.astype(np.int64 if wide else np.int32)).to(device))
 
 
 def index_from_device(ihash_t: torch.Tensor, ipos_t: torch.Tensor):
@@ -62,6 +76,6 @@ def index_from_device(ihash_t: torch.Tensor, ipos_t: torch.Tensor):
 
 
 def match_from_device(mis_t: torch.Tensor, pos_t: torch.Tensor):
-    """Probe outputs (uint8 mismatches, 255 = none; int32 positions, -1 =
-    none) -> the reference's host dtypes (uint8, int64)."""
+    """Probe outputs (uint8 mismatches, 255 = none; int32 or int64
+    positions, -1 = none) -> the reference's host dtypes (uint8, int64)."""
     return mis_t.cpu().numpy().astype(np.uint8), pos_t.cpu().numpy().astype(np.int64)

@@ -25,6 +25,7 @@ import pgrc_tpu_torch.archive.encoder, pgrc_tpu_torch.overlap.greedy_scs
 import pgrc_tpu_torch.align.matcher, pgrc_tpu_torch.core.packed
 import pgrc_tpu_torch.kernels.build, pgrc_tpu_torch.kernels.verify
 import pgrc_tpu_torch.kernels.kmer_hash, pgrc_tpu_torch.kernels.sweep
+import pgrc_tpu_torch.sweep_scale
 from pgrc_tpu_torch.kernels import build
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods

@@ -130,6 +130,66 @@ def test_index_hash_matches_reference(pg_case, k, k1):
     np.testing.assert_array_equal(h[valid], host)
 
 
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+@pytest.mark.parametrize("k,k1", [(32, 4), (24, 2)])
+def test_index_block_hash_matches_reference(pg_case, k, k1, wide):
+    """Kernel B one block at a time: every block b of the reference's
+    `_build_index_build_fn(wpf, wp, k, k1, wide)` at lane_off = b*wp. The
+    port builds only the entries of the pg's own lanes (m per block); the
+    reference's entries past them are inert (-1), like a block past the
+    pg's last lane."""
+    pg, _ = pg_case
+    pg_t = state.pg_lanes_to_device(pg, "cpu")
+    n_lanes = pg_t.numel() - 1
+    wpf = ref_matcher._probe_bucket(n_lanes + 1)
+    wp = wpf // 4
+    lanes = np.zeros(wpf, np.uint32)
+    lanes[:n_lanes] = uint.tensor_to_np_u32(pg_t[:-1])
+    build_fn = ref_matcher._build_index_build_fn(wpf, wp, k, k1, wide)
+    for b in range(wpf // wp):
+        ih, ip = (np.asarray(a) for a in build_fn(jnp.asarray(lanes), np.int64(b * wp),
+                                                  pg.size))
+        m = max(0, min(wp, n_lanes - b * wp)) * 16 // k1
+        h_t, p_t = kmer_hash.index_kmer_hash_plain(pg_t, k, k1, pg.size, m, b * wp, wide)
+        assert p_t.dtype == (torch.int64 if wide else torch.int32) == \
+            (torch.int64 if ip.dtype == np.int64 else torch.int32)
+        np.testing.assert_array_equal(p_t.numpy(), ip[:m])
+        np.testing.assert_array_equal(uint.tensor_to_np_u32(h_t), ih[:m])
+        assert (ip[m:] == -1).all()
+    assert m == 0 and b == 3   # the last block lies past the pg
+
+
+@pytest.mark.parametrize("n_verify", [6, 1])
+def test_wide_probe_matches_build_probe_fn(pg_case, n_verify):
+    """Kernels C and A with int64 positions (the wide probe of pgs past 2^31
+    symbols) against `_build_probe_fn(..., wide=True)`, on an index cut into
+    two blocks; each block's result alone, as the merge takes them."""
+    pg, reads = pg_case
+    k = 32
+    index = ref_matcher.build_index(pg, k=k, device_sort=True)
+    blocks, pg_lanes, wpf, i_pad = ref_matcher.device_index(index, pg, wide=True,
+                                                            max_block=10_000)
+    assert len(blocks) == 2
+    offs = ref_matcher.probe_offsets(L, k, 3)
+    lanes, _ = ref_packed.pack_lanes(reads)
+    fn = ref_matcher._build_probe_fn(R, L, offs, k, i_pad, wpf, 33, wide=True,
+                                     n_verify=n_verify)
+    for ihash, ipos in blocks:
+        ihash, ipos = np.asarray(ihash), np.asarray(ipos)
+        assert ipos.dtype == np.int64
+        mis_r, pos_r = jax.device_get(fn(jnp.asarray(lanes), jnp.asarray(ihash),
+                                         jnp.asarray(ipos), pg_lanes, index.pg_len))
+        ih_t, ip_t = state.index_to_device(ihash, ipos, "cpu", wide=True)
+        mis, pos = port_matcher.probe(
+            uint.np_u32_to_tensor(lanes, "cpu"), torch.tensor(offs, dtype=torch.int32),
+            ih_t, ip_t, uint.np_u32_to_tensor(np.asarray(pg_lanes), "cpu"),
+            index.pg_len, L, k, 33, n_verify)
+        assert pos.dtype == torch.int64
+        np.testing.assert_array_equal(mis.numpy(), mis_r)
+        np.testing.assert_array_equal(pos.numpy(), pos_r)
+        assert 0 < (mis_r != 255).mean() < 0.75
+
+
 @pytest.mark.parametrize("k", [32, 24])
 def test_probe_hash_matches_window_hashes(pg_case, k):
     """Kernel C: the anchor hash at every probe offset equals the

@@ -110,3 +110,42 @@ def test_divide_and_generate_matches_reference():
     for a, b in ((k_r, k_p), (pg_r, pg_p), (order_r, order_p), (pos_r, pos_p)):
         np.testing.assert_array_equal(a, b)
     assert 0 < pg_r.size < N_READS * L // 4
+
+
+@pytest.fixture
+def small_sweep_cap(monkeypatch):
+    """Both packages' sweep table cap at 1000 rows: 2500 reads sweep in 3
+    parts of 834 rows, and a repair set past 1000 rows repairs in tables of
+    1000. Returns the row counts of the port's partitioned sweeps."""
+    monkeypatch.setattr(ref, "_SWEEP_MAX_ROWS", 1000)
+    monkeypatch.setattr(port, "_SWEEP_MAX_ROWS", 1000)
+    calls = []
+    real = port._find_overlaps_partitioned
+
+    def spy(codes, coef, *, device):
+        calls.append(codes.shape[0])
+        return real(codes, coef, device=device)
+
+    monkeypatch.setattr(port, "_find_overlaps_partitioned", spy)
+    return calls
+
+
+@pytest.mark.parametrize("seed,coef,n_frac", [(14, 1.0, 0.0), (15, 0.65, 0.03)])
+def test_partitioned_sweep_matches_reference(small_sweep_cap, seed, coef, n_frac):
+    """Row parts swept one after another, then the cross-part repair with
+    the sweep's coef: the reference's links."""
+    codes = reads(seed, n_frac)
+    assert_same_links(ref.find_overlaps(codes, coef),
+                      port.find_overlaps(codes, coef, device="cpu"))
+    assert small_sweep_cap == [N_READS]
+
+
+def test_divide_and_generate_partitioned_matches_reference(small_sweep_cap):
+    """The fused stages 2+3 at the forced cap: a partitioned full sweep and
+    a repair of the kept reads in tables of at most 1000 rows."""
+    codes = reads(16, 0.0)
+    k_r, pg_r, order_r, pos_r = ref.divide_and_generate(codes, 0.65)
+    k_p, pg_p, order_p, pos_p = port.divide_and_generate(codes, 0.65, device="cpu")
+    for a, b in ((k_r, k_p), (pg_r, pg_p), (order_r, order_p), (pos_r, pos_p)):
+        np.testing.assert_array_equal(a, b)
+    assert small_sweep_cap == [N_READS] and 0 < pg_r.size < N_READS * L // 4

@@ -50,13 +50,27 @@ def test_port_archive_decodes_to_input(se_archives):
 
 @pytest.mark.parametrize("argv", [["-l", "1"], ["--device", "cuda"]])
 def test_cli_refuses_what_it_cannot_run(se_archives, argv, monkeypatch):
-    """-l N (two-pass) is not ported; cuda without a card is not silently CPU."""
+    """cuda without a card is refused, not silently run on the CPU; -l N
+    (two-pass matching) runs and writes the reference's archive (device
+    sweeps in both packages), which differs from the single-pass one."""
     import torch
 
     d, _ = se_archives
-    if "cuda" in argv and torch.cuda.is_available():
+    src = os.path.join(d, "in.fastq")
+    if "-l" in argv:
+        monkeypatch.setattr(ref_scs, "_HOST_SWEEP_MAX", 0)
+        monkeypatch.setattr(port_scs, "_HOST_SWEEP_MAX", 0)
+        ref, port = os.path.join(d, "l1.ref.pgtc"), os.path.join(d, "l1.port.pgtc")
+        assert ref_cli.main(argv + ["-i", src, ref]) == 0
+        assert port_cli.main(["--device", "cpu"] + argv + ["-i", src, port]) == 0
+        with open(ref, "rb") as a, open(port, "rb") as b:
+            got = b.read()
+            assert got == a.read()
+        with open(os.path.join(d, "port.pgtc"), "rb") as f:
+            assert got != f.read()     # -l 1 takes other matches than -l 0
+        return
+    if torch.cuda.is_available():
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises((NotImplementedError, RuntimeError)):
-        port_cli.main(argv + ["-i", os.path.join(d, "in.fastq"),
-                              os.path.join(d, "never.pgtc")])
+    with pytest.raises(RuntimeError):
+        port_cli.main(argv + ["-i", src, os.path.join(d, "never.pgtc")])
     assert not os.path.exists(os.path.join(d, "never.pgtc"))

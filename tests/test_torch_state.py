@@ -94,3 +94,27 @@ def test_state_round_trips(with_n):
     m, p = state.match_from_device(mis, pos)
     assert m.dtype == np.uint8 and p.dtype == np.int64
     assert m.tolist() == [0, 33, 255] and p.tolist() == [5, 2**31 - 1, -1]
+
+
+@pytest.mark.parametrize("n", [1, 16, 1000, 4099])
+def test_pg_packing_in_chunks_matches_reference(n):
+    """The pg packer works in chunks of lanes (a 2G-symbol pg would take the
+    reference's u32 temporaries, 16 bytes per symbol): the reference's lanes
+    at every length and chunk edge, N (code 4) packed as A."""
+    rng = np.random.default_rng(n)
+    pg = rng.integers(0, 5, size=n, dtype=np.uint8)
+    out = np.zeros(-(-n // 16), np.uint32)
+    state.pack_text_2bit(pg, out, chunk_lanes=7)
+    np.testing.assert_array_equal(out, ref_packed.pack_text_2bit(pg))
+
+
+def test_wide_index_positions_round_trip():
+    """int64 positions (the wide probe) past 2^31 cross as they are; the
+    int32 form refuses them rather than wrapping."""
+    ihash = np.arange(4, dtype=np.uint32)
+    ipos = np.array([-1, 0, 2**31, 2**35 - 1], dtype=np.int64)
+    h_t, p_t = state.index_to_device(ihash, ipos, "cpu", wide=True)
+    assert p_t.dtype == torch.int64
+    np.testing.assert_array_equal(state.index_from_device(h_t, p_t)[1], ipos)
+    with pytest.raises(ValueError, match="wide"):
+        state.index_to_device(ihash, ipos, "cpu")
