@@ -11,7 +11,8 @@ With `accept_mis > 0` (`-l N`) a spread-offset first pass accepts reads
 early and only the others fan out (:625-724). Reads both strands missed go
 to the reference's host rescue. Pgs past 2^31 symbols carry int64
 positions (the wide probe). Results are bit-identical to the reference's;
-the host pieces (offsets, batch cap, rescue) are its own.
+the host pieces (offsets, batch cap, rescue) are the port's copy of its
+own, in `host.py`.
 """
 from __future__ import annotations
 
@@ -20,21 +21,19 @@ import os
 import numpy as np
 import torch
 
-from pgrc_tpu.align.matcher import (  # noqa: F401  (re-exported host layer)
-    DEFAULT_CAP, DEFAULT_K2, KmerIndex, MatchResult, _POS_BITS, _batch_cap,
-    _build_rescue_index, _interleaved_rescue, _probe_bucket, _spread_offsets,
-    build_index, probe_offsets)
-from pgrc_tpu.core import packed as ref_packed
-from pgrc_tpu.utils.trace import span
-
 from .. import state
+from ..core import packed
 from ..core.packed import revcomp_lanes
+from ..kernels.join_carry import JOIN_MAX, join_carry
 from ..kernels.kmer_hash import index_kmer_hash, probe_kmer_hash
 from ..kernels.verify import verify_best
+from ..utils.trace import span
 from ..utils.uint import U32_MASK, i32_to_u32
+from .host import (  # noqa: F401  (re-exported host layer)
+    DEFAULT_CAP, DEFAULT_K2, KmerIndex, MatchResult, _batch_cap,
+    _build_rescue_index, _interleaved_rescue, _probe_bucket, _spread_offsets,
+    _window_hashes, build_index, probe_offsets)
 
-_POS_MASK = (1 << _POS_BITS) - 1
-_JOIN_MAX = 1 << 28   # the carry pack stays below 2^63 while seg_start < 2^28
 # index entries per block, the reference's value (matcher.py:466); read at
 # call time, so setting it here reaches every call
 _MAX_INDEX_BLOCK = 1 << 26
@@ -81,43 +80,28 @@ def device_index(index: KmerIndex, pg_codes: np.ndarray, device, wide: bool = Fa
     return blocks, pg_lanes, _probe_bucket(per)
 
 
-def join_anchors(hashes: torch.Tensor, ihash: torch.Tensor, ipos: torch.Tensor):
-    """Sort-merge join (matcher.py:225-260): for each probe hash [R, S], the
-    lowest position of an index entry with exactly that hash, + 1 (0 = none).
-
-    One sort on a composed int64 key (hash - 2^31) * 2^32 + key2, whose signed
-    order is the reference's (hash, key2) order; key2 = 0 for index entries,
-    U32INV for inert ones, 1..P for the probes. A segmented cummax of
-    seg_start << 35 | (POS_MASK - pos) hands each probe its run's minimum
-    position; a scatter routes results back to probe order."""
-    R, S = hashes.shape
-    P, M = R * S, ihash.numel()
-    m2 = M + P
-    if m2 >= _JOIN_MAX:
-        raise ValueError(f"join of {m2} entries overflows the carry pack")
+def join_sort(hashes: torch.Tensor, ihash: torch.Tensor, ipos: torch.Tensor):
+    """The join's sort (matcher.py:228-238): one sort on a composed int64
+    key (hash - 2^31) * 2^32 + key2, whose signed order is the reference's
+    (hash, key2) order; key2 = 0 for index entries, U32INV for inert ones,
+    1..P for the probes [R, S] in row-major order. -> (skey, perm)."""
+    P, M = hashes.numel(), ihash.numel()
+    if M + P >= JOIN_MAX:
+        raise ValueError(f"join of {M + P} entries overflows the carry pack")
     dev = hashes.device
     kh = torch.cat([i32_to_u32(ihash), i32_to_u32(hashes.reshape(P))])
     key2 = torch.cat([torch.where(ipos >= 0, 0, U32_MASK),
                       torch.arange(1, P + 1, dtype=torch.int64, device=dev)])
-    skey, perm = torch.sort((kh - (1 << 31)) * (1 << 32) + key2)
-    del kh, key2
-    hs = skey >> 32
-    k2s = skey & U32_MASK
-    pos = torch.cat([ipos.clamp(min=0).to(torch.int64),
-                     torch.zeros((P,), dtype=torch.int64, device=dev)])[perm]
-    idx = torch.arange(m2, dtype=torch.int64, device=dev)
-    boundary = torch.ones((m2,), dtype=torch.bool, device=dev)
-    boundary[1:] = hs[1:] != hs[:-1]
-    seg_start = torch.cummax(torch.where(boundary, idx, 0), 0).values
-    packv = torch.where(k2s == 0, (seg_start << _POS_BITS) | (_POS_MASK - pos), 0)
-    carried = torch.cummax(packv, 0).values
-    confirmed = (carried != 0) & ((carried >> _POS_BITS) == seg_start)
-    is_probe = (k2s >= 1) & (k2s != U32_MASK)
-    # scatter to probe order; non-probes land in a dump slot at P
-    res = torch.zeros((P + 1,), dtype=torch.int64, device=dev)
-    res[torch.where(is_probe, k2s - 1, P)] = torch.where(
-        is_probe & confirmed, _POS_MASK - (carried & _POS_MASK) + 1, 0)
-    return res[:P].reshape(R, S)
+    return torch.sort((kh - (1 << 31)) * (1 << 32) + key2)
+
+
+def join_anchors(hashes: torch.Tensor, ihash: torch.Tensor, ipos: torch.Tensor):
+    """Sort-merge join (matcher.py:225-260): for each probe hash [R, S], the
+    lowest position of an index entry with exactly that hash, + 1 (0 = none).
+    After the sort, kernel E (`join_carry`) hands each probe its run's
+    minimum position and writes it in probe order."""
+    skey, perm = join_sort(hashes, ihash, ipos)
+    return join_carry(skey, perm, ipos, hashes.numel()).reshape(hashes.shape)
 
 
 def probe(read_lanes, offs_t, ihash, ipos, pg_lanes, pg_len: int, L: int,
@@ -195,7 +179,7 @@ def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
     offs_p1 = offs_full if single_pass else _spread_offsets(offs_full, index.k1)
     n_verify2 = max(2, min(cap, 6))
     with span(f"match pack n={n}"):
-        lanes, nmask = state.lanes_to_device(*ref_packed.pack_lanes(read_codes),
+        lanes, nmask = state.lanes_to_device(*packed.pack_lanes(read_codes),
                                              pg_lanes.device)
         # rows [0, n) forward, [n, 2n) reverse complement
         lanes_fr = torch.cat([lanes, revcomp_lanes(lanes, L, nmask)])
@@ -237,7 +221,7 @@ def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
         better = im < fm[rows]
         fm[rows] = np.where(better, im, fm[rows])
         fp[rows] = np.where(better, ip, fp[rows])
-        rc_sub = ref_packed.revcomp_codes_matrix(read_codes[rows])
+        rc_sub = packed.revcomp_codes_matrix(read_codes[rows])
         rc_sub[rc_sub > 3] = 0
         im, ip = _interleaved_rescue(rc_sub, pg_codes, k_resc, max_mismatches,
                                      ridx=ridx)

@@ -1,39 +1,115 @@
 """PGTC encoder chain on torch — the 7-stage pipeline of
 pgrc_tpu/archive/encoder.py (`encode` + `_encode_tail`, :102-506).
 
-This is the port's one deliberate copy: the reference hard-wires its own
-sweep and matcher, so the chain is repeated here calling the port's
+The chain is repeated here, calling the port's sweep and matcher
 (`overlap.greedy_scs`, `align.matcher`) on an explicit `device`, without
-`mesh`. Every stream writer, the checkpoint chain, `pgseq`, `order` and the
-stage-7 self-match come from the reference, so the archive bytes are the
-reference's own.
+`mesh`. The helpers around it — `EncodeStats`, the validation dumps, the
+checkpoints, the stage-7 self-match, the report row and the hq and plain
+reads-list writers (:40-101, :380-394, :509-613) — are a copy of the
+reference's with only the imports changed, and the stream writers,
+`pgseq` and `order` are the port's copies of the reference's modules, so
+the archive bytes are the reference's own.
 """
 from __future__ import annotations
 
 import io
 import os
 import time
+from dataclasses import dataclass
 
 import numpy as np
 
-from pgrc_tpu import ARCHIVE_MAGIC
-from pgrc_tpu.archive import order as order_enc
-from pgrc_tpu.archive import pgseq
-from pgrc_tpu.archive.encoder import (EncodeStats, _append_report,
-                                      _dump_validation, _gather_flat_mismatches,
-                                      _load_ckpt, _save_ckpt, _stage_done,
-                                      _submit_self_match, _write_hq_section,
-                                      _write_plain_pg_section)
-from pgrc_tpu.config import (MODE_MIN_PE, MODE_ORD_PE, MODE_ORD_SE, MODE_PE,
-                             PgRCParams, matching_chars_correction)
-from pgrc_tpu.core import fastq, packed
-from pgrc_tpu.pg.reconstruct import extract_mismatches
-from pgrc_tpu.utils import dna
-from pgrc_tpu.utils.trace import span
-from pgrc_tpu.utils.varint import write_varint
-
+from .. import ARCHIVE_MAGIC
 from ..align import matcher as align_matcher
+from ..config import (MODE_MIN_PE, MODE_ORD_PE, MODE_ORD_SE, MODE_PE,
+                      PgRCParams, matching_chars_correction)
+from ..core import fastq, packed
 from ..overlap import greedy_scs
+from ..pg.reconstruct import extract_mismatches
+from ..streams import props
+from ..streams.container import write_streams
+from ..utils import dna
+from ..utils.trace import span
+from ..utils.varint import write_varint
+from . import chain
+from . import order as order_enc
+from . import pgseq
+
+
+def _dump_validation(params: PgRCParams, name: str, **arrays) -> None:
+    """-V mode: write per-stage artifacts next to the archive for external
+    diffing (reference extraFilesForValidation, pgrc-params.h:46; .div
+    files readsset/iterator/ReadsSetIterator.cpp saveMapping, pg dumps
+    pgrc-encoder.cpp:228-234). Index lists go out as one-number-per-line
+    text, sequences as ACGTN lines, tables as TSV."""
+    if not params.dump_validation_files:
+        return
+    import os
+
+    d = params.output + ".validation"
+    os.makedirs(d, exist_ok=True)
+    for key, arr in arrays.items():
+        path = os.path.join(d, f"{name}_{key}")
+        if key.endswith("pg"):
+            with open(path + ".txt", "wb") as f:
+                f.write(dna.VAL2SYM[arr].tobytes())
+                f.write(b"\n")
+        elif arr.ndim == 2:
+            np.savetxt(path + ".tsv", arr, fmt="%d", delimiter="\t")
+        else:
+            np.savetxt(path + ".div", arr.reshape(-1, 1), fmt="%d")
+
+
+@dataclass
+class EncodeStats:
+    reads_total: int = 0
+    read_len: int = 0
+    hq_count: int = 0
+    lq_count: int = 0
+    n_count: int = 0
+    matched_count: int = 0
+    hq_pg_len: int = 0
+    lq_pg_len: int = 0
+    n_pg_len: int = 0
+    archive_bytes: int = 0
+    stage_times: dict = None
+
+
+# checkpoint persistence delegates to the chain module, which owns the
+# shared chain-state object and the per-stage schema (pgrc-data.h role)
+_ckpt_path = chain.ckpt_path
+_save_ckpt = chain.save_ckpt
+_load_ckpt = chain.load_ckpt
+
+
+def _stage_done(t: dict, key: str, t0: float) -> None:
+    """Record a stage's wall time; with PGRC_TPU_RSS_TRACE=1, also print
+    the process high-water RSS after the stage (memory observability)."""
+    import os
+    import time as _time
+
+    t[key] = _time.time() - t0
+    if os.environ.get("PGRC_TPU_RSS_TRACE"):
+        import resource
+
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024
+        print(f"[rss] after {key}: {rss} MB", flush=True)
+
+
+def _submit_self_match(params, hq_pg):
+    """Start the stage-7 hq self-match in a worker thread (None when the
+    pg is below the match threshold or the chain stops before stage 7)."""
+    if params.end_stage < 7 or len(hq_pg) < params.target_pg_match_length:
+        return None
+    from concurrent.futures import ThreadPoolExecutor
+
+    from . import pg_match
+
+    ex = ThreadPoolExecutor(max_workers=1)
+    fut = ex.submit(pg_match.self_match_precompute, hq_pg,
+                    params.target_pg_match_length)
+    ex.shutdown(wait=False)
+    return fut
 
 
 def encode(params: PgRCParams, out_path: str | None = None, *, device) -> EncodeStats:
@@ -42,11 +118,11 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device) -> Encode
     t0 = time.time()
     params.resolve()
     if params.dump_streams:
-        from pgrc_tpu.streams import container as _container
+        from ..streams import container as _container
 
         _container.set_stream_dump_dir(params.output + ".streams")
     if params.verbosity:
-        from pgrc_tpu.utils import logchan
+        from ..utils import logchan
 
         logchan.set_verbosity(params.verbosity)
     stats = EncodeStats(stage_times=t)
@@ -219,7 +295,7 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device) -> Encode
         m_codes_out[odd_rows] = packed.revcomp_codes_matrix(m_codes_out[odd_rows])
     # window in decoder orientation
     if m_pos.size:
-        from pgrc_tpu import native
+        from .. import native
 
         fast = native.extract_mismatches(
             hq_pg, m_pos, m_rc_out, m_codes_out,
@@ -396,3 +472,110 @@ def _encode_tail(params, stats, t, lq_codes, n_codes, hq_pg, hq_entries,
     if params.report_path:
         _append_report(params, stats)
     return stats
+
+
+def _append_report(params: PgRCParams, stats: EncodeStats) -> None:
+    """Append a TSV benchmark row (reference generateReport,
+    pgrc-encoder.cpp:467-495: sizes + per-stage seconds to pgrc_res.txt)."""
+    import os
+
+    t = stats.stage_times
+    header = ("src\treads\tlen\tsize[B]\tbits/base\ttotal[s]\tdiv\tpgdiv\tgood\t"
+              "match\tbad\torder\tpgseq\n")
+    row = (
+        f"{os.path.basename(params.src_fastq)}\t{stats.reads_total}\t{stats.read_len}\t"
+        f"{stats.archive_bytes}\t"
+        f"{stats.archive_bytes * 8 / max(stats.reads_total * stats.read_len, 1):.4f}\t"
+        f"{sum(t.values()):.2f}\t" +
+        "\t".join(f"{t.get(k, 0.0):.2f}" for k in
+                  ("div", "pgdiv", "good", "match", "bad", "order", "pgseq")) + "\n"
+    )
+    new = not os.path.exists(params.report_path)
+    with open(params.report_path, "a") as f:
+        if new:
+            f.write(header)
+        f.write(row)
+
+
+def _gather_flat_mismatches(perm, mis_cnt_perm, src_cum, m_sym, m_off):
+    """Reorder flat mismatch streams to the permuted entry order."""
+    if m_sym.size == 0:
+        return np.zeros(0, np.uint8), np.zeros(0, np.uint8)
+    # for each permuted entry with mismatches, gather its src slice
+    counts = mis_cnt_perm.astype(np.int64)
+    total = int(counts.sum())
+    starts_src = src_cum[perm]
+    out_row = np.repeat(np.arange(perm.size), counts)
+    within = np.arange(total) - np.repeat(np.cumsum(counts) - counts, counts)
+    src_flat = starts_src[out_row] + within
+    return m_sym[src_flat], m_off[src_flat]
+
+
+def _write_hq_section(out, entries, entry_perm, store_off: bool,
+                      read_len: int, rev_offsets: bool = True) -> None:
+    """HQ reads-list streams with the reference's v1.3-style decomposition
+    (SeparatedPseudoGenomePersistence.cpp compressedBuild +
+    compressRlMisRevOffDest): zero/non-zero mismatch-count split, exclusive
+    symbol codes with global frequency reordering, reversed delta-from-end
+    offsets in per-count substreams (fixed-count streams transposed).
+
+    `rev_offsets=False` (dev flag -A, the reference's
+    enableRevOffsetMismatchesRepresentation toggle, PgRC.cpp) stores plain
+    ascending offsets instead; the choice is recorded in the section's
+    flags byte."""
+    from ..streams import mismatch as mm
+
+    pos = entries["pos"][entry_perm]
+    rc = entries["rc"][entry_perm]
+    mis_cnt = entries["mis_cnt"][entry_perm]
+    src_cum = np.zeros(entries["mis_cnt"].size + 1, dtype=np.int64)
+    np.cumsum(entries["mis_cnt"], out=src_cum[1:])
+    sym, off = _gather_flat_mismatches(
+        entry_perm, mis_cnt, src_cum, entries["mis_sym"], entries["mis_off"]
+    )
+    # exclusive codes under a global symbol-frequency order
+    pg_vals = (sym >> 4).astype(np.uint8)
+    read_vals = (sym & 0x0F).astype(np.uint8)
+    order = mm.symbol_order(read_vals)
+    exc = mm.exclusive_encode(pg_vals, read_vals, order)
+    # reversed gap-from-end offsets, split per mismatch count
+    if rev_offsets:
+        stored_off = mm.rev_offset_encode(mis_cnt, off, read_len)
+    else:
+        stored_off = off.astype(np.uint8 if read_len <= 256 else np.uint16)
+    off_streams = mm.split_by_count(mis_cnt, stored_off)
+
+    # raw props blob: symbol order + substream limit + flags byte
+    out.write(bytes(order.tobytes()) + bytes([mm.COUNT_STREAM_LIMIT])
+              + bytes([1 if rev_offsets else 0]))
+
+    jobs = []
+    if store_off:
+        deltas = np.empty(pos.size, dtype=np.int64)
+        if pos.size:
+            deltas[0] = pos[0]
+            deltas[1:] = pos[1:] - pos[:-1]
+        if deltas.max(initial=0) > 255:
+            raise ValueError("hq reads-list delta exceeds 255 (pg gap)")
+        jobs.append(props.job("hq_off", "hq off",
+                              deltas.astype(np.uint8).tobytes()))
+    jobs.append(props.job("hq_rc", "hq rc", rc.astype(np.uint8).tobytes()))
+    jobs.append(props.job("hq_mis_zero_flags", "hq mis zero flags",
+                          (mis_cnt > 0).astype(np.uint8).tobytes()))
+    jobs.append(props.job("hq_mis_cnt_values", "hq mis cnt values",
+                          mis_cnt[mis_cnt > 0].tobytes()))
+    jobs.append(props.job("hq_mis_sym", "hq mis sym", exc.tobytes()))
+    for m, s in enumerate(off_streams, start=1):
+        jobs.append(props.job("hq_mis_off", f"hq mis off [{m}]", s))
+    write_streams(out, jobs)
+
+
+def _write_plain_pg_section(out, pos: np.ndarray) -> None:
+    """off deltas of an lq/N pg reads list (no rc, no mismatches)."""
+    deltas = np.empty(pos.size, dtype=np.int64)
+    if pos.size:
+        deltas[0] = pos[0]
+        deltas[1:] = pos[1:] - pos[:-1]
+    assert deltas.max(initial=0) <= 255
+    write_streams(out, [props.job("pg_off", "pg off",
+                                  deltas.astype(np.uint8).tobytes())])

@@ -6,8 +6,8 @@ The flags of `pgrc_tpu.cli` plus `--device` (default `cuda`):
   validate:   python -m pgrc_tpu_torch.cli -d -i <orig.fastq> [orig2.fastq] <archive>
 
 Every mode (SE, PE, MIN_PE, SE_ORD, PE_ORD) and flag of the reference runs
-on one device. Decompression and validation are host code and delegate to
-`pgrc_tpu.archive.decoder`.
+on one device. Decompression and validation are host code: the port's copy
+of the reference's decoder (`archive.decoder`).
 """
 from __future__ import annotations
 
@@ -67,15 +67,15 @@ def main(argv=None) -> int:
     if args.i and len(args.i) > 2:
         ap.error("-i takes at most two files: src [pair]")
 
-    from pgrc_tpu.streams import container
-    from pgrc_tpu.utils import logchan
+    from .streams import container
+    from .utils import logchan
 
     logchan.set_verbosity(args.v)
     container.set_threads(args.t)
 
     t0 = time.time()
     if args.d:
-        from pgrc_tpu.archive import decoder
+        from .archive import decoder
 
         if args.i:
             rep = decoder.validate(args.archive, args.i[0],
@@ -91,15 +91,14 @@ def main(argv=None) -> int:
     if not args.i:
         ap.error("compression requires -i <src.fastq> [pair.fastq]")
     if args.analyze:
-        from pgrc_tpu.core.analyzer import analyze_reads_set
+        from .core.analyzer import analyze_reads_set
 
         props = analyze_reads_set(args.i[0],
                                   args.i[1] if len(args.i) > 1 else None)
         print(props.summary())
         return 0
-    from pgrc_tpu.config import PgRCParams
-
     from .archive import encoder
+    from .config import PgRCParams
     from .device import resolve
 
     device = resolve(args.device)

@@ -16,7 +16,8 @@ import torch
 from . import build
 
 launches = {"verify_best": 0, "verify_best.int64": 0, "index_kmer_hash": 0,
-            "index_kmer_hash.int64": 0, "probe_kmer_hash": 0, "sweep_roll_entries": 0}
+            "index_kmer_hash.int64": 0, "probe_kmer_hash": 0, "sweep_roll_entries": 0,
+            "join_carry": 0, "join_carry.int64": 0, "sweep_pair_claim": 0}
 
 
 def reset_launches() -> None:
@@ -51,6 +52,19 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def scan_tile() -> int:
+    """Entries per tile of the one-pass scans (csrc/seg_scan.cuh, through
+    the kernel library)."""
+    return build.lib().pgrc_seg_scan_tile()
+
+
+def scan_scratch(m: int, device: torch.device) -> torch.Tensor:
+    """Zeroed int64 scratch of a one-pass scan over m entries: a tile counter
+    and one look-back descriptor per tile, sized by csrc/seg_scan.cuh."""
+    words = build.lib().pgrc_seg_scan_scratch_words(m)
+    return torch.zeros((words,), dtype=torch.int64, device=device)
 
 
 def launch(entry: str, device: torch.device, *args) -> None:

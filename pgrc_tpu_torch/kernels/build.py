@@ -1,12 +1,14 @@
 """Build the CUDA kernels in `csrc/` and load them with ctypes.
 
 `nvcc -gencode arch=compute_90a,code=sm_90a` compiles every `csrc/*.cu`
-(one nvcc per source, all started together) and links the objects into one
-shared library with a plain C interface, in `build/` beside this file,
-named by a hash of the sources and flags: a changed source builds anew, an
-unchanged one loads the library already there. Nothing is built when this
+(one nvcc per source, all started together; they include `csrc/*.cuh`) and
+links the objects into one shared library with a plain C interface, in
+`build/` beside this file, named by a hash of the flags, the sources and
+the headers: a changed source or header builds anew, an unchanged tree
+loads the library already there. Nothing is built when this
 module is imported; the first kernel launch (or an explicit `build()`) runs
-nvcc. Each entry point returns the `cudaError_t` of its launch.
+nvcc. Each kernel entry point returns the `cudaError_t` of its launch; the
+geometry queries (`QUERIES`) return the scans' tile and scratch sizes.
 """
 from __future__ import annotations
 
@@ -38,6 +40,14 @@ SIGNATURES = {
     "pgrc_sweep_roll_entries": [_I, _P, _I64, _P, _I, _P, _I, _P, _P, _P, _I,
                                 _I, _U64, _U64, _U64, _U64, _P, _P, _P, _P,
                                 _P, _P, _P, _P],
+    "pgrc_join_carry": [_I, _P, _I64, _P, _P, _P, _I, _P, _P, _I64],
+    "pgrc_sweep_pair_claim": [_I, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _I, _P, _I64],
+}
+# geometry queries (no launch): entry point -> (argtypes, restype)
+QUERIES = {
+    "pgrc_seg_scan_tile": ([], _I64),
+    "pgrc_seg_scan_scratch_words": ([_I64], _I64),
 }
 
 
@@ -56,6 +66,10 @@ def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
 def nvcc() -> str:
     """Path of nvcc: $CUDA_HOME/bin, /usr/local/cuda/bin, then PATH."""
     home = os.environ.get("CUDA_HOME")
@@ -68,10 +82,12 @@ def nvcc() -> str:
 
 
 def build() -> Build:
-    """Compile `csrc/*.cu` unless a library of the same sources exists."""
+    """Compile `csrc/*.cu` unless a library of the same sources and
+    headers exists."""
     srcs = sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + headers():
+        digest.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
             digest.update(f.read())
     so = os.path.join(BUILD_DIR, f"libpgrc_kernels_{digest.hexdigest()[:16]}.so")
@@ -110,9 +126,10 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(build().path)
-            for name, argtypes in SIGNATURES.items():
+            entries = {name: (argtypes, ctypes.c_int) for name, argtypes in SIGNATURES.items()}
+            for name, (argtypes, restype) in {**entries, **QUERIES}.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = restype
             _lib = handle
     return _lib

@@ -13,14 +13,15 @@
 // B = HASH_BASE (pgrc_tpu/overlap/greedy_scs.py:36); symbols are the 2-bit
 // codes at bits 2*(15 - j%16) of lane j/16.
 //
-// What bounds them on the card: the integer multiply chain, k dependent
-// multiply-adds per entry (k = 32 at the main path's sizes), against a few
-// bytes of output; the lane loads hit L1/L2 because neighbouring threads
-// read neighbouring lanes.
-// What the design does about it: one thread per output entry, each lane
-// loaded once per 16 symbols (not once per symbol), and no prefix scans —
-// the reference avoided scans for XLA's temporaries; here they would only
-// add passes over memory.
+// What bounds them on the card: memory, the lanes read and the hashes and
+// positions written once. The same hashes come out of a prefix hash,
+// H(i, k) = P[i+k-1] - P[i-1] * B^k mod 2^32, at a few operations per
+// k-mer, so the operations the function needs stay below its bytes' time.
+// This design spends more: one thread per output entry runs the Horner
+// chain of k dependent multiply-adds (k = 32 at the main path's sizes),
+// each lane loaded once per 16 symbols (not once per symbol); the lane
+// loads hit L1/L2 because neighbouring threads read neighbouring lanes.
+// A prefix form would trade the chain for a scan over the lanes.
 #include <cstdint>
 #include <cuda_runtime.h>
 

@@ -9,8 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from pgrc_tpu.overlap.greedy_scs import HASH_BASE
-
+from ..overlap.host import HASH_BASE
 from ..utils.uint import U32_MASK, i32_to_u32, u32_to_i32
 from . import check, launch, launches, on_cpu, ptr
 

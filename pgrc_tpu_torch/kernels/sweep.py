@@ -6,10 +6,8 @@ from __future__ import annotations
 
 import torch
 
-from pgrc_tpu.overlap.greedy_scs import (HASH_BASE64, HASH_BASE64_INV,
-                                         HASH_BASE64B, HASH_BASE64B_INV)
-
 from ..core.packed import col_vals
+from ..overlap.host import HASH_BASE64, HASH_BASE64_INV, HASH_BASE64B, HASH_BASE64B_INV
 from ..utils.uint import SIGN64, U32_MASK, s64
 from . import check, launch, launches, on_cpu, ptr
 

@@ -7,7 +7,7 @@ rank inside its equal-hash group, with an active prefix (ranks by global
 read id), confirmed by an independent second hash; a prefix is claimed when
 a suffix of its rank exists. The table shrinks between segments of rounds.
 Host pieces (the small-input numpy mirror, the exact link check, layout and
-assembly) are the reference's own.
+assembly) are the port's copy of the reference's, in `host.py`.
 
 Where the TPU shaped the reference and the GPU does not, the port differs in
 form only:
@@ -18,24 +18,25 @@ form only:
   * a suffix finds its rank partner by one gather (seg_start + rank), not by
     a second sort, and results reach their rows by scatter, not by a third
     sort; links go straight to the global arrays instead of a per-segment
-    flush; compaction keeps exactly the active rows.
+    flush (kernel F does ranks, pairing, claim and links in one pass);
+    compaction keeps exactly the active rows.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from pgrc_tpu.core import packed as ref_packed
-from pgrc_tpu.overlap.greedy_scs import (  # noqa: F401  (re-exported host layer)
+from .. import state
+from ..core import packed
+from ..core.packed import col_vals
+from ..kernels.sweep import sweep_roll_entries
+from ..kernels.sweep_pair_claim import sweep_pair_claim
+from ..utils.trace import span
+from ..utils.uint import SIGN64, s64
+from .host import (  # noqa: F401  (re-exported host layer)
     HASH_BASE64, HASH_BASE64B, OverlapResult, _SEG_PLAN, _SEG_TAIL,
     _find_overlaps_host, _layout_and_assemble, _verify_links,
     both_sides_overlapped)
-from pgrc_tpu.utils.trace import span
-
-from .. import state
-from ..core.packed import col_vals
-from ..kernels.sweep import SUFFIX_BIT, sweep_roll_entries
-from ..utils.uint import SIGN64, s64
 
 # inputs of at most this many reads run the reference's numpy mirror (same
 # links; a device round is launch-bound at these sizes)
@@ -86,44 +87,30 @@ def _init_links(h0, h0b, L: int):
     return succ, ovl, succ < 0, ~has_pred
 
 
+def round_order(k1, a_p, a_s):
+    """The round's sort: the valid entries (active prefixes, then active
+    suffixes) in construction order = (side, gid) order, because ids ascend
+    with the row (compaction keeps row order), stably sorted by k1, which
+    keeps the reference's (key, side|gid) order. -> (ks, ent), or None when
+    no entry is valid."""
+    sel = torch.nonzero(torch.cat([a_p, a_s])).squeeze(1)
+    if sel.numel() == 0:
+        return None
+    ks, perm = torch.sort(k1[sel], stable=True)
+    return ks, sel[perm]
+
+
 def _round(i: int, L: int, t: dict, succ_g, ovl_g) -> None:
     """One overlap round on table `t` (in place); links go to succ_g/ovl_g."""
-    n = t["ids"].numel()
     k1, k2, orig, v2 = sweep_roll_entries(
         t["lanes"], t["nmask"], t["ids"], t["a_s"], t["a_p"], i, L,
         t["h"], t["p"], t["h2"], t["p2"])
-    # valid entries in construction order = (side, gid) order, because ids
-    # ascend with the row (compaction keeps row order)
-    sel = torch.nonzero(torch.cat([t["a_p"], t["a_s"]])).squeeze(1)
-    if sel.numel() == 0:
+    order = round_order(k1, t["a_p"], t["a_s"])
+    if order is None:
         return
-    ks, perm = torch.sort(k1[sel], stable=True)
-    ent = sel[perm]
-    k2s, v2s, origs = k2[ent], v2[ent], orig[ent].to(torch.int64)
-    m = ent.numel()
-    idx = torch.arange(m, dtype=torch.int64, device=ks.device)
-    boundary = torch.ones((m,), dtype=torch.bool, device=ks.device)
-    boundary[1:] = ks[1:] != ks[:-1]
-    seg_start = torch.cummax(torch.where(boundary, idx, 0), 0).values
-    is_suf = k2s >= SUFFIX_BIT
-    prev_is_suf = torch.zeros_like(is_suf)
-    prev_is_suf[1:] = is_suf[:-1]
-    first_suf = is_suf & (~prev_is_suf | boundary)
-    fs = torch.cummax(torch.where(first_suf, idx, -1), 0).values
-    # a suffix of rank r (from its group's first suffix) pairs with the
-    # prefix of rank r (from the group start), when the group has one
-    rank = idx - fs
-    paired = is_suf & (rank < fs - seg_start)
-    partner = torch.where(paired, seg_start + rank, idx)
-    gid = k2s & 0x7FFFFFFF
-    ok = paired & (gid[partner] != gid) & (v2s[partner] == v2s)
-    srow = origs[ok] - n
-    dst = t["ids"][srow].to(torch.int64)
-    succ_g[dst] = gid[partner[ok]].to(torch.int32)
-    ovl_g[dst] = L - i
-    t["a_s"][srow] = False
-    # every prefix whose rank has a suffix is claimed, confirmed or not
-    t["a_p"][origs[partner[paired]]] = False
+    # ranks, pairing, claim and links in one pass (kernel F)
+    sweep_pair_claim(*order, k2, v2, orig, t["ids"], succ_g, ovl_g,
+                     t["a_s"], t["a_p"], i, L)
 
 
 def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
@@ -151,7 +138,7 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
     if n >= (1 << 30):
         raise NotImplementedError("overlap rounds index reads with 31-bit ids")
     with span(f"sweep pack+upload n={n}"):
-        lanes, nmask = state.lanes_to_device(*ref_packed.pack_lanes(codes), device)
+        lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), device)
     h0, h0b = _full_hashes(lanes, nmask, L)
     if init_active is None:
         succ_g, ovl_g, a_s, a_p = _init_links(h0, h0b, L)

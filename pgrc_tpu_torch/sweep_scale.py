@@ -28,7 +28,7 @@ L = 100
 
 def sample_reads(n: int, seed: int) -> np.ndarray:
     """exp_100m.py's reads, without the FASTQ: codes [n, L] uint8."""
-    from pgrc_tpu.utils import dna
+    from .utils import dna
 
     rng = np.random.default_rng(seed)
     glen = n * L // 40
