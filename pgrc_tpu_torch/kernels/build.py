@@ -37,12 +37,11 @@ SIGNATURES = {
     "pgrc_index_kmer_hash": [_I, _P, _P, _I64, _I, _I, _I64, _I64, _I64, _I,
                              _P, _P],
     "pgrc_probe_kmer_hash": [_I, _P, _P, _I64, _I, _P, _I, _I, _P],
-    "pgrc_sweep_roll_entries": [_I, _P, _I64, _P, _I, _P, _I, _P, _P, _P, _I,
-                                _I, _U64, _U64, _U64, _U64, _P, _P, _P, _P,
-                                _P, _P, _P, _P],
+    "pgrc_sweep_roll_entries": [_I, _P, _I64, _P, _I, _P, _I, _P, _P, _I, _I,
+                                _U64, _U64, _U64, _U64, _P, _P, _P, _P, _P],
     "pgrc_join_carry": [_I, _P, _I64, _P, _P, _P, _I, _P, _P, _I64],
     "pgrc_sweep_pair_claim": [_I, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P,
-                              _P, _P, _P, _I, _P, _I64],
+                              _P, _P, _I, _P, _I64],
 }
 # geometry queries (no launch): entry point -> (argtypes, restype)
 QUERIES = {

@@ -4,19 +4,35 @@
 //
 // A block of kThreads threads takes one tile of kTile consecutive entries.
 // Tiles are numbered by an atomic counter, not by blockIdx, so a tile only
-// ever waits on tiles that started before it. Warp w of the block takes the
-// w-th run of kWarpRun entries in kItems rounds of 32 consecutive entries:
-// each round's loads are coalesced, the round is scanned with warp
-// shuffles and carried into the next, and every entry's warp-local
-// inclusive state stays in registers. One shared-memory step combines the
-// warps' aggregates. Thread 0 publishes the tile's aggregate, looks back
-// over the earlier tiles' descriptors until it meets an inclusive prefix,
-// and publishes the tile's own inclusive prefix. The caller then runs its
-// epilogue on each entry's final state, so no scan value goes to device
-// memory.
+// ever waits on tiles that started before it. The block first copies its
+// tile's sorted inputs into shared memory with cp.async (16-byte copies,
+// coalesced, no registers held while they fly); thread t then takes the
+// kItems consecutive entries from t * kItems, reading them two at a time
+// from shared memory, which a swizzle keeps free of bank conflicts. Each
+// kernel issues its gathers for all of a thread's entries before the scan.
+// The thread folds its entries serially into one aggregate; a warp scan of
+// the aggregates, one shared-memory step across the warps and the
+// look-back give each thread its exclusive prefix. The caller folds its
+// entries again from that prefix and runs its epilogue on each entry's
+// final state, so no scan value goes to device memory.
+//
+// The look-back is warp-wide: warp 0 reads the descriptors of the 32
+// preceding tiles at once, one per lane, polling their status with acquire
+// loads; it folds them with shuffles up to the nearest tile that has
+// published its inclusive prefix, and steps back 32 tiles while none has.
+// A tile publishes its aggregate, then its inclusive prefix, each value
+// stored before its status word with a release store.
 //
 // The state is two int64 words; an Op gives identity() and combine(a, b)
-// (a before b, associative).
+// (a before b). combine must be associative — the window and the warp scans
+// fold in tree order, not left to right — and identity() a two-sided
+// identity on the states the kernel makes. JoinOp (a max, and a segmented
+// max reset by the first word) and PairOp (two maxima) are both.
+//
+// The geometry was chosen by timing on an H100 at the inputs of an SE 2M
+// encode's first join and first sweep round: 256 threads x 8 entries, in
+// shared memory, beat 8 entries in registers, 16 entries a thread, 1024-
+// and 4096-entry tiles, and a persistent double-buffered form (PERF.md).
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -26,8 +42,12 @@ namespace seg_scan {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 8;
-constexpr int kWarpRun = 32 * kItems;
 constexpr int kTile = kThreads * kItems;  // 2048 entries
+constexpr int kChunks = kTile / 2;        // 16-byte chunks of one input's tile
+// blocks each SM must hold at once (__launch_bounds__, at most 85 registers
+// a thread): the scans wait on dependent loads, so resident warps are what
+// keeps bytes in flight
+constexpr int kMinBlocks = 3;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct State {
@@ -36,12 +56,14 @@ struct State {
 
 // The scratch the wrapper allocates with torch.zeros (int64 words): word 0
 // counts the tiles handed out; tile t's descriptor is the kDescWords words
-// from kHeadWords + kDescWords * t: [status, agg.a, agg.b, inc.a, inc.b],
-// status 0 = nothing yet, 1 = aggregate published, 2 = inclusive prefix
-// published. Descriptors are read and written through volatile pointers
-// (L2, never a stale L1 line) and a value is fenced before its status.
+// from kHeadWords + kDescWords * t: [status, -, agg.a, agg.b, inc.a, inc.b,
+// -, -], status 0 = nothing yet, 1 = aggregate published, 2 = inclusive
+// prefix published. The values are read with L2-coherent loads after an
+// acquire of the status.
 constexpr int64_t kHeadWords = 8;
 constexpr int64_t kDescWords = 8;
+constexpr int kAggWord = 2;
+constexpr int kIncWord = 4;
 
 __host__ __device__ inline int64_t tiles_for(int64_t m) { return (m + kTile - 1) / kTile; }
 __host__ __device__ inline int64_t scratch_words(int64_t m) {
@@ -50,6 +72,10 @@ __host__ __device__ inline int64_t scratch_words(int64_t m) {
 
 __device__ __forceinline__ State shfl_up(State v, int d) {
   return {__shfl_up_sync(kFull, v.a, d), __shfl_up_sync(kFull, v.b, d)};
+}
+
+__device__ __forceinline__ State shfl_down(State v, int d) {
+  return {__shfl_down_sync(kFull, v.a, d), __shfl_down_sync(kFull, v.b, d)};
 }
 
 __device__ __forceinline__ State shfl(State v, int lane) {
@@ -67,6 +93,62 @@ __device__ __forceinline__ State warp_scan(State v, int lane) {
   return v;
 }
 
+// Shared-memory slot of 16-byte chunk k of a staged tile: thread t reads its
+// chunks t * kItems / 2 + c, and eight threads that read (or copy) at once
+// land on eight distinct 16-byte bank groups.
+static_assert(kItems == 8 || kItems == 16, "the swizzle spreads 4 or 8 chunks a thread");
+__device__ __forceinline__ int swz(int k) { return k ^ ((k >> 3) & (kItems / 2 - 1)); }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// Start copying tile `tile` of p (m entries; past m: pad) into s (kTile
+// words, swizzled by chunk). The ragged end is stored directly.
+__device__ __forceinline__ void stage_tile(const long long* __restrict__ p, int64_t m,
+                                           int64_t tile, long long pad, long long* s) {
+  const int64_t base = tile * kTile;
+  const bool aligned = (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  for (int k = threadIdx.x; k < kChunks; k += kThreads) {
+    const int64_t e = base + 2 * k;
+    long long* dst = s + 2 * swz(k);
+    if (e + 2 <= m) {
+      if (aligned) {
+        cp_async16(dst, p + e);
+      } else {
+        cp_async8(dst, p + e);
+        cp_async8(dst + 1, p + e + 1);
+      }
+    } else {
+      dst[0] = e < m ? p[e] : pad;
+      dst[1] = e + 1 < m ? p[e + 1] : pad;
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait for this block's staged copies; then every thread may read them.
+__device__ __forceinline__ void staged_wait() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+}
+
+// This thread's entries 2c and 2c + 1 of a staged tile.
+__device__ __forceinline__ longlong2 pair_of(const long long* s, int c) {
+  return reinterpret_cast<const longlong2*>(s)[swz(threadIdx.x * (kItems / 2) + c)];
+}
+
+// Entry i of a staged tile.
+__device__ __forceinline__ long long staged(const long long* s, int i) {
+  return s[2 * swz(i >> 1) + (i & 1)];
+}
+
 // The block's tile id, from the counter in scratch word 0.
 __device__ __forceinline__ int64_t next_tile(long long* scratch) {
   __shared__ long long s_tile;
@@ -76,63 +158,87 @@ __device__ __forceinline__ int64_t next_tile(long long* scratch) {
   return s_tile;
 }
 
-__device__ __forceinline__ void publish(volatile long long* desc, State s, int status) {
-  if (status == 1) {
-    desc[1] = s.a;
-    desc[2] = s.b;
-  } else {
-    desc[3] = s.a;
-    desc[4] = s.b;
-  }
-  __threadfence();
-  desc[0] = status;
+__device__ __forceinline__ long long ld_acquire(const long long* p) {
+  long long v;
+  asm volatile("ld.acquire.gpu.s64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// The combined state of tiles [0, tile): walk back over the descriptors,
-// folding aggregates, until an inclusive prefix ends the walk.
+__device__ __forceinline__ void st_release(long long* p, long long v) {
+  asm volatile("st.release.gpu.s64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// One thread publishes s as the tile's aggregate (status 1) or inclusive
+// prefix (status 2): the value first, then the status with release order.
+__device__ __forceinline__ void publish(long long* desc, State s, int status) {
+  *reinterpret_cast<longlong2*>(desc + (status == 1 ? kAggWord : kIncWord)) =
+      make_longlong2(s.a, s.b);
+  st_release(desc, status);
+}
+
+// Called by all of warp 0: the combined state of tiles [0, tile), in every
+// lane. Lane l reads tile top - l of the window; the window is folded with
+// later tiles on the right, up to its nearest inclusive prefix.
 template <typename Op>
-__device__ State look_back(volatile long long* descs, int64_t tile) {
+__device__ State look_back(long long* descs, int64_t tile, int lane) {
   State acc = Op::identity();
-  for (int64_t p = tile - 1; p >= 0; --p) {
-    volatile long long* d = descs + p * kDescWords;
+  for (int64_t top = tile - 1;; top -= 32) {
+    const int64_t p = top - lane;
+    const long long* d = descs + p * kDescWords;
     long long st;
-    while ((st = d[0]) == 0) __nanosleep(20);
-    __threadfence();
-    if (st == 2) return Op::combine(State{d[3], d[4]}, acc);
-    acc = Op::combine(State{d[1], d[2]}, acc);
+    for (;;) {
+      st = p >= 0 ? ld_acquire(d) : 2;
+      if (__all_sync(kFull, st != 0)) break;
+      __nanosleep(32);
+    }
+    const unsigned inc = __ballot_sync(kFull, st == 2);
+    const int stop = inc ? __ffs(inc) - 1 : 31;
+    State v = Op::identity();
+    if (lane <= stop && p >= 0) {
+      const longlong2 w = __ldcg(reinterpret_cast<const longlong2*>(
+          d + (st == 2 ? kIncWord : kAggWord)));
+      v = {w.x, w.y};
+    }
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+      const State o = shfl_down(v, s);
+      if (lane + s < 32) v = Op::combine(o, v);
+    }
+    acc = Op::combine(shfl(v, 0), acc);
+    if (inc) return acc;
   }
-  return acc;
 }
 
-// Called by every thread of the block with its warp's aggregate (the warp's
-// last warp-local inclusive state, the same in every lane): returns the
-// warp's exclusive prefix in the device-wide scan.
+// Called by every thread of the block with the aggregate of its kItems
+// entries: returns the thread's exclusive prefix in the device-wide scan.
 template <typename Op>
-__device__ State warp_prefix(State warp_agg, long long* scratch, int64_t tile) {
-  __shared__ State s_agg[kWarps];
+__device__ State thread_prefix(State agg, long long* scratch, int64_t tile) {
+  __shared__ State s_warp[kWarps];
   __shared__ State s_pre[kWarps];
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) s_agg[warp] = warp_agg;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const State inc = warp_scan<Op>(agg, lane);
+  State excl = shfl_up(inc, 1);
+  if (lane == 0) excl = Op::identity();
+  if (lane == 31) s_warp[warp] = inc;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    State agg = s_agg[0];
-    for (int w = 1; w < kWarps; ++w) agg = Op::combine(agg, s_agg[w]);
-    volatile long long* descs = (volatile long long*)(scratch + kHeadWords);
+  if (warp == 0) {
+    const State w = warp_scan<Op>(lane < kWarps ? s_warp[lane] : Op::identity(), lane);
+    const State block = shfl(w, kWarps - 1);
+    State wex = shfl_up(w, 1);
+    if (lane == 0) wex = Op::identity();
+    long long* descs = scratch + kHeadWords;
     State pre = Op::identity();
     if (tile == 0) {
-      publish(descs, agg, 2);
+      if (lane == 0) publish(descs, block, 2);
     } else {
-      publish(descs + tile * kDescWords, agg, 1);
-      pre = look_back<Op>(descs, tile);
-      publish(descs + tile * kDescWords, Op::combine(pre, agg), 2);
+      if (lane == 0) publish(descs + tile * kDescWords, block, 1);
+      pre = look_back<Op>(descs, tile, lane);
+      if (lane == 0) publish(descs + tile * kDescWords, Op::combine(pre, block), 2);
     }
-    for (int w = 0; w < kWarps; ++w) {
-      s_pre[w] = pre;
-      pre = Op::combine(pre, s_agg[w]);
-    }
+    if (lane < kWarps) s_pre[lane] = Op::combine(pre, wex);
   }
   __syncthreads();
-  return s_pre[warp];
+  return Op::combine(s_pre[warp], excl);
 }
 
 }  // namespace seg_scan

@@ -11,19 +11,16 @@
 // round matches anything (:232-234): the recurrences are cumulative.
 // Unlike the reference's pure update, h, p, h2, p2 are updated IN PLACE.
 //
-// Then it writes the round's 2n sort entries: entry r is row r's prefix,
-// entry n + r its suffix.
-//   k1   sort key: the prefix (suffix) hash, or INV64 when that side is
-//        inactive, stored with bit 63 flipped so that signed int64 order is
-//        the unsigned order (INV64 sorts last);
-//   k2   gid / gid | 0x80000000 / INV32 as a u32 value in an int64, so the
-//        suffix bit sorts after every prefix;
-//   orig the entry's own index (row order, the reference's sort-3 target);
-//   v2   the confirm hash (p2 for a prefix, h2 for a suffix).
+// Then it writes the round's 2n sort keys k1: entry r is row r's prefix,
+// entry n + r its suffix; the key is the prefix (suffix) hash, or INV64
+// when that side is inactive, stored with bit 63 flipped so that signed
+// int64 order is the unsigned order (INV64 sorts last). Kernel F finds an
+// entry's side, gid and confirm hash from its index, so no other entry
+// field is written.
 //
-// What bounds it on the card: memory traffic, ~100 bytes per row per round
-// (two lane words and an N-mask word in, four hashes in and out, 56 bytes
-// of entries out) against a dozen 64-bit multiply-adds.
+// What bounds it on the card: memory traffic, ~94 bytes per row per round
+// (two lane words and an N-mask word in, two flags in, four hashes in and
+// out, two 8-byte keys out) against a dozen 64-bit multiply-adds.
 // What the design does about it: one thread per row, the roll and the entry
 // build fused in one pass (the reference materialises them separately), and
 // the four 64-bit powers passed as scalars, not gathered from a table.
@@ -44,14 +41,11 @@ __device__ __forceinline__ uint64_t col_val(const uint32_t* __restrict__ lanes,
 
 __global__ void sweep_roll_entries_kernel(
     int64_t n, const uint32_t* __restrict__ lanes, int ld_lanes,
-    const uint32_t* __restrict__ nmask, int ld_nmask,
-    const int32_t* __restrict__ gid, const bool* __restrict__ active_s,
+    const uint32_t* __restrict__ nmask, int ld_nmask, const bool* __restrict__ active_s,
     const bool* __restrict__ active_p, int i, int L, uint64_t pow_a,
     uint64_t pow_b, uint64_t inv_a, uint64_t inv_b, uint64_t* __restrict__ h,
     uint64_t* __restrict__ p, uint64_t* __restrict__ h2,
-    uint64_t* __restrict__ p2, int64_t* __restrict__ k1,
-    int64_t* __restrict__ k2, int32_t* __restrict__ orig,
-    uint64_t* __restrict__ v2) {
+    uint64_t* __restrict__ p2, int64_t* __restrict__ k1) {
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const uint64_t vi = col_val(lanes, ld_lanes, nmask, ld_nmask, r, i - 1);
@@ -67,37 +61,24 @@ __global__ void sweep_roll_entries_kernel(
 
   constexpr uint64_t kFlip = 1ull << 63;
   constexpr uint64_t kInv64 = ~0ull;
-  constexpr int64_t kInv32 = 0xFFFFFFFFll;
-  const bool ap = active_p[r];
-  const bool as = active_s[r];
-  const int64_t g = (int64_t)(uint32_t)gid[r];
-  k1[r] = (int64_t)((ap ? pp : kInv64) ^ kFlip);
-  k1[n + r] = (int64_t)((as ? hh : kInv64) ^ kFlip);
-  k2[r] = ap ? g : kInv32;
-  k2[n + r] = as ? (g | 0x80000000ll) : kInv32;
-  orig[r] = (int32_t)r;
-  orig[n + r] = (int32_t)(n + r);
-  v2[r] = pp2;
-  v2[n + r] = hh2;
+  k1[r] = (int64_t)((active_p[r] ? pp : kInv64) ^ kFlip);
+  k1[n + r] = (int64_t)((active_s[r] ? hh : kInv64) ^ kFlip);
 }
 
 }  // namespace
 
 extern "C" int pgrc_sweep_roll_entries(
     int device, void* stream, int64_t n, const void* lanes, int ld_lanes,
-    const void* nmask, int ld_nmask, const void* gid, const void* active_s,
-    const void* active_p, int i, int L, uint64_t pow_a, uint64_t pow_b,
-    uint64_t inv_a, uint64_t inv_b, void* h, void* p, void* h2, void* p2,
-    void* k1, void* k2, void* orig, void* v2) {
+    const void* nmask, int ld_nmask, const void* active_s, const void* active_p,
+    int i, int L, uint64_t pow_a, uint64_t pow_b, uint64_t inv_a, uint64_t inv_b,
+    void* h, void* p, void* h2, void* p2, void* k1) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
   sweep_roll_entries_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
                               (cudaStream_t)stream>>>(
       n, (const uint32_t*)lanes, ld_lanes, (const uint32_t*)nmask, ld_nmask,
-      (const int32_t*)gid, (const bool*)active_s, (const bool*)active_p, i, L,
-      pow_a, pow_b, inv_a, inv_b, (uint64_t*)h, (uint64_t*)p, (uint64_t*)h2,
-      (uint64_t*)p2, (int64_t*)k1, (int64_t*)k2, (int32_t*)orig,
-      (uint64_t*)v2);
+      (const bool*)active_s, (const bool*)active_p, i, L, pow_a, pow_b, inv_a, inv_b,
+      (uint64_t*)h, (uint64_t*)p, (uint64_t*)h2, (uint64_t*)p2, (int64_t*)k1);
   return (int)cudaGetLastError();
 }

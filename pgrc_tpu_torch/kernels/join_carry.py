@@ -58,7 +58,9 @@ def join_carry(skey: torch.Tensor, perm: torch.Tensor, ipos: torch.Tensor,
     if on_cpu(skey, perm, ipos):
         return join_carry_plain(skey, perm, ipos, P)
     dev = skey.device
-    res = torch.empty((P,), dtype=torch.int64, device=dev)
+    # the kernel writes only the probes that hit (the route's scattered
+    # writes are most of its time), so every other result is this zero
+    res = torch.zeros((P,), dtype=torch.int64, device=dev)
     if m2 == 0:
         return res
     scratch = scan_scratch(m2, dev)

@@ -102,14 +102,13 @@ def round_order(k1, a_p, a_s):
 
 def _round(i: int, L: int, t: dict, succ_g, ovl_g) -> None:
     """One overlap round on table `t` (in place); links go to succ_g/ovl_g."""
-    k1, k2, orig, v2 = sweep_roll_entries(
-        t["lanes"], t["nmask"], t["ids"], t["a_s"], t["a_p"], i, L,
-        t["h"], t["p"], t["h2"], t["p2"])
+    k1 = sweep_roll_entries(t["lanes"], t["nmask"], t["a_s"], t["a_p"], i, L,
+                            t["h"], t["p"], t["h2"], t["p2"])
     order = round_order(k1, t["a_p"], t["a_s"])
     if order is None:
         return
     # ranks, pairing, claim and links in one pass (kernel F)
-    sweep_pair_claim(*order, k2, v2, orig, t["ids"], succ_g, ovl_g,
+    sweep_pair_claim(*order, t["ids"], t["p2"], t["h2"], succ_g, ovl_g,
                      t["a_s"], t["a_p"], i, L)
 
 

@@ -205,7 +205,7 @@ def test_probe_hash_matches_window_hashes(pg_case, k):
 
 @pytest.mark.parametrize("with_n", [False, True])
 def test_sweep_roll_entries_matches_reference_rounds(with_n):
-    """Kernel D: rounds 1..6 of roll + entries against the reference's
+    """Kernel D: rounds 1..6 of roll + order keys against the reference's
     round arithmetic in numpy (`_pow_table64`, the inverse bases)."""
     rng = np.random.default_rng(7 + with_n)
     n = 500
@@ -218,29 +218,21 @@ def test_sweep_roll_entries_matches_reference_rounds(with_n):
     hs = [rng.integers(0, 2**64, n, dtype=np.uint64) for _ in range(4)]
     lanes, nmask = state.lanes_to_device(*ref_packed.pack_lanes(codes), "cpu")
     assert (nmask is not None) == with_n
-    gid = torch.arange(n, dtype=torch.int32)
     ts = [state.hashes_to_device(h.copy(), "cpu") for h in hs]
     pa, pb = ref_scs._pow_table64(L), ref_scs._pow_table64(L, ref_scs.HASH_BASE64B)
     h, p, h2, p2 = hs
-    INV64, INV32 = np.uint64(2**64 - 1), 0xFFFFFFFF
+    INV64 = np.uint64(2**64 - 1)
     with np.errstate(over="ignore"):
         for i in range(1, 7):
             h = h - v[:, i - 1] * pa[L - i]
             h2 = h2 - v[:, i - 1] * pb[L - i]
             p = (p - v[:, L - i]) * ref_scs.HASH_BASE64_INV
             p2 = (p2 - v[:, L - i]) * ref_scs.HASH_BASE64B_INV
-            k1, k2, orig, v2 = sweep.sweep_roll_entries_plain(
-                lanes, nmask, gid, torch.from_numpy(a_s), torch.from_numpy(a_p),
-                i, L, *ts)
+            k1 = sweep.sweep_roll_entries_plain(
+                lanes, nmask, torch.from_numpy(a_s), torch.from_numpy(a_p), i, L, *ts)
             np.testing.assert_array_equal(
                 uint.tensor_to_np_u64(uint.from_order_key64(k1)),
                 np.concatenate([np.where(a_p, p, INV64), np.where(a_s, h, INV64)]))
-            ids = np.arange(n, dtype=np.int64)
-            np.testing.assert_array_equal(k2.numpy(), np.concatenate(
-                [np.where(a_p, ids, INV32), np.where(a_s, ids | 0x80000000, INV32)]))
-            np.testing.assert_array_equal(orig.numpy(), np.arange(2 * n))
-            np.testing.assert_array_equal(uint.tensor_to_np_u64(v2),
-                                          np.concatenate([p2, h2]))
             for t, want in zip(ts, (h, p, h2, p2)):
                 np.testing.assert_array_equal(uint.tensor_to_np_u64(t), want)
 

@@ -17,7 +17,6 @@ import torch
 from pgrc_tpu_torch.align import matcher
 from pgrc_tpu_torch.kernels import join_carry as kjoin
 from pgrc_tpu_torch.kernels import sweep_pair_claim as kpair
-from pgrc_tpu_torch.kernels.sweep import SUFFIX_BIT
 from pgrc_tpu_torch.overlap import greedy_scs
 from pgrc_tpu_torch.utils.uint import SIGN64
 
@@ -211,34 +210,54 @@ def pair_case(kind, rng):
 
 
 def port_round(ids, a_s, a_p, p, h, p2, h2, i, L, succ, ovl):
-    """The port's round after kernel D: its entries (k1 with the sign bit
-    flipped, k2, orig, v2), the round's sort, then F's plain version."""
-    n = ids.size
+    """The port's round after kernel D: its order keys (k1 with the sign bit
+    flipped, prefixes first), the round's sort, then F's plain version on
+    the entry indices, ids and the confirm hashes."""
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
-    g = t(ids).to(torch.int64)
     tp, th = t(p.view(np.int64)), t(h.view(np.int64))
     ta_s, ta_p = t(a_s.copy()), t(a_p.copy())
     k1 = torch.cat([torch.where(ta_p, tp, -1), torch.where(ta_s, th, -1)]) ^ SIGN64
-    k2 = torch.cat([torch.where(ta_p, g, INV32), torch.where(ta_s, g | SUFFIX_BIT, INV32)])
-    orig = torch.arange(2 * n, dtype=torch.int32)
-    v2 = torch.cat([t(p2.view(np.int64)), t(h2.view(np.int64))])
     succ_t, ovl_t = t(succ.copy()), t(ovl.copy())
     order = greedy_scs.round_order(k1, ta_p, ta_s)
     if order is not None:
-        kpair.sweep_pair_claim(*order, k2, v2, orig, t(ids), succ_t, ovl_t,
-                               ta_s, ta_p, i, L)
+        kpair.sweep_pair_claim(*order, t(ids), t(p2.view(np.int64)), t(h2.view(np.int64)),
+                               succ_t, ovl_t, ta_s, ta_p, i, L)
     return succ_t.numpy(), ovl_t.numpy(), ta_s.numpy(), ta_p.numpy()
 
 
 PAIR_KINDS = ["mixed", "dense groups", "runs of one", "one hash",
-              "only prefixes", "only suffixes"]
+              "only prefixes", "only suffixes", "one row", "compacted, own key"]
+
+
+def own_key_case(rng):
+    """A table after compaction: sparse ids (a few rows of a large input) and
+    every row's prefix and suffix on one key, a few keys in all, so a run
+    holds a row's own prefix beside other rows' and a suffix may pair with
+    its own row's prefix (a self pair) or another's."""
+    n = 600
+    N = 50 * n
+    ids = np.sort(rng.choice(N, n, replace=False)).astype(np.int32)
+    h = rng.integers(0, 5, n).astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+    p2 = rng.integers(0, 2, n).astype(np.uint64)
+    return N, ids, rng.random(n) < 0.9, rng.random(n) < 0.9, h.copy(), h, p2, p2.copy()
 
 
 @pytest.mark.parametrize("kind", PAIR_KINDS)
 def test_sweep_pair_claim_plain_is_reference_pairing(kind):
+    """F's side (entry >= n), gid (ids of the entry's row) and confirm hash
+    (p2 or h2 of that row) from the entry index, against the reference's
+    sort-2 pairing on its gathered entries."""
     rng = np.random.default_rng(100 + PAIR_KINDS.index(kind))
-    N, ids, a_s, a_p, p, h, p2, h2 = pair_case(
-        kind if kind in PAIR_KINDS[:4] else "mixed", rng)
+    if kind == "one row":         # one row: its suffix pairs with its own prefix
+        N, ids = 7, np.array([5], np.int32)
+        a_s, a_p = np.ones(1, bool), np.ones(1, bool)
+        p = h = np.full(1, 0x1234, np.uint64)
+        p2 = h2 = np.full(1, 3, np.uint64)
+    elif kind == "compacted, own key":
+        N, ids, a_s, a_p, p, h, p2, h2 = own_key_case(rng)
+    else:
+        N, ids, a_s, a_p, p, h, p2, h2 = pair_case(
+            kind if kind in PAIR_KINDS[:4] else "mixed", rng)
     if kind == "only prefixes":
         a_s[:] = False
     elif kind == "only suffixes":
@@ -252,23 +271,33 @@ def test_sweep_pair_claim_plain_is_reference_pairing(kind):
     seen = reference_round(ids, want_as, want_ap, p, h, p2, h2, i, L, want_s, want_o)
     for g, w in zip(got, (want_s, want_o, want_as, want_ap)):
         np.testing.assert_array_equal(g, w)
-    if kind == "mixed":   # the cases the pairing must get right all occur
+    if kind in ("mixed", "compacted, own key"):   # every case of the pairing occurs
         assert seen["links"] > 0 and seen["self_pairs"] > 0 and seen["unconfirmed"] > 0
+    if kind == "mixed":
         assert min(stats.values()) > 0, stats
     if kind in ("only prefixes", "only suffixes"):
         assert seen["links"] == 0 and (got[2] == a_s).all() and (got[3] == a_p).all()
+    if kind == "one row":         # a self pair: no link, the prefix claimed
+        assert seen == dict(self_pairs=1, unconfirmed=0, links=0)
+        assert got[2].all() and not got[3].any()
 
 
 def test_sweep_pair_claim_checks_its_inputs():
     n = 4
-    z64, z32 = torch.zeros(2 * n, dtype=torch.int64), torch.zeros(2 * n, dtype=torch.int32)
-    args = [torch.zeros(3, dtype=torch.int64), torch.arange(3), z64, z64, z32,
-            torch.arange(n, dtype=torch.int32), torch.zeros(8, dtype=torch.int32),
+    z64 = torch.zeros(n, dtype=torch.int64)
+    args = [torch.zeros(3, dtype=torch.int64), torch.arange(3),
+            torch.arange(n, dtype=torch.int32), z64, z64, torch.zeros(8, dtype=torch.int32),
             torch.zeros(8, dtype=torch.int32), torch.ones(n, dtype=torch.bool),
             torch.ones(n, dtype=torch.bool)]
     with pytest.raises(ValueError):      # round 0 does not exist
         kpair.sweep_pair_claim(*args, 0, 100)
+    for pos, wrong in ((2, torch.arange(n)),                      # ids must be int32
+                       (3, torch.zeros(n, dtype=torch.int32))):   # p2 must be int64
+        bad = list(args)
+        bad[pos] = wrong
+        with pytest.raises(TypeError):
+            kpair.sweep_pair_claim(*bad, 1, 100)
     bad = list(args)
-    bad[4] = z64                         # orig must be int32
-    with pytest.raises(TypeError):
+    bad[4] = torch.zeros(2 * n, dtype=torch.int64)   # h2 has one hash per row
+    with pytest.raises(ValueError):
         kpair.sweep_pair_claim(*bad, 1, 100)
