@@ -8,12 +8,18 @@ Phases, each printed with its times; the first failure exits nonzero:
      nvcc, and whether the host layer's native library loaded;
   2. build: the CUDA kernels from pgrc_tpu_torch/kernels/csrc;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes — outputs must be bit-equal — and both timed;
-     kernels E (join_carry) and F (sweep_pair_claim) also on adversarial
-     inputs sized from the scan's tile (one run over every entry, past one
-     32-tile look-back window; runs of one entry; runs that end at tile
-     edges; one entry; a length off the tile; partners 40 tiles back),
-     every E and F input over 10 launches, each bit-equal;
+     the main path's shapes — outputs must be bit-equal — and both timed
+     (device time of each call, with the L2 cache evicted before it; the
+     card is kept busy while the host queues the timed calls); kernels B
+     (index_kmer_hash) and C (probe_kmer_hash) also on 20 edge cases (a
+     ragged tile, one entry, the pg's last lane, block starts, int64
+     positions past 2^31, k 24-40 with k1 2-8, offsets at both ends of the
+     lanes, one row, more offsets than threads); kernels E
+     (join_carry) and F (sweep_pair_claim) on adversarial inputs sized from
+     the scan's tile (one run over every entry, past one 32-tile look-back
+     window; runs of one entry; runs that end at tile edges; one entry; a
+     length off the tile; partners 40 tiles back); every edge case over 10
+     launches, each bit-equal;
   4. SE 200k (bench.py's headline input): compress through the port's CLI
      on the card, decode with the port's decoder, require an exact multiset
      round trip, every kernel launched, and bits/base <= 0.1412;
@@ -21,16 +27,19 @@ Phases, each printed with its times; the first failure exits nonzero:
      and the peak device memory; E and F against their plain versions on
      the inputs of this encode's first join and first sweep round; a
      second encode under torch.profiler: the device busy share, the
-     kernels that take the device time, and no cummax kernel;
+     kernels that take the device time (B, C, the sorts, any cat or
+     elementwise kernel by name), no cummax kernel, and the join's sort
+     dispatching torch.sort alone (its keys are B's and C's outputs);
   6. large pg: the matcher with the encoder's lazy index where the blocked
      index and the wide probe trigger on their own, a 300M-symbol pg (2
      index blocks, int32 positions) and a 2.3G-symbol pg (9 blocks, int64
      positions), 2^20 planted reads each: >= 99% back at their planted
      position and strand, every match re-verified on the host, one kernel B
-     launch per block. On the same pgs, kernel B at a block start (int32 and
-     int64), kernel A's int64 form and kernel E on the match's first join
-     (111M entries) against their plain versions; a second match_reads
-     under torch.profiler;
+     launch per index block and row batch (the blocks are built per join,
+     not held), the peak device memory. On the same pgs, kernel B at a
+     block start (int32 and int64), kernel A's int64 form and kernel E on
+     the match's first join (111M entries) against their plain versions; a
+     second match_reads under torch.profiler, as in phase 5;
   7. modes at 30k reads (bench.py's generator, with a pair file): SE -l 2,
      PE, MIN_PE, SE_ORD, PE_ORD, and SE with the sweep and index caps
      lowered (a partitioned sweep, a blocked index): the card's archive
@@ -122,8 +131,9 @@ INT_OPS_S = 132 * 64 * 1.98e9
 # lane (shift, or, xor, or, and, popc, add, load) and per slot (test and
 # select); B and C as prefix hashes, P[j] = P[j-1] * B + v[j] per symbol
 # read (shift, and, multiply, add) and H = P[i+k-1] - P[i-1] * B^k per
-# k-mer (multiply, subtract) — the same u32 hashes as the kernels' Horner
-# chain of k multiply-adds; D per row (four 64-bit multiply-adds and the
+# k-mer (multiply, subtract) — the same u32 hashes as the plain versions'
+# Horner chain of k multiply-adds (kernel C takes this form, kernel B rolls
+# its window a symbol at a time); D per row (four 64-bit multiply-adds and the
 # key build); E and F per entry of a sequential segmented max-scan
 # (boundary compare, two selects, two maxima, the epilogue's test and
 # select, its index)
@@ -131,6 +141,12 @@ OPS_A_LANE, OPS_A_SLOT, OPS_HASH_SYM, OPS_HASH_KMER, OPS_D_ROW, OPS_SCAN = 8, 4,
 # launches of E and F held against one plain result on each input: a race
 # in a look-back scan shows only now and then
 CHECK_LAUNCHES = 10
+# the card's spin before a timed window, ~40 ms at 1.98 GHz: longer than the
+# host takes to queue the timed calls of one cuda_ms
+QUEUE_CYCLES = 80_000_000
+# bytes read between two timed calls: twice the H100's 50 MB L2 cache, so
+# no call finds in L2 the inputs or outputs that the one before left there
+L2_EVICT_BYTES = 100 * 2**20
 POS_MASK = (1 << 35) - 1
 U32_MASK = 0xFFFFFFFF
 
@@ -149,17 +165,28 @@ def require(cond: bool, msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of fn() on the card (CUDA events, after one
-    warm-up call)."""
+    """Mean milliseconds per call of fn() on the card, after one warm-up
+    call: each call between its own pair of CUDA events, after a read of
+    L2_EVICT_BYTES that evicts the L2 cache (a read, so the lines it leaves
+    are clean and the timed call writes none of them back). The card first
+    spins QUEUE_CYCLES, so the host has queued the timed calls before the
+    first of them runs: the events time the device, not the Python launch
+    path between short kernels (a fn that waits on the card is still timed
+    with its waits). The buffer read is freed on return, so it adds nothing
+    to the peak device memory of a later phase."""
+    evict = torch.ones(L2_EVICT_BYTES // 4, dtype=torch.int32, device="cuda")
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(QUEUE_CYCLES)
+    for start, end in events:
+        evict.max()
+        start.record()
         fn()
-    end.record()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return sum(start.elapsed_time(end) for start, end in events) / reps
 
 
 def max_abs_err(a, b) -> int:
@@ -367,6 +394,7 @@ def scan_edge_cases(dev) -> int:
     bit-equal to the plain version over CHECK_LAUNCHES launches."""
     from pgrc_tpu_torch import kernels
     from pgrc_tpu_torch.align import matcher
+    from pgrc_tpu_torch.kernels import kmer_hash
 
     T = kernels.scan_tile()
     cases = []
@@ -377,7 +405,8 @@ def scan_edge_cases(dev) -> int:
         ih = on(np.asarray(ihash, np.uint32).view(np.int32), np.int32)
         ip = on(ipos, np.int64 if wide else np.int32)
         hs = on(np.asarray(hashes, np.uint32).view(np.int32), np.int32)
-        skey, perm = matcher.join_sort(hs, ih, ip)
+        keys = torch.cat([kmer_hash.index_keys(ih, ip), kmer_hash.probe_keys(hs)])
+        skey, perm = matcher.join_sort(keys, ip.numel(), hs.numel())
         check_join("join_carry", (skey, perm, ip, hs.numel()), label, 0, timed=False)
         say(f"[kernel] join_carry {label}: m2={skey.numel()} bit-equal")
         cases.append(label)
@@ -426,6 +455,65 @@ def scan_edge_cases(dev) -> int:
     return len(cases)
 
 
+def hash_edge_cases(dev) -> int:
+    """Kernels B and C where a tiled rolling or prefix hash goes wrong: the
+    ragged tile, one entry, the pg's last lane, block starts, positions
+    past 2^31, every k and k1 the matcher uses, offsets at both ends of the
+    lanes, one row, more offsets than threads. Each case over
+    CHECK_LAUNCHES launches bit-equal to the plain version; -> the number
+    of cases."""
+    from pgrc_tpu_torch import state
+    from pgrc_tpu_torch.kernels import kmer_hash as kh
+
+    rng = np.random.default_rng(654)
+    cases = []
+
+    def check(label, run, run_plain):
+        want = run_plain()
+        err = max(max_abs_err(run(), want) for _ in range(CHECK_LAUNCHES))
+        require(err == 0, f"{label}: kernel differs from its plain version")
+        cases.append(label)
+
+    def b(label, pg, pg_len, k, k1, m, lane_off=0, wide=False):
+        args = (pg, k, k1, pg_len, m, lane_off, wide)
+        check(f"index_kmer_hash {label}", lambda: kh.index_kmer_hash(*args),
+              lambda: kh.index_kmer_hash_plain(*args))
+
+    pg_len = 16 * 50_000 + 7                      # not a multiple of 16
+    pg = state.pg_lanes_to_device(rng.integers(0, 4, pg_len, dtype=np.uint8), dev)
+    n_lanes = pg.numel() - 1
+    b("m off the tile", pg, pg_len, 32, 4, 3 * 4096 + 777)
+    b("m = 1, lane_off 5", pg, pg_len, 32, 4, 1, 5)
+    for k in (24, 32, 37, 40):
+        for k1 in (2, 4, 8):
+            lane_off = n_lanes - 3001              # to the pg's end, off any alignment
+            b(f"k {k} k1 {k1}, lanes {lane_off}..{n_lanes} (the last window crosses the "
+              f"pg's last lane)", pg, pg_len, k, k1, (n_lanes - lane_off) * 16 // k1, lane_off)
+    # a 2^31-symbol pg as random lanes: int64 positions past 2^31
+    n_big = (1 << 27) + 4099
+    big = torch.randint(-(1 << 31), (1 << 31) - 1, (n_big + 1,), dtype=torch.int32, device=dev)
+    big[-1] = 0
+    lane_off = (1 << 27) + 3
+    b("int64 positions from 2^31 + 48, lane_off > 0", big, 16 * n_big - 9, 40, 4,
+      (n_big - lane_off) * 4, lane_off, wide=True)
+    del big
+
+    def c(label, lanes, offs, k):
+        check(f"probe_kmer_hash {label}", lambda: (kh.probe_kmer_hash(lanes, offs, k),),
+              lambda: (kh.probe_kmer_hash_plain(lanes, offs, k),))
+
+    W1 = (L + 15) // 16 + 1
+    lanes = torch.randint(-(1 << 31), (1 << 31) - 1, (4096 + 37, W1), dtype=torch.int32,
+                          device=dev)
+    c("a single row, offsets 0 and 16*(W+1) - k", lanes[:1], [0, 16 * W1 - 32], 32)
+    c("rows off the tile, offsets 0 and 16*(W+1) - k", lanes, [0, 1, 16 * W1 - 40], 40)
+    for k in (24, 37):
+        c(f"k {k}, the matcher's offsets", lanes[:2000 + 13], list(range(0, L - k + 1, 3)), k)
+    c("130 offsets (more than a block's threads)", lanes[:300],
+      [j % (16 * W1 - 23) for j in range(130)], 24)
+    return len(cases)
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version on the card, at the main path's
     shapes (E and F at theirs in phases 5 and 6), and E and F on their edge
@@ -463,20 +551,19 @@ def phase_kernels(dev) -> dict:
                           *verify_work(lanes, start_all, in_range, pg_lanes, nv))
     out["verify_best"] = rows[6]
 
-    # B: index_kmer_hash over the 5M-symbol pg, k = 32, k1 = 4
+    # B: index_kmer_hash over the 5M-symbol pg, k = 32, k1 = 4: join keys
+    # (8 B) and int32 positions written, the pg's lanes read once
     m = (pg_lanes.numel() - 1) * 16 // 4
     args = (pg_lanes, 32, 4, pg_len, m)
     out["index_kmer_hash"] = record(
-        "index_kmer_hash", lambda: kmer_hash.index_kmer_hash(*args),
-        lambda: kmer_hash.index_kmer_hash_plain(*args), 20, f"m={m} k=32 k1=4",
-        pg_lanes.numel() * 4 + m * 8, hash_ops(m * 4 + 32, m))
+        "index_kmer_hash", lambda: kmer_hash.index_kmer_hash(*args), lambda: kmer_hash.index_kmer_hash_plain(*args), 20,
+        f"m={m} k=32 k1=4", pg_lanes.numel() * 4 + m * 12, hash_ops(m * 4 + 32, m))
 
-    # C: probe_kmer_hash, R = 2^18 rows, S = 23 offsets
-    offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+    # C: probe_kmer_hash, R = 2^18 rows, S = 23 offsets: the lanes read
+    # once, one 8-byte join key written per probe
     out["probe_kmer_hash"] = record(
-        "probe_kmer_hash", lambda: (kmer_hash.probe_kmer_hash(lanes, offs_t, 32),),
-        lambda: (kmer_hash.probe_kmer_hash_plain(lanes, offs_t, 32),), 20,
-        f"R={R} S={S} k=32", lanes.numel() * 4 + S * 4 + R * S * 4,
+        "probe_kmer_hash", lambda: (kmer_hash.probe_kmer_hash(lanes, offs, 32),), lambda: (kmer_hash.probe_kmer_hash_plain(lanes, offs, 32),),
+        20, f"R={R} S={S} k=32", lanes.numel() * 4 + S * 4 + R * S * 8,
         hash_ops(R * (max(offs) + 32), R * S))
 
     # D: sweep_roll_entries, n = 2^18 rows, rounds 1..4, without and with N
@@ -517,7 +604,11 @@ def phase_kernels(dev) -> dict:
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     out["sweep_roll_entries"] = rows[True]
 
-    # E and F on their edge cases (their main-path shapes come in phases 5, 6)
+    # B and C at the edges of their tiles and lanes; E and F on their edge
+    # cases (their main-path shapes come in phases 5, 6)
+    t0 = time.time()
+    cases = hash_edge_cases(dev)
+    say(f"[kernel] index_kmer_hash, probe_kmer_hash: {cases} edge cases bit-equal in {time.time() - t0:.1f} s")
     t0 = time.time()
     cases = scan_edge_cases(dev)
     say(f"[kernel] join_carry, sweep_pair_claim: {cases} edge cases bit-equal in "
@@ -565,12 +656,54 @@ def cummax_kernel_names(dev) -> set:
     return {k for k in names if "scan" in k.lower() or "cum" in k.lower()}
 
 
+class JoinOps:
+    """Spy on matcher.join_sort: the aten ops its calls dispatch (a
+    TorchDispatchMode around each call) and the number of calls."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        from pgrc_tpu_torch.align import matcher
+
+        ops = self.ops = set()
+        self.calls = 0
+        self.real = real = matcher.join_sort
+
+        class Log(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                ops.add(str(func.overloadpacket))
+                return func(*args, **(kwargs or {}))
+
+        def spy(*args):
+            self.calls += 1
+            with Log():
+                return real(*args)
+
+        matcher.join_sort = spy
+        return self
+
+    def __exit__(self, *exc):
+        from pgrc_tpu_torch.align import matcher
+
+        matcher.join_sort = self.real
+        return False
+
+
+# kernels whose traced device time profiled() prints by name (substrings of
+# the kernel names): B and C, the join's and the sweep's sorts, and what a
+# concatenation or an elementwise key pass would launch
+TRACED_GROUPS = (("B", "index_kmer_hash"), ("C", "probe_kmer_hash"), ("sorts", "Sort"),
+                 ("cat", "CatArray"), ("elementwise", "elementwise_kernel"))
+
+
 def profiled(fn, label, banned=()):
     """Run fn() under torch.profiler, with the port's trace spans on (their
     `[trace]` lines give the host wall of each span): print the wall, the
-    device time (sum of the kernels' and copies' self time), the busy share
-    and the eight largest device items; fail if a kernel named in `banned`
-    or an aten::cummax op ran. -> fn's result."""
+    device time (sum of the kernels' and copies' self time), the busy share,
+    the eight largest device items and the TRACED_GROUPS; fail if a kernel
+    named in `banned` or an aten::cummax op ran, or if the join's sort
+    (matcher.join_sort) dispatched any op but torch.sort and its slice of
+    the key buffer. -> fn's result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -580,7 +713,8 @@ def profiled(fn, label, banned=()):
     t0 = time.time()
     was, trace._ON = trace._ON, True
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with JoinOps() as join_ops, \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             res = fn()
             torch.cuda.synchronize()
     finally:
@@ -595,6 +729,15 @@ def profiled(fn, label, banned=()):
     say(f"[{label}] traced: wall {wall:.3f} s, device time {busy:.3f} s, busy share "
         f"{busy / wall:.3f}; largest: " + "; ".join(
             f"{e.key[:60]} {self_us(e) / 1e3:.1f} ms x{e.count}" for e in top))
+    groups = []
+    for name, pat in TRACED_GROUPS:
+        sel = [e for e in dev if pat in e.key]
+        groups.append(f"{name} {sum(self_us(e) for e in sel) / 1e3:.3f} ms "
+                      f"x{sum(e.count for e in sel)}")
+    say(f"[{label}] traced device time: " + "; ".join(groups) + f"; the join's sort: "
+        f"{join_ops.calls} calls dispatching {sorted(join_ops.ops)}")
+    require(join_ops.calls > 0 and join_ops.ops - {"aten.slice"} == {"aten.sort"},
+            f"{label}: the join's sort ran {sorted(join_ops.ops)}, not torch.sort alone")
     ran = sorted({e.key for e in events if e.key in banned or "cummax" in e.key})
     require(not ran, f"{label}: the traced run launched cummax: {ran}")
     require(busy > 0, f"{label}: the profiler saw no device time")
@@ -798,12 +941,12 @@ def phase_large_pg(dev, label, pg_len, seed, lane_off, banned):
     m = (min(lane_off + wp, n_lanes) - lane_off) * 16 // 4
     args = (pg_lanes, k, 4, pg_len, m, lane_off, wide)
     pos_bytes = 8 if wide else 4
+    note = (f"{'int64' if wide else 'int32'} block at lane_off {lane_off} (positions "
+            f"{lane_off * 16}..{lane_off * 16 + m * 4 - 4}), m={m} k={k} k1=4")
     out["index_kmer_hash.int64" if wide else "index_kmer_hash.block"] = record(
         "index_kmer_hash", lambda: kmer_hash.index_kmer_hash(*args),
-        lambda: kmer_hash.index_kmer_hash_plain(*args), 10,
-        f"{'int64' if wide else 'int32'} block at lane_off {lane_off} (positions "
-        f"{lane_off * 16}..{lane_off * 16 + m * 4 - 4}), m={m} k={k} k1=4",
-        (m // 4 + k // 16 + 2) * 4 + m * (4 + pos_bytes), hash_ops(m * 4 + k, m))
+        lambda: kmer_hash.index_kmer_hash_plain(*args), 10, note,
+        (m // 4 + k // 16 + 2) * 4 + m * (8 + pos_bytes), hash_ops(m * 4 + k, m))
     if wide:
         R, offs = 1 << 18, probe_offsets(L, k, 3)
         S = len(offs)
@@ -834,11 +977,17 @@ def phase_large_pg(dev, label, pg_len, seed, lane_off, banned):
     kernels.reset_launches()
     run = lambda: matcher.match_reads(reads, index, pg, max_mis, cap=prm.match_cap,
                                       accept_mis=0, device=dev)
-    with FirstCall(matcher, "join_carry") as join:
-        t0 = time.time()
-        res = run()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+    caps, real_cap = [], matcher._batch_cap
+    matcher._batch_cap = lambda *a: caps.append(real_cap(*a)) or caps[-1]
+    try:
+        with FirstCall(matcher, "join_carry") as join:
+            t0 = time.time()
+            res = run()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        matcher._batch_cap = real_cap
+    batches = sum(-(-2 * PLANTED // c) for c in caps)   # the pass's row batches
     launches = dict(kernels.launches)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     free_card()
@@ -852,16 +1001,17 @@ def phase_large_pg(dev, label, pg_len, seed, lane_off, banned):
                            if wide else ("index_kmer_hash", "verify_best", "join_carry"))
     say(f"[{label}] match_reads {wall:.2f} s, peak device memory {peak_mb:.0f} MiB, "
         f"{hit.mean():.6f} at the planted position and strand, {got.size} matched, "
-        f"{int(exact.sum())} re-verified exactly, index blocks {blocks}, "
-        f"launches {launches}")
+        f"{int(exact.sum())} re-verified exactly, index blocks {blocks}, row batches "
+        f"{batches}, launches {launches}")
     require(hit.mean() >= 0.99, f"{label}: {hit.mean():.4f} of the reads at their plant")
     miss = np.nonzero(res.pos < 0)[0][:8]
     require(PLANTED - got.size <= 15, f"{label}: {PLANTED - got.size} reads unmatched "
             f"(planted at {st[miss].tolist()}, rc {rc[miss].tolist()})")
     require(exact.all() and (res.mis[got] <= max_mis).all(),
             f"{label}: {int((~exact).sum())} matches fail the host re-verify")
-    require(blocks >= (8 if wide else 2) and launches[b_key] == blocks,
-            f"{label}: {launches[b_key]} kernel B launches for {blocks} index blocks")
+    require(blocks >= (8 if wide else 2) and launches[b_key] == blocks * batches,
+            f"{label}: {launches[b_key]} kernel B launches for {blocks} index blocks x "
+            f"{batches} row batches")
     other = ("index_kmer_hash", "verify_best", "join_carry") if wide else (
         "index_kmer_hash.int64", "verify_best.int64", "join_carry.int64")
     require(launches[a_key] > 0 and launches["probe_kmer_hash"] > 0

@@ -3,7 +3,8 @@
 
 Per read and strand: hash a k-mer anchor at every probe offset (kernel C),
 join the anchors with each block of the pg's sampled k-mer table (kernel B)
-so each gets the block's lowest-position index entry of exactly its hash,
+so each gets the block's lowest-position index entry of exactly its hash
+(B and C write the join's sort keys into one buffer, and the join sorts it),
 turn anchors into candidate starts, and verify the first n_verify in-range
 starts against the packed pg, keeping the (mismatches, position) minimum
 (kernel A). Blocks merge by the reference's rule (matcher.py:447-458).
@@ -17,6 +18,7 @@ own, in `host.py`.
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -25,10 +27,9 @@ from .. import state
 from ..core import packed
 from ..core.packed import revcomp_lanes
 from ..kernels.join_carry import JOIN_MAX, join_carry
-from ..kernels.kmer_hash import index_kmer_hash, probe_kmer_hash
+from ..kernels.kmer_hash import index_keys, index_kmer_hash, offsets_tensor, probe_kmer_hash
 from ..kernels.verify import verify_best
 from ..utils.trace import span
-from ..utils.uint import U32_MASK, i32_to_u32
 from .host import (  # noqa: F401  (re-exported host layer)
     DEFAULT_CAP, DEFAULT_K2, KmerIndex, MatchResult, _batch_cap,
     _build_rescue_index, _interleaved_rescue, _probe_bucket, _spread_offsets,
@@ -39,79 +40,102 @@ from .host import (  # noqa: F401  (re-exported host layer)
 _MAX_INDEX_BLOCK = 1 << 26
 
 
+@dataclass
+class IndexBlock:
+    """One block of the index: `m` entries built by kernel B from lane
+    `lane_off` of the packed pg into each join's key buffer (a lazy index),
+    or a host-built `table` (ihash int32 bits, ipos) moved to the device
+    once."""
+    m: int
+    lane_off: int = 0
+    table: tuple | None = None
+
+
 def device_index(index: KmerIndex, pg_codes: np.ndarray, device, wide: bool = False,
                  max_block: int | None = None):
-    """(blocks, pg_lanes int32, i_pad): the index as a list of (ihash int32
-    bits, ipos) blocks on `device`, ipos int64 when `wide`, else int32;
-    i_pad is the reference's padded block size, which sets the batch cap.
+    """(blocks, pg_lanes int32, i_pad): the packed pg on `device` and the
+    index as a list of `IndexBlock`s, positions int64 when `wide`, else
+    int32; i_pad is the reference's padded block size, which sets the batch
+    cap.
 
     Block boundaries are the reference's (matcher.py:537-581), because each
     block's join picks its own lowest-position entry per hash and so decides
     which equally good match a read gets. A lazy index
     (`build_index(..., device_sort=True)`, the encoder's) splits the pg's
-    lanes, padded to the reference's pow2 bucket, into uniform blocks and
-    builds each with kernel B from the packed pg; a block past the pg's last
-    k-mer holds only inert entries and is skipped, as are the inert entries
-    past the pg's last lane. A host-built table is cut into `per`-entry
-    blocks and moved across."""
+    lanes, padded to the reference's pow2 bucket, into uniform blocks, each
+    built by kernel B when its join runs (`write_head`), so no block holds
+    device memory between joins; a block past the pg's last k-mer holds only
+    inert entries and is skipped, as are the inert entries past the pg's
+    last lane. A host-built table is cut into `per`-entry blocks and moved
+    across."""
     pg_lanes = state.pg_lanes_to_device(pg_codes, device)
     n_lanes = pg_lanes.numel() - 1
     max_block = max_block or _MAX_INDEX_BLOCK
-    blocks = []
     if index.hash_sorted is None:
         if 16 % index.k1:
             raise ValueError("the device index build needs k1 to divide 16")
         wpf = _probe_bucket(n_lanes + 1)
         n_blocks = max(1, -(-(wpf * 16 // index.k1) // max_block))
         wp = min(_probe_bucket(-(-wpf // n_blocks)), wpf)
-        for lane_off in range(0, wpf, wp):
-            if lane_off * 16 > index.pg_len - index.k:
-                break
-            m = (min(lane_off + wp, n_lanes) - lane_off) * 16 // index.k1
-            blocks.append(index_kmer_hash(pg_lanes, index.k, index.k1, index.pg_len,
-                                          m, lane_off, wide))
+        blocks = [IndexBlock((min(lane_off + wp, n_lanes) - lane_off) * 16 // index.k1,
+                             lane_off)
+                  for lane_off in range(0, wpf, wp)
+                  if lane_off * 16 <= index.pg_len - index.k]
         return blocks, pg_lanes, wp * 16 // index.k1
     n_ent = index.pos_sorted.size
     n_blocks = max(1, -(-n_ent // max_block))
     per = -(-max(n_ent, 1) // n_blocks)
-    for lo in range(0, n_ent, per):
-        blocks.append(state.index_to_device(index.hash_sorted[lo:lo + per],
-                                            index.pos_sorted[lo:lo + per], device, wide))
+    blocks = [IndexBlock(min(per, n_ent - lo), table=state.index_to_device(
+        index.hash_sorted[lo:lo + per], index.pos_sorted[lo:lo + per], device, wide))
+        for lo in range(0, n_ent, per)]
     return blocks, pg_lanes, _probe_bucket(per)
 
 
-def join_sort(hashes: torch.Tensor, ihash: torch.Tensor, ipos: torch.Tensor):
-    """The join's sort (matcher.py:228-238): one sort on a composed int64
-    key (hash - 2^31) * 2^32 + key2, whose signed order is the reference's
-    (hash, key2) order; key2 = 0 for index entries, U32INV for inert ones,
-    1..P for the probes [R, S] in row-major order. -> (skey, perm)."""
-    P, M = hashes.numel(), ihash.numel()
+def write_head(block: IndexBlock, keys: torch.Tensor, ipos_buf: torch.Tensor | None,
+               pg_lanes: torch.Tensor, index: KmerIndex, wide: bool) -> torch.Tensor:
+    """Write the block's index keys into keys[:block.m], the head of a join's
+    key buffer: kernel B for a lazy block (its positions into ipos_buf), a
+    plain key composition for a host-built one. -> the block's ipos [m]."""
+    m = block.m
+    if block.table is None:
+        return index_kmer_hash(pg_lanes, index.k, index.k1, index.pg_len, m,
+                               block.lane_off, wide, keys[:m], ipos_buf[:m])[1]
+    ihash, ipos = block.table
+    keys[:m] = index_keys(ihash, ipos)
+    return ipos
+
+
+def join_sort(keys: torch.Tensor, M: int, P: int):
+    """The join's sort (matcher.py:228-238): the first M + P composed keys
+    of a join's buffer, M index entries (kernel B) then P probes (kernel C),
+    whose signed order is the reference's (hash, key2) order. -> (skey,
+    perm)."""
     if M + P >= JOIN_MAX:
         raise ValueError(f"join of {M + P} entries overflows the carry pack")
-    dev = hashes.device
-    kh = torch.cat([i32_to_u32(ihash), i32_to_u32(hashes.reshape(P))])
-    key2 = torch.cat([torch.where(ipos >= 0, 0, U32_MASK),
-                      torch.arange(1, P + 1, dtype=torch.int64, device=dev)])
-    return torch.sort((kh - (1 << 31)) * (1 << 32) + key2)
+    return torch.sort(keys[:M + P])
 
 
-def join_anchors(hashes: torch.Tensor, ihash: torch.Tensor, ipos: torch.Tensor):
-    """Sort-merge join (matcher.py:225-260): for each probe hash [R, S], the
-    lowest position of an index entry with exactly that hash, + 1 (0 = none).
-    After the sort, kernel E (`join_carry`) hands each probe its run's
-    minimum position and writes it in probe order."""
-    skey, perm = join_sort(hashes, ihash, ipos)
-    return join_carry(skey, perm, ipos, hashes.numel()).reshape(hashes.shape)
+def join_anchors(keys: torch.Tensor, ipos: torch.Tensor, P: int):
+    """Sort-merge join (matcher.py:225-260) of a key buffer holding the
+    M = ipos.numel() index keys, then P probe keys: for each probe, the
+    lowest position of an index entry with exactly its hash, + 1 (0 = none),
+    [P] int64. After the sort, kernel E (`join_carry`) hands each probe its
+    run's minimum position and writes it in probe order."""
+    skey, perm = join_sort(keys, ipos.numel(), P)
+    return join_carry(skey, perm, ipos, P)
 
 
-def probe(read_lanes, offs_t, ihash, ipos, pg_lanes, pg_len: int, L: int,
+def probe(read_lanes, offs: tuple, keys, ipos, pg_lanes, pg_len: int, L: int,
           k: int, max_mis: int, n_verify: int):
     """Probe + verify of one row batch against one index block
-    (matcher.py:208-308): (mis uint8, pos) per row, pos int64 for an int64
-    (wide) block, else int32."""
-    hashes = probe_kmer_hash(read_lanes, offs_t, k)
-    res = join_anchors(hashes, ihash, ipos)
-    start_all = res - 1 - offs_t.to(torch.int64)[None, :]
+    (matcher.py:208-308). `keys` is the join's key buffer, whose first
+    M = ipos.numel() entries hold the block's index keys; kernel C writes
+    the R * S probe keys after them. -> (mis uint8, pos) per row, pos int64
+    for an int64 (wide) block, else int32."""
+    R, S, M = read_lanes.shape[0], len(offs), ipos.numel()
+    probe_kmer_hash(read_lanes, offs, k, keys[M:M + R * S])
+    res = join_anchors(keys, ipos, R * S).reshape(R, S)
+    start_all = res - 1 - offsets_tensor(offs, read_lanes.device).to(torch.int64)[None, :]
     in_range = (res > 0) & (start_all >= 0) & (start_all <= pg_len - L)
     if ipos.dtype != torch.int64:
         start_all = start_all.to(torch.int32)
@@ -119,20 +143,28 @@ def probe(read_lanes, offs_t, ihash, ipos, pg_lanes, pg_len: int, L: int,
                        max(pg_len - L, 0), L, max_mis, n_verify)
 
 
-def probe_rows(lanes, offs, blocks, pg_lanes, pg_len: int, L: int, k: int,
+def probe_rows(lanes, offs, index: KmerIndex, blocks, pg_lanes, wide: bool, L: int,
                max_mis: int, n_verify: int, batch: int):
     """Probe every row of `lanes` in batches of `batch` rows against every
     index block; per batch the blocks merge by the reference's rule
     (matcher.py:447-458): fewer mismatches win, and on equal mismatches a
-    valid position below the current one. -> host (mis uint8, pos int64)."""
-    offs_t = torch.tensor(offs, dtype=torch.int32, device=pg_lanes.device)
+    valid position below the current one. One key buffer (the largest
+    block, then a batch's probes) and one ipos buffer serve every join of
+    the pass. -> host (mis uint8, pos int64)."""
+    dev = pg_lanes.device
+    m_max = max(b.m for b in blocks)
+    keys = torch.empty((m_max + min(batch, lanes.shape[0]) * len(offs),),
+                       dtype=torch.int64, device=dev)
+    ipos_buf = (torch.empty((m_max,), dtype=torch.int64 if wide else torch.int32, device=dev)
+                if any(b.table is None for b in blocks) else None)
     mis_parts, pos_parts = [], []
     for lo in range(0, lanes.shape[0], batch):
         rows = lanes[lo:lo + batch]
         best_m = best_p = None
-        for ihash, ipos in blocks:
-            mis, pos = probe(rows, offs_t, ihash, ipos, pg_lanes, pg_len, L, k,
-                             max_mis, n_verify)
+        for block in blocks:
+            ipos = write_head(block, keys, ipos_buf, pg_lanes, index, wide)
+            mis, pos = probe(rows, offs, keys, ipos, pg_lanes, index.pg_len, L,
+                             index.k, max_mis, n_verify)
             pos = pos.to(torch.int64)
             if best_m is None:   # merging into (255, -1) takes the block as it is
                 best_m, best_p = mis, pos
@@ -183,7 +215,7 @@ def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
                                              pg_lanes.device)
         # rows [0, n) forward, [n, 2n) reverse complement
         lanes_fr = torch.cat([lanes, revcomp_lanes(lanes, L, nmask)])
-    args = (blocks, pg_lanes, index.pg_len, L, index.k, max_mismatches)
+    args = (index, blocks, pg_lanes, wide, L, max_mismatches)
     with span(f"match pass1 rows=2x{n} offs={len(offs_p1)} blocks={len(blocks)}"):
         bm, bp = probe_rows(lanes_fr, offs_p1, *args,
                             n_verify2 if single_pass else 1,

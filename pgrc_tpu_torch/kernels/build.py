@@ -34,9 +34,9 @@ _P, _I, _I64, _U32, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 SIGNATURES = {
     "pgrc_verify_best": [_I, _P, _P, _I64, _I, _I, _P, _P, _I, _P, _I64, _I64,
                          _U32, _I, _I, _I, _P, _P],
-    "pgrc_index_kmer_hash": [_I, _P, _P, _I64, _I, _I, _I64, _I64, _I64, _I,
-                             _P, _P],
-    "pgrc_probe_kmer_hash": [_I, _P, _P, _I64, _I, _P, _I, _I, _P],
+    "pgrc_index_kmer_hash": [_I, _P, _P, _I64, _I, _I, _I64, _I64, _I64, _U32,
+                             _I, _P, _P],
+    "pgrc_probe_kmer_hash": [_I, _P, _P, _I64, _I, _P, _I, _I, _I, _U32, _P],
     "pgrc_sweep_roll_entries": [_I, _P, _I64, _P, _I, _P, _I, _P, _P, _I, _I,
                                 _U64, _U64, _U64, _U64, _P, _P, _P, _P, _P],
     "pgrc_join_carry": [_I, _P, _I64, _P, _P, _P, _I, _P, _P, _I64],

@@ -155,3 +155,31 @@ def test_unported_matcher_paths_raise(repeats):
     for matcher, kw in ((ref, {}), (port, {"device": "cpu"})):
         with pytest.raises(NotImplementedError, match="2\\^35"):
             matcher.match_reads(reads, huge, pg, max_mis, accept_mis=0, **kw)
+
+
+@pytest.mark.parametrize("accept", [0, 2], ids=["single-pass", "l2"])
+@pytest.mark.parametrize("lazy", [True, False], ids=["device-index", "host-index"])
+def test_key_buffer_across_batches_and_blocks(repeats, monkeypatch, lazy, accept):
+    """One key buffer per pass serves every (batch, block) join: with the
+    batch cap lowered to 256 rows and the index cut into blocks, each join
+    rewrites the buffer's head (kernel B, or the host table's keys) and
+    tail (kernel C), and the matches stay the reference's."""
+    heads = []
+    real = port.write_head
+
+    def counted(block, keys, *args):
+        heads.append(keys.data_ptr())
+        return real(block, keys, *args)
+
+    monkeypatch.setattr(port, "_batch_cap", lambda i_pad, S: 256)
+    monkeypatch.setattr(port, "write_head", counted)
+    pg, reads, max_mis, indexes, _ = repeats
+    a = run_both(repeats, lazy, accept_mis=accept, index_block=4096)
+    blocks = port.device_index(indexes[lazy], pg, "cpu", max_block=4096)[0]
+    assert len(blocks) > 1
+    rows = 2 * reads.shape[0]
+    if accept == 0:
+        assert len(heads) == len(blocks) * -(-rows // 256)
+        assert len(set(heads)) == 1      # one buffer for the whole pass
+    assert len(heads) > len(blocks) * 4
+    assert (a.pos >= 0).mean() > 0.9

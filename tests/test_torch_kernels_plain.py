@@ -42,6 +42,21 @@ def _ref_device_index(pg, k, k1=4):
     return index, ihash, ipos, np.asarray(pg_lanes_d), wpf, i_pad
 
 
+def _key_buffer(ihash, ipos, P):
+    """A join's key buffer: the index keys of (ihash, ipos), then room for P
+    probe keys (garbage, as torch.empty leaves it)."""
+    keys = torch.full((ipos.numel() + P,), 12345, dtype=torch.int64)
+    keys[:ipos.numel()] = kmer_hash.index_keys(ihash, ipos)
+    return keys
+
+
+def _split_keys(keys):
+    """Join keys -> (u32 hashes: the high word + 2^31, key2: the low word)
+    as numpy."""
+    return (((keys >> 32) + (1 << 31)).numpy().astype(np.uint32),
+            (keys & 0xFFFFFFFF).numpy())
+
+
 @pytest.mark.parametrize("n_verify", [6, 1])
 def test_probe_verify_matches_make_probe(pg_case, n_verify):
     """Kernel A (with C and the join before it): the port's probe against
@@ -58,9 +73,9 @@ def test_probe_verify_matches_make_probe(pg_case, n_verify):
                                      index.pg_len))
     ih_t, ip_t = state.index_to_device(ihash, ipos, "cpu")
     mis, pos = port_matcher.probe(
-        uint.np_u32_to_tensor(lanes, "cpu"), torch.tensor(offs, dtype=torch.int32),
-        ih_t, ip_t, uint.np_u32_to_tensor(pg_lanes, "cpu"), index.pg_len, L, k,
-        33, n_verify)
+        uint.np_u32_to_tensor(lanes, "cpu"), offs,
+        _key_buffer(ih_t, ip_t, R * len(offs)), ip_t, uint.np_u32_to_tensor(pg_lanes, "cpu"),
+        index.pg_len, L, k, 33, n_verify)
     np.testing.assert_array_equal(mis.numpy(), mis_r)
     np.testing.assert_array_equal(pos.numpy(), pos_r)
     assert 0.5 < (mis_r != 255).mean() < 1.0
@@ -119,9 +134,10 @@ def test_index_hash_matches_reference(pg_case, k, k1):
     index, ihash, ipos, pg_lanes, _, _ = _ref_device_index(pg, k, k1)
     pg_t = state.pg_lanes_to_device(pg, "cpu")
     m = (pg_t.numel() - 1) * 16 // k1
-    h_t, p_t = kmer_hash.index_kmer_hash_plain(pg_t, k, k1, pg.size, m)
-    h, p = uint.tensor_to_np_u32(h_t), p_t.numpy()
+    key_t, p_t = kmer_hash.index_kmer_hash_plain(pg_t, k, k1, pg.size, m)
+    (h, key2), p = _split_keys(key_t), p_t.numpy()
     np.testing.assert_array_equal(p, ipos[:m])
+    np.testing.assert_array_equal(key2, np.where(p >= 0, 0, 0xFFFFFFFF))
     assert (ipos[m:] == -1).all()
     valid = p >= 0
     np.testing.assert_array_equal(h[valid], ihash[:m][valid])
@@ -131,13 +147,14 @@ def test_index_hash_matches_reference(pg_case, k, k1):
 
 
 @pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
-@pytest.mark.parametrize("k,k1", [(32, 4), (24, 2)])
+@pytest.mark.parametrize("k,k1", [(32, 4), (24, 2), (37, 4)])
 def test_index_block_hash_matches_reference(pg_case, k, k1, wide):
-    """Kernel B one block at a time: every block b of the reference's
-    `_build_index_build_fn(wpf, wp, k, k1, wide)` at lane_off = b*wp. The
-    port builds only the entries of the pg's own lanes (m per block); the
-    reference's entries past them are inert (-1), like a block past the
-    pg's last lane."""
+    """Kernel B one block at a time, in its key form: every block b of the
+    reference's `_build_index_build_fn(wpf, wp, k, k1, wide)` at
+    lane_off = b*wp, the hash in the key's high word, key2 0 exactly where
+    the position is live and U32INV elsewhere. The port builds only the
+    entries of the pg's own lanes (m per block); the reference's entries
+    past them are inert (-1), like a block past the pg's last lane."""
     pg, _ = pg_case
     pg_t = state.pg_lanes_to_device(pg, "cpu")
     n_lanes = pg_t.numel() - 1
@@ -150,11 +167,14 @@ def test_index_block_hash_matches_reference(pg_case, k, k1, wide):
         ih, ip = (np.asarray(a) for a in build_fn(jnp.asarray(lanes), np.int64(b * wp),
                                                   pg.size))
         m = max(0, min(wp, n_lanes - b * wp)) * 16 // k1
-        h_t, p_t = kmer_hash.index_kmer_hash_plain(pg_t, k, k1, pg.size, m, b * wp, wide)
+        key_t, p_t = kmer_hash.index_kmer_hash_plain(pg_t, k, k1, pg.size, m, b * wp, wide)
         assert p_t.dtype == (torch.int64 if wide else torch.int32) == \
             (torch.int64 if ip.dtype == np.int64 else torch.int32)
         np.testing.assert_array_equal(p_t.numpy(), ip[:m])
-        np.testing.assert_array_equal(uint.tensor_to_np_u32(h_t), ih[:m])
+        h, key2 = _split_keys(key_t)
+        np.testing.assert_array_equal(h, ih[:m])
+        np.testing.assert_array_equal(((key_t >> 32) + (1 << 31)).numpy(), ih[:m])
+        np.testing.assert_array_equal(key2, np.where(ip[:m] >= 0, 0, 0xFFFFFFFF))
         assert (ip[m:] == -1).all()
     assert m == 0 and b == 3   # the last block lies past the pg
 
@@ -181,26 +201,29 @@ def test_wide_probe_matches_build_probe_fn(pg_case, n_verify):
                                          jnp.asarray(ipos), pg_lanes, index.pg_len))
         ih_t, ip_t = state.index_to_device(ihash, ipos, "cpu", wide=True)
         mis, pos = port_matcher.probe(
-            uint.np_u32_to_tensor(lanes, "cpu"), torch.tensor(offs, dtype=torch.int32),
-            ih_t, ip_t, uint.np_u32_to_tensor(np.asarray(pg_lanes), "cpu"),
-            index.pg_len, L, k, 33, n_verify)
+            uint.np_u32_to_tensor(lanes, "cpu"), offs,
+            _key_buffer(ih_t, ip_t, R * len(offs)), ip_t,
+            uint.np_u32_to_tensor(np.asarray(pg_lanes), "cpu"), index.pg_len, L, k, 33,
+            n_verify)
         assert pos.dtype == torch.int64
         np.testing.assert_array_equal(mis.numpy(), mis_r)
         np.testing.assert_array_equal(pos.numpy(), pos_r)
         assert 0 < (mis_r != 255).mean() < 0.75
 
 
-@pytest.mark.parametrize("k", [32, 24])
+@pytest.mark.parametrize("k", [32, 24, 37])
 def test_probe_hash_matches_window_hashes(pg_case, k):
-    """Kernel C: the anchor hash at every probe offset equals the
-    reference's k-window hash of the read."""
+    """Kernel C, in its key form: the hash in the key's high word at every
+    probe offset equals the reference's k-window hash of the read, and
+    key2 = 1 + r*S + j."""
     _, reads = pg_case
     offs = ref_matcher.probe_offsets(L, k, 3)
     lanes, _ = ref_packed.pack_lanes(reads)
-    got = uint.tensor_to_np_u32(kmer_hash.probe_kmer_hash_plain(
-        uint.np_u32_to_tensor(lanes, "cpu"), torch.tensor(offs, dtype=torch.int32), k))
+    h, key2 = _split_keys(kmer_hash.probe_kmer_hash_plain(
+        uint.np_u32_to_tensor(lanes, "cpu"), offs, k))
     want = np.stack([ref_matcher._window_hashes(r, k)[list(offs)] for r in reads])
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(h.reshape(want.shape), want)
+    np.testing.assert_array_equal(key2, 1 + np.arange(want.size))
 
 
 @pytest.mark.parametrize("with_n", [False, True])
@@ -249,3 +272,57 @@ def test_revcomp_lanes_matches_reference(L_rc, with_n):
     lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
     got = uint.tensor_to_np_u32(port_packed.revcomp_lanes(lt, L_rc, nt))
     np.testing.assert_array_equal(got, want)
+
+
+def test_join_keys_sort_as_hash_then_key2():
+    """The composed key's signed order is the reference's (hash, key2) order
+    (matcher.py:228-238), over hashes at both ends of the u32 range, inert
+    and live index entries and probes of equal hashes."""
+    rng = np.random.default_rng(3)
+    vals = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0x80000001, 0xFFFFFFFE, 0xFFFFFFFF],
+                    np.uint32)
+    ihash = rng.choice(vals, 500)
+    ipos = np.where(rng.random(500) < 0.3, -1, rng.integers(0, 1 << 20, 500))
+    hashes = rng.choice(vals, (40, 7))
+    ih_t = torch.from_numpy(ihash.view(np.int32).copy())
+    keys = torch.cat([kmer_hash.index_keys(ih_t, torch.from_numpy(ipos.astype(np.int32))),
+                      kmer_hash.probe_keys(torch.from_numpy(hashes.view(np.int32).copy()))])
+    h = np.concatenate([ihash, hashes.ravel()]).astype(np.int64)
+    key2 = np.concatenate([np.where(ipos >= 0, 0, 0xFFFFFFFF), 1 + np.arange(hashes.size)])
+    got = _split_keys(torch.sort(keys).values)
+    order = np.lexsort((key2, h))
+    np.testing.assert_array_equal(got[0], h[order])
+    np.testing.assert_array_equal(got[1], key2[order])
+    np.testing.assert_array_equal(_split_keys(keys)[0], h)
+
+
+def test_kmer_hash_wrappers_fill_one_key_buffer(pg_case):
+    """B writes a join buffer's head and C its tail, in place, as the
+    matcher's pass does; what lands there equals the plain versions; the
+    wrappers refuse what the kernels do not take."""
+    pg, reads = pg_case
+    k, k1 = 37, 4
+    pg_t = state.pg_lanes_to_device(pg, "cpu")
+    lanes = uint.np_u32_to_tensor(ref_packed.pack_lanes(reads[:50])[0], "cpu")
+    offs = ref_matcher.probe_offsets(L, k, 3)
+    m, P = 3000, 50 * len(offs)
+    buf = torch.zeros(m + P + 9, dtype=torch.int64)
+    ipos_buf = torch.zeros(m + 4, dtype=torch.int32)
+    key, ipos = kmer_hash.index_kmer_hash(pg_t, k, k1, pg.size, m, 7, False,
+                                          buf[:m], ipos_buf[:m])
+    tail = kmer_hash.probe_kmer_hash(lanes, offs, k, buf[m:m + P])
+    assert key.data_ptr() == buf.data_ptr() and tail.data_ptr() == buf[m:].data_ptr()
+    want_key, want_pos = kmer_hash.index_kmer_hash_plain(pg_t, k, k1, pg.size, m, 7)
+    np.testing.assert_array_equal(buf[:m].numpy(), want_key.numpy())
+    np.testing.assert_array_equal(ipos.numpy(), want_pos.numpy())
+    np.testing.assert_array_equal(buf[m:m + P].numpy(),
+                                  kmer_hash.probe_kmer_hash_plain(lanes, offs, k).numpy())
+    assert (buf[m + P:] == 0).all() and (ipos_buf[m:] == 0).all()
+    with pytest.raises(ValueError, match="k1"):
+        kmer_hash.index_kmer_hash(pg_t, k, 3, pg.size, m)
+    with pytest.raises(TypeError):
+        kmer_hash.index_kmer_hash(pg_t, k, k1, pg.size, m, 0, True, buf[:m], ipos_buf[:m])
+    with pytest.raises(ValueError):
+        kmer_hash.probe_kmer_hash(lanes, offs, k, buf[:P - 1])
+    with pytest.raises(ValueError, match="past the read lanes"):
+        kmer_hash.probe_kmer_hash(lanes, tuple(o + 100 for o in offs), k)

@@ -16,6 +16,7 @@ import torch
 
 from pgrc_tpu_torch.align import matcher
 from pgrc_tpu_torch.kernels import join_carry as kjoin
+from pgrc_tpu_torch.kernels import kmer_hash
 from pgrc_tpu_torch.kernels import sweep_pair_claim as kpair
 from pgrc_tpu_torch.overlap import greedy_scs
 from pgrc_tpu_torch.utils.uint import SIGN64
@@ -99,9 +100,10 @@ def test_join_carry_plain_is_lowest_position(kind, wide):
     ih_t = torch.from_numpy(ihash.view(np.int32).copy())
     ip_t = torch.from_numpy(ipos.astype(np.int64 if wide else np.int32))
     h_t = torch.from_numpy(hashes.view(np.int32).copy())
-    got = matcher.join_anchors(h_t, ih_t, ip_t)
-    assert got.dtype == torch.int64 and tuple(got.shape) == hashes.shape
-    np.testing.assert_array_equal(got.numpy(), want)
+    keys = torch.cat([kmer_hash.index_keys(ih_t, ip_t), kmer_hash.probe_keys(h_t)])
+    got = matcher.join_anchors(keys, ip_t, hashes.size)
+    assert got.dtype == torch.int64 and tuple(got.shape) == (hashes.size,)
+    np.testing.assert_array_equal(got.numpy(), want.ravel())
     if kind in ("collisions", "inert", "one hash"):
         assert 0 < (want > 0).sum() < want.size or kind == "one hash"
 
