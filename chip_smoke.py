@@ -19,17 +19,26 @@ Phases, each printed with its times; the first failure exits nonzero:
      the scan's tile (one run over every entry, past one 32-tile look-back
      window; runs of one entry; runs that end at tile edges; one entry; a
      length off the tile; partners 40 tiles back); every edge case over 10
-     launches, each bit-equal;
+     launches, each bit-equal; kernels G (sweep_full_hashes), G2
+     (sweep_init_links), D (sweep_roll_entries) and H (sweep_compact) at n
+     2^18 rows, and D and H on their scan edge cases
+     (m = 0, all active, one active entry at the last position, n off the
+     tile, a count scan past one 32-tile look-back window), G and G2 on
+     theirs (one row, rows off the block, one long run of equal keys),
+     each over 10 launches;
   4. SE 200k (bench.py's headline input): compress through the port's CLI
      on the card, decode with the port's decoder, require an exact multiset
      round trip, every kernel launched, and bits/base <= 0.1412;
-  5. SE 2M (bench.py's scale input): the same, with bits/base <= 0.1384
-     and the peak device memory; E and F against their plain versions on
-     the inputs of this encode's first join and first sweep round; a
-     second encode under torch.profiler: the device busy share, the
-     kernels that take the device time (B, C, the sorts, any cat or
-     elementwise kernel by name), no cummax kernel, and the join's sort
-     dispatching torch.sort alone (its keys are B's and C's outputs);
+  5. SE 2M (bench.py's scale input): the same, with bits/base <= 0.1384;
+     E, F, G, G2, D and H against their plain versions on the inputs of
+     this encode's first join, first init, first sweep round and first
+     compaction; a second encode under torch.profiler, without the spies
+     that copy those inputs: the peak device memory, the device busy share, the kernels that take the
+     device time (B, C, the sweep's kernels, the sorts, any cat or
+     elementwise kernel by name), no cummax kernel, the join's sort
+     dispatching torch.sort alone (its keys are B's and C's outputs), and
+     the sweep (every find_overlaps call) dispatching no nonzero, cat, any
+     or boolean-mask indexing, with its host syncs counted;
   6. large pg: the matcher with the encoder's lazy index where the blocked
      index and the wide probe trigger on their own, a 300M-symbol pg (2
      index blocks, int32 positions) and a 2.3G-symbol pg (9 blocks, int64
@@ -45,7 +54,15 @@ Phases, each printed with its times; the first failure exits nonzero:
      lowered (a partitioned sweep, a blocked index): the card's archive
      byte-identical to the port's CPU run, an exact decode, kernels launched;
   8. PE 2x200k and SE_ORD 200k (bench.py's inputs): exact round trips,
-     bits/base, Mbases/s, peak device memory, E and F launched.
+     bits/base, Mbases/s, peak device memory, kernels launched.
+"Kernels launched" is each run's expected set, no more and no fewer among
+the sweep's: the matcher's A, B, C and E; G, D and F wherever a device
+sweep ran (inputs past 3072 reads), G2 where one ran its init (not a
+repair), and H where a device sweep table had more than 32,768 rows (the
+one table size that compacts).
+    python3 chip_smoke.py --kernels-only
+runs phases 1-3 alone (a kernel's first build and check) and prints no
+result.
 The last lines are the kernels' JSON record (with each kernel's bound: the
 bytes it must move over 3.35 TB/s or the 32-bit integer operations of the
 function's cheapest exact formulation over 16.7 T/s, whichever is larger),
@@ -90,6 +107,12 @@ REPLACES = {
                    "pgrc_tpu/align/matcher.py:239"),
     "sweep_pair_claim": ("pgrc_tpu_torch/kernels/csrc/sweep_pair_claim.cu",
                          "pgrc_tpu/overlap/greedy_scs.py:267"),
+    "sweep_full_hashes": ("pgrc_tpu_torch/kernels/csrc/sweep_init.cu",
+                          "pgrc_tpu/overlap/greedy_scs.py:417, :471"),
+    "sweep_init_links": ("pgrc_tpu_torch/kernels/csrc/sweep_init.cu",
+                         "pgrc_tpu/overlap/greedy_scs.py:442"),
+    "sweep_compact": ("pgrc_tpu_torch/kernels/csrc/sweep_compact.cu",
+                      "pgrc_tpu/overlap/greedy_scs.py:488"),
 }
 # variants: JSON name -> (kernel, the launch counter of the path that runs it)
 VARIANTS = {
@@ -98,9 +121,11 @@ VARIANTS = {
     "index_kmer_hash.int64": ("index_kmer_hash", "index_kmer_hash.int64"),
     "join_carry.int64": ("join_carry", "join_carry.int64"),
 }
-# the main path's int32 kernels: SE 200k and every mode launch each of them
+# the main path's int32 kernels: SE 200k and SE 2M launch each of them
 MAIN_KERNELS = tuple(REPLACES)
-SCAN_KERNELS = ("join_carry", "sweep_pair_claim")
+MATCH_KERNELS = ("verify_best", "index_kmer_hash", "probe_kmer_hash", "join_carry")
+SWEEP_KERNELS = ("sweep_full_hashes", "sweep_init_links", "sweep_roll_entries",
+                 "sweep_pair_claim", "sweep_compact")
 LARGE_PGS = (  # label, pg symbols, seed, lane_off of the kernel B block checked
     ("pg 300M", 300_000_007, 21, 1 << 24),
     ("pg 2.3G", 2_300_000_003, 22, 1 << 27),
@@ -133,11 +158,21 @@ INT_OPS_S = 132 * 64 * 1.98e9
 # read (shift, and, multiply, add) and H = P[i+k-1] - P[i-1] * B^k per
 # k-mer (multiply, subtract) — the same u32 hashes as the plain versions'
 # Horner chain of k multiply-adds (kernel C takes this form, kernel B rolls
-# its window a symbol at a time); D per row (four 64-bit multiply-adds and the
-# key build); E and F per entry of a sequential segmented max-scan
-# (boundary compare, two selects, two maxima, the epilogue's test and
-# select, its index)
-OPS_A_LANE, OPS_A_SLOT, OPS_HASH_SYM, OPS_HASH_KMER, OPS_D_ROW, OPS_SCAN = 8, 4, 4, 2, 60, 8
+# its window a symbol at a time); E and F per entry of a sequential
+# segmented max-scan (boundary compare, two selects, two maxima, the
+# epilogue's test and select, its index), H per row of a count scan (the
+# same count); D per entry (its side's two 64-bit multiply-adds at three
+# 32-bit multiply-adds each, the symbol's shift and mask, the key's flip,
+# and the count scan's 8); G as a chunked Horner, h = h * A^4 + T[byte],
+# the same hashes as the kernel's chain of a multiply-add a symbol: per
+# four symbols (a byte of codes) the byte's extraction (shift, and), its two
+# table loads and two 64-bit multiply-adds with the entry as addend (three
+# 32-bit multiply-adds each), and with N the nibble's extraction, two loads
+# from a 16-entry table and two 64-bit adds (two each); per row the key's
+# clamp and flip, 2; G2 per sorted position (two key and two hash compares,
+# the selects of succ, ovl and the flags)
+OPS_A_LANE, OPS_A_SLOT, OPS_HASH_SYM, OPS_HASH_KMER, OPS_SCAN = 8, 4, 4, 2, 8
+OPS_D_ENTRY, OPS_G_BYTE, OPS_G_NIBBLE, OPS_G_ROW, OPS_G2_POS = 18, 10, 8, 2, 8
 # launches of E and F held against one plain result on each input: a race
 # in a look-back scan shows only now and then
 CHECK_LAUNCHES = 10
@@ -189,10 +224,18 @@ def cuda_ms(fn, reps: int) -> float:
     return sum(start.elapsed_time(end) for start, end in events) / reps
 
 
+# max_abs_err of outputs whose shapes differ (a count or length differs)
+SHAPE_ERR = 2**63 - 1
+
+
 def max_abs_err(a, b) -> int:
-    """Largest |a - b| over paired outputs, as integers (0 = bit-equal)."""
-    return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
-               if x.numel() else 0 for x, y in zip(a, b))
+    """Largest |a - b| over paired outputs, as integers (0 = bit-equal;
+    SHAPE_ERR where two outputs differ in shape, or in number)."""
+    if len(a) != len(b):
+        return SHAPE_ERR
+    return max((SHAPE_ERR if x.shape != y.shape else
+                int((x.to(torch.int64) - y.to(torch.int64)).abs().max()) if x.numel() else 0
+                for x, y in zip(a, b)), default=0)
 
 
 def bound(nbytes: int, ops: int) -> tuple:
@@ -375,17 +418,217 @@ def check_pair(name, args, note, reps, timed=True):
 
 
 def pair_entries(ids, a_s, a_p, p, h, p2, h2, i=1, L=L):
-    """A round's inputs to kernel F from row state, keyed as kernel D keys
-    its entries, then the round's sort (greedy_scs.round_order)."""
+    """A round's inputs to kernel F from row state: the active entries as
+    kernel D writes them (its plain version's selection), then the round's
+    sort (greedy_scs.round_order)."""
+    from pgrc_tpu_torch.kernels import sweep
     from pgrc_tpu_torch.overlap import greedy_scs
-    from pgrc_tpu_torch.utils.uint import SIGN64
 
-    k1 = torch.cat([torch.where(a_p, p, -1), torch.where(a_s, h, -1)]) ^ SIGN64
-    ks, ent = greedy_scs.round_order(k1, a_p, a_s)
+    keys, ent, scratch = sweep.round_buffers(ids.numel(), ids.device)
+    count = sweep.round_entries_plain(a_s, a_p, h, p, keys, ent, scratch)
+    ks, ent = greedy_scs.round_order(keys, ent, count)
     N = int(ids.max()) + 1
     succ = torch.full((N,), -1, dtype=torch.int32, device=ids.device)
     ovl = torch.zeros((N,), dtype=torch.int32, device=ids.device)
     return (ks, ent, ids, p2, h2, succ, ovl, a_s, a_p, i, L)
+
+
+def hashes_work(lanes, nmask, L, with_key):
+    """Bytes and operations of kernel G on these inputs: the lane words that
+    hold the row's L symbols (and its N-mask words) read once, two hashes
+    (and the key) written."""
+    n = lanes.shape[0]
+    nbytes = n * (4 * -(-L // 16) + (4 * -(-L // 32) if nmask is not None else 0)
+                  + (24 if with_key else 16))
+    return nbytes, n * (-(-L // 4) * (OPS_G_BYTE + (OPS_G_NIBBLE if nmask is not None else 0))
+                        + (OPS_G_ROW if with_key else 0))
+
+
+def check_hashes(args, note, reps, timed=True):
+    """Kernel G against its plain version on (lanes, nmask, L, with_key):
+    every one of CHECK_LAUNCHES launches bit-equal."""
+    from pgrc_tpu_torch.kernels import sweep_init as ki
+
+    run = lambda: ki.sweep_full_hashes(*args)
+    run_plain = lambda: ki.sweep_full_hashes_plain(*args)
+    want = run_plain()
+    err = max(max_abs_err(run(), want) for _ in range(CHECK_LAUNCHES))
+    del want
+    require(err == 0, f"sweep_full_hashes {note}: kernel differs from its plain version")
+    if not timed:
+        return err
+    return record("sweep_full_hashes", run, run_plain, reps, note, *hashes_work(*args), err=err)
+
+
+def check_links(args, note, reps, timed=True):
+    """Kernel G2 against its plain version on (ks, sidx, h0b, L): every one
+    of CHECK_LAUNCHES launches bit-equal. Bytes: the sorted keys, their rows
+    and the rows' second hashes read once, 10 bytes written a row."""
+    from pgrc_tpu_torch.kernels import sweep_init as ki
+
+    run = lambda: ki.sweep_init_links(*args)
+    run_plain = lambda: ki.sweep_init_links_plain(*args)
+    want = run_plain()
+    err = max(max_abs_err(run(), want) for _ in range(CHECK_LAUNCHES))
+    del want
+    require(err == 0, f"sweep_init_links {note}: kernel differs from its plain version")
+    if not timed:
+        return err
+    n = args[0].numel()
+    return record("sweep_init_links", run, run_plain, reps, note, 34 * n, OPS_G2_POS * n,
+                  err=err)
+
+
+def roll_outputs(fn, args):
+    """A callable that runs kernel D (or its plain version) on its own copies
+    of the round's hashes and buffers, -> (m, keys[:m], ent[:m], h, p, h2,
+    p2) as tensors."""
+    head, hashes, bufs = args[:6], args[6:10], args[10:13]
+
+    def run():
+        mine = tuple(t.clone() for t in hashes)
+        keys, ent, scratch = (t.clone() for t in bufs)
+        count = fn(*head, *mine, keys, ent, scratch)
+        m = int(count)
+        return (count, keys[:m], ent[:m], *mine)
+    return run
+
+
+def check_roll(args, note, reps, timed=True):
+    """Kernel D against its plain version on one round's inputs (lanes,
+    nmask, a_s, a_p, i, L, h, p, h2, p2, keys, ent, scratch), each launch
+    on its own copies of what D writes: every one of CHECK_LAUNCHES
+    launches bit-equal. Bytes: an entry reads and writes its side's two
+    hashes and reads a lane word, an N-mask word and its flag; an active
+    entry writes its key and index."""
+    from pgrc_tpu_torch.kernels import sweep
+
+    want = roll_outputs(sweep.sweep_roll_entries_plain, args)()
+    err = max(max_abs_err(roll_outputs(sweep.sweep_roll_entries, args)(), want)
+              for _ in range(CHECK_LAUNCHES))
+    m = int(want[0])
+    del want
+    require(err == 0, f"sweep_roll_entries {note}: kernel differs from its plain version")
+    if not timed:
+        return err
+    n, with_n = args[0].shape[0], args[1] is not None
+    # timing: repeated calls roll one set of copies on (the same work)
+    mine = tuple(t.clone() for t in args[6:13])
+    return record("sweep_roll_entries", lambda: sweep.sweep_roll_entries(*args[:6], *mine),
+                  lambda: sweep.sweep_roll_entries_plain(*args[:6], *mine), reps, note,
+                  2 * n * (32 + 4 + (4 if with_n else 0) + 1) + 16 * m + 8,
+                  2 * n * OPS_D_ENTRY, err=err)
+
+
+def compact_outputs(fn, args):
+    """A callable that runs kernel H (or its plain version) -> (counts, and
+    the first k rows of each output array)."""
+    def run():
+        outs, counts = fn(*args)
+        k = int(counts[0])
+        return (counts, *(o[:k] for o in outs if o is not None))
+    return run
+
+
+def check_compact(args, note, reps, timed=True):
+    """Kernel H against its plain version on a table (lanes, nmask, ids, h,
+    p, h2, p2, a_s, a_p): every one of CHECK_LAUNCHES launches bit-equal in
+    its counts and kept rows. Bytes: both flags of every row, each kept
+    row's arrays read and written once, three counts."""
+    from pgrc_tpu_torch.kernels import sweep_compact as kc
+
+    want = compact_outputs(kc.sweep_compact_plain, args)()
+    err = max(max_abs_err(compact_outputs(kc.sweep_compact, args)(), want)
+              for _ in range(CHECK_LAUNCHES))
+    k = int(want[0][0])
+    del want
+    require(err == 0, f"sweep_compact {note}: kernel differs from its plain version")
+    if not timed:
+        return err
+    n = args[2].numel()
+    row = sum(a[0].numel() * a.element_size() for a in args if a is not None)
+    return record("sweep_compact", lambda: kc.sweep_compact(*args),
+                  lambda: kc.sweep_compact_plain(*args), reps, note, 2 * n + 2 * k * row + 24,
+                  OPS_SCAN * n, err=err)
+
+
+def sweep_table(dev, n, rng, act, n_frac=0.05, dup_frac=0.1):
+    """A sweep table of n random reads (a share duplicated, N in a share of
+    rows), random 64-bit hashes and active flags with probability act:
+    (lanes, nmask, ids, h, p, h2, p2, a_s, a_p)."""
+    from pgrc_tpu_torch import state
+    from pgrc_tpu_torch.core import packed
+
+    codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
+    dup = np.nonzero(rng.random(n) < dup_frac)[0]
+    codes[dup] = codes[rng.integers(0, n, dup.size)]
+    codes[rng.random(n) < n_frac, rng.integers(0, L)] = 4
+    lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), dev)
+    ids = torch.from_numpy(np.sort(rng.choice(3 * n, n, replace=False)).astype(np.int32)).to(dev)
+    hs = [state.hashes_to_device(rng.integers(0, 2**64, n, dtype=np.uint64), dev)
+          for _ in range(4)]
+    flags = [torch.from_numpy(rng.random(n) < act).to(dev) for _ in range(2)]
+    return (lanes, nmask, ids, *hs, *flags)
+
+
+def roll_args(table, i=3):
+    """Kernel D's arguments for round i on a table, with fresh buffers."""
+    from pgrc_tpu_torch.kernels import sweep
+
+    lanes, nmask, ids, h, p, h2, p2, a_s, a_p = table
+    return (lanes, nmask, a_s, a_p, i, L, h, p, h2, p2,
+            *sweep.round_buffers(ids.numel(), ids.device))
+
+
+def links_args(lanes, nmask):
+    """Kernel G2's arguments on these rows: G's key sorted stably, as the
+    init does."""
+    from pgrc_tpu_torch.kernels import sweep_init
+
+    h0, h0b, key = sweep_init.sweep_full_hashes_plain(lanes, nmask, L, with_key=True)
+    ks, sidx = torch.sort(key, stable=True)
+    return ks, sidx, h0b, L
+
+
+def sweep_edge_cases(dev) -> int:
+    """Kernels D and H where a compacting count scan goes wrong (no active
+    entry, all active, one active entry at the last position, a length off
+    the tile, more tiles than one 32-tile look-back window), and G and G2
+    at their edges (one row, rows off the block, L off the lane, one long
+    run of equal keys). Each case over CHECK_LAUNCHES launches bit-equal;
+    -> the number of cases."""
+    from pgrc_tpu_torch import kernels, state
+    from pgrc_tpu_torch.core import packed
+
+    T = kernels.scan_tile()
+    rng = np.random.default_rng(987)
+    cases = []
+    for label, n, act in (("m = 0", 3 * T + 5, 0.0), ("all active", 5 * T, 1.0),
+                          ("n off the tile", T // 2 + 777, 0.5),
+                          ("100 tiles, past one look-back window", 50 * T, 0.9)):
+        table = sweep_table(dev, n, rng, act)
+        check_roll(roll_args(table), label, 0, timed=False)
+        check_compact(table, label, 0, timed=False)
+        cases += [f"D {label}", f"H {label}"]
+    table = list(sweep_table(dev, 3 * T + 1, rng, 0.0))
+    table[7][-1] = True            # the last suffix alone: the last entry
+    check_roll(roll_args(table), "one active entry, the last", 0, timed=False)
+    check_compact(table, "one kept row, the last", 0, timed=False)
+    cases += ["D one active entry, the last", "H one kept row, the last"]
+    for label, n, n_frac in (("one row", 1, 0.0), ("rows off the block", 4096 + 77, 0.05)):
+        table = sweep_table(dev, n, rng, 1.0, n_frac=n_frac)
+        check_hashes((table[0], table[1], L, True), label, 0, timed=False)
+        check_links(links_args(table[0], table[1]), label, 0, timed=False)
+        cases += [f"G {label}", f"G2 {label}"]
+    table = sweep_table(dev, 20_000, rng, 1.0, dup_frac=0.0)
+    same = table[0][:1].expand(20_000, -1).contiguous()   # one read 20,000 times
+    check_links(links_args(same, None), "one run of 20,000 equal keys", 0, timed=False)
+    cases.append("G2 one run of equal keys")
+    codes = rng.integers(0, 5, size=(5000, 37), dtype=np.uint8)
+    lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), dev)
+    check_hashes((lanes, nmask, 37, False), "L 37", 0, timed=False)
+    cases.append("G L 37")
+    return len(cases)
 
 
 def scan_edge_cases(dev) -> int:
@@ -516,12 +759,12 @@ def hash_edge_cases(dev) -> int:
 
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version on the card, at the main path's
-    shapes (E and F at theirs in phases 5 and 6), and E and F on their edge
-    cases; returns {name: JSON fields}."""
+    shapes (E, F, G, G2, D and H at theirs in phases 5 and 6), and every
+    kernel on its edge cases; returns {name: JSON fields}."""
     from pgrc_tpu_torch import state
     from pgrc_tpu_torch.align.matcher import probe_offsets
     from pgrc_tpu_torch.core import packed
-    from pgrc_tpu_torch.kernels import kmer_hash, sweep, verify
+    from pgrc_tpu_torch.kernels import kmer_hash, verify
 
     rng = np.random.default_rng(123)
     out = {}
@@ -566,46 +809,32 @@ def phase_kernels(dev) -> dict:
         20, f"R={R} S={S} k=32", lanes.numel() * 4 + S * 4 + R * S * 8,
         hash_ops(R * (max(offs) + 32), R * S))
 
-    # D: sweep_roll_entries, n = 2^18 rows, rounds 1..4, without and with N
+    # G, G2, D and H on sweep tables of n = 2^18 rows (D and H without and
+    # with N; G in its init and hash-only forms); their main-path rows come
+    # from SE 2M's encode (phase 5)
     n = 1 << 18
-    codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
-    rows = {}
     for with_n in (False, True):
+        table = sweep_table(dev, n, rng, 0.8, n_frac=0.05 if with_n else 0.0)
+        lanes_d, nmask_d = table[:2]
         if with_n:
-            codes[rng.random(n) < 0.05, 7] = 4
-        lanes_d, nmask_d = state.lanes_to_device(*packed.pack_lanes(codes), dev)
-        a_s = torch.from_numpy(rng.random(n) < 0.8).to(dev)
-        a_p = torch.from_numpy(rng.random(n) < 0.8).to(dev)
-        hs0 = [state.hashes_to_device(
-            rng.integers(0, 2**63, size=n, dtype=np.uint64) * np.uint64(2) + np.uint64(1),
-            dev) for _ in range(4)]
-        hk, hp = [h.clone() for h in hs0], [h.clone() for h in hs0]
+            for with_key in (True, False):
+                check_hashes((lanes_d, nmask_d, L, with_key), f"n={n} N={with_n} key={with_key}",
+                             20)
+            check_links(links_args(lanes_d, nmask_d), f"n={n}", 20)
+        check_roll(roll_args(table, 1), f"n={n} round 1 N={with_n}, 0.8 active", 20)
+        half = list(table)
+        half[7], half[8] = (torch.from_numpy(rng.random(n) < 0.35).to(dev) for _ in range(2))
+        check_compact(tuple(half), f"n={n} N={with_n}, {int((half[7] | half[8]).sum())} kept",
+                      20)
+        del table, half
 
-        def rounds(fn, hs):
-            keys = [fn(lanes_d, nmask_d, a_s, a_p, i, L, *hs) for i in range(1, 5)]
-            return tuple(keys) + tuple(hs)
-
-        got = rounds(sweep.sweep_roll_entries, hk)
-        want = rounds(sweep.sweep_roll_entries_plain, hp)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        require(err == 0, f"sweep_roll_entries N={with_n}: kernel differs from plain")
-        args = (lanes_d, nmask_d, a_s, a_p, 1, L, *hk)
-        ms = cuda_ms(lambda: sweep.sweep_roll_entries(*args), 20)
-        plain_ms = cuda_ms(lambda: sweep.sweep_roll_entries_plain(*args), 5)
-        # two lane words, the N-mask word, two flags, four hashes in and
-        # out, two order keys out
-        row_bytes = 8 + (4 if with_n else 0) + 2 + 64 + 16
-        bound_ms, bound_by = bound(n * row_bytes, n * OPS_D_ROW)
-        say(f"[kernel] sweep_roll_entries n={n} rounds 1-4 N={with_n}: max_abs_err "
-            f"{err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}: {n * row_bytes} B), {bound_ms / ms:.3f} of the bound")
-        rows[with_n] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    out["sweep_roll_entries"] = rows[True]
-
-    # B and C at the edges of their tiles and lanes; E and F on their edge
-    # cases (their main-path shapes come in phases 5, 6)
+    # B and C at the edges of their tiles and lanes; E, F, D and H on their
+    # scan edge cases, G and G2 on theirs (E's and F's main-path shapes come
+    # in phases 5, 6)
+    t0 = time.time()
+    cases = sweep_edge_cases(dev)
+    say(f"[kernel] sweep_full_hashes, sweep_init_links, sweep_roll_entries, sweep_compact: "
+        f"{cases} edge cases bit-equal in {time.time() - t0:.1f} s")
     t0 = time.time()
     cases = hash_edge_cases(dev)
     say(f"[kernel] index_kmer_hash, probe_kmer_hash: {cases} edge cases bit-equal in {time.time() - t0:.1f} s")
@@ -626,11 +855,11 @@ class FirstCall:
         self.real, self.args = getattr(module, name), None
 
     def __enter__(self):
-        def spy(*args):
+        def spy(*args, **kwargs):
             if self.args is None:
                 self.args = tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                                  for a in args)
-            return self.real(*args)
+                                  for a in args) + tuple(kwargs.values())
+            return self.real(*args, **kwargs)
 
         setattr(self.module, self.name, spy)
         return self
@@ -689,31 +918,141 @@ class JoinOps:
         return False
 
 
+class SweepSpy:
+    """Spy on greedy_scs.find_overlaps: records each device sweep table (its
+    rows, and whether it ran the init or a repair) — not the numpy mirror
+    of small inputs, not the part loop of a partitioned sweep. With
+    dispatch=True it also logs, in a TorchDispatchMode around each
+    outermost call, the aten ops the sweep dispatches that the card's path
+    must not (nonzero, cat, any, masked selects, indexing by a boolean
+    mask) and its host syncs (a scalar read or a copy from the card to the
+    host)."""
+
+    BANNED = {"aten.nonzero", "aten.nonzero_static", "aten.cat", "aten.any",
+              "aten.masked_select", "aten.masked_scatter"}
+    INDEXING = {"aten.index", "aten.index_put", "aten.index_put_", "aten._index_put_impl_"}
+
+    def __init__(self, dispatch=False):
+        self.dispatch = dispatch
+        self.tables, self.banned, self.syncs = [], set(), {}
+
+    def _log(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        spy = self
+
+        class Log(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                name = str(func.overloadpacket)
+                if name in SweepSpy.BANNED:
+                    spy.banned.add(name)
+                if name in SweepSpy.INDEXING and any(
+                        isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                        for i in (args[1] if len(args) > 1 else ()) or ()):
+                    spy.banned.add(f"{name} (boolean mask)")
+                out = func(*args, **kwargs)
+                from_card = any(isinstance(a, torch.Tensor) and a.device.type == "cuda"
+                                for a in args)
+                to_host = from_card and (name == "aten._local_scalar_dense" or (
+                    name in ("aten._to_copy", "aten.copy_") and isinstance(out, torch.Tensor)
+                    and out.device.type == "cpu"))
+                if to_host:
+                    spy.syncs[name] = spy.syncs.get(name, 0) + 1
+                return out
+        return Log()
+
+    def __enter__(self):
+        from pgrc_tpu_torch.overlap import greedy_scs as g
+
+        self.real = real = g.find_overlaps
+        depth = [0]
+
+        def spy(codes, coef=1.0, init_active=None, *, device):
+            n = codes.shape[0]
+            if n > g._HOST_SWEEP_MAX and not (n > g._SWEEP_MAX_ROWS and init_active is None):
+                self.tables.append((n, init_active is None))
+            depth[0] += 1
+            try:
+                if self.dispatch and depth[0] == 1:
+                    with self._log():
+                        return real(codes, coef, init_active, device=device)
+                return real(codes, coef, init_active, device=device)
+            finally:
+                depth[0] -= 1
+
+        g.find_overlaps = spy
+        return self
+
+    def __exit__(self, *exc):
+        from pgrc_tpu_torch.overlap import greedy_scs as g
+
+        g.find_overlaps = self.real
+        return False
+
+    def expected(self) -> set:
+        """The sweep kernels these tables launch: G, D and F in every device
+        sweep, G2 in one that ran its init, H in a table that compacts."""
+        from pgrc_tpu_torch.overlap import greedy_scs as g
+
+        exp = set()
+        if self.tables:
+            exp |= {"sweep_full_hashes", "sweep_roll_entries", "sweep_pair_claim"}
+        if any(init for _, init in self.tables):
+            exp.add("sweep_init_links")
+        if any(n > g._ONE_SEGMENT_MAX_ROWS for n, _ in self.tables):
+            exp.add("sweep_compact")
+        return exp
+
+
+def require_launched(label, launches, spy, matcher=True):
+    """The run's expected kernels (the matcher's, and the sweep's from the
+    spy's tables) each launched, and no sweep kernel launched that its
+    tables do not call for."""
+    exp = spy.expected() | (set(MATCH_KERNELS) if matcher else set())
+    idle = sorted(k for k in exp if launches[k] == 0)
+    extra = sorted(k for k in SWEEP_KERNELS if launches[k] and k not in exp)
+    say(f"[{label}] device sweep tables (rows, init): {spy.tables}; expected kernels "
+        f"{sorted(exp)}")
+    require(not idle and not extra, f"{label}: kernels never launched: {idle}; launched "
+            f"where no table calls for them: {extra}")
+
+
 # kernels whose traced device time profiled() prints by name (substrings of
-# the kernel names): B and C, the join's and the sweep's sorts, and what a
-# concatenation or an elementwise key pass would launch
-TRACED_GROUPS = (("B", "index_kmer_hash"), ("C", "probe_kmer_hash"), ("sorts", "Sort"),
+# the kernel names): B and C, the sweep's kernels, the join's and the
+# sweep's sorts, the scans' scratch memsets, and what a concatenation or an
+# elementwise key pass would launch
+TRACED_GROUPS = (("B", "index_kmer_hash"), ("C", "probe_kmer_hash"),
+                 ("G", "sweep_full_hashes"), ("G2", "sweep_init_links"),
+                 ("D", "sweep_roll_entries"), ("F", "sweep_pair_claim"),
+                 ("H", "sweep_compact"), ("sorts", "Sort"), ("memset", "Memset"),
                  ("cat", "CatArray"), ("elementwise", "elementwise_kernel"))
 
 
-def profiled(fn, label, banned=()):
+def profiled(fn, label, banned=(), sweep=False):
     """Run fn() under torch.profiler, with the port's trace spans on (their
     `[trace]` lines give the host wall of each span): print the wall, the
     device time (sum of the kernels' and copies' self time), the busy share,
     the eight largest device items and the TRACED_GROUPS; fail if a kernel
     named in `banned` or an aten::cummax op ran, or if the join's sort
     (matcher.join_sort) dispatched any op but torch.sort and its slice of
-    the key buffer. -> fn's result."""
+    the key buffer. With `sweep`, also fail if the sweep dispatched an op
+    of SweepSpy.BANNED or indexed by a boolean mask, or read the card more
+    often than once a round (D's count), once a segment end (H's counts)
+    and twice a sweep (its links); print those host syncs. -> fn's
+    result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from pgrc_tpu_torch import kernels
     from pgrc_tpu_torch.utils import trace
 
     torch.cuda.synchronize()
+    before = dict(kernels.launches)
     t0 = time.time()
     was, trace._ON = trace._ON, True
     try:
-        with JoinOps() as join_ops, \
+        with JoinOps() as join_ops, SweepSpy(dispatch=sweep) as sweep_spy, \
                 profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             res = fn()
             torch.cuda.synchronize()
@@ -741,6 +1080,20 @@ def profiled(fn, label, banned=()):
     ran = sorted({e.key for e in events if e.key in banned or "cummax" in e.key})
     require(not ran, f"{label}: the traced run launched cummax: {ran}")
     require(busy > 0, f"{label}: the profiler saw no device time")
+    if sweep:
+        rounds, ends = (kernels.launches[k] - before[k]
+                        for k in ("sweep_roll_entries", "sweep_compact"))
+        syncs = sum(sweep_spy.syncs.values())
+        allowed = rounds + ends + 2 * len(sweep_spy.tables)
+        say(f"[{label}] the sweep: {len(sweep_spy.tables)} device tables "
+            f"{sweep_spy.tables}, {rounds} rounds, {ends} compactions; host syncs "
+            f"{syncs} {sweep_spy.syncs} (at most one a round, one a compaction and two "
+            f"a table: {allowed}); dispatched of the banned ops: "
+            f"{sorted(sweep_spy.banned) or 'none'}")
+        require(not sweep_spy.banned, f"{label}: the sweep dispatched "
+                f"{sorted(sweep_spy.banned)}")
+        require(sweep_spy.tables and syncs <= allowed,
+                f"{label}: the sweep read the card {syncs} times (at most {allowed})")
     return res
 
 
@@ -757,10 +1110,13 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
     counts are reset before and read after the encode. On the first run the
     same input is also compressed with the plain versions on the CPU (the two
     archives must be byte-identical) and bench.py's pair file is written
-    beside the input for phase 8; on the others, E and F are held against
-    their plain versions on the encode's first join and first sweep round,
-    and a second encode runs under torch.profiler. -> (launches, src, pair,
-    codes)."""
+    beside the input for phase 8; on the others, E, F, G, G2, D and H are
+    held against their plain versions on the encode's first join, first
+    init, first sweep round and first compaction, and a second encode runs
+    under torch.profiler with the sweep's dispatch spy. -> (launches, src,
+    pair, codes)."""
+    from contextlib import ExitStack
+
     from pgrc_tpu_torch import cli, kernels, synth
     from pgrc_tpu_torch.align import matcher
     from pgrc_tpu_torch.archive import decoder
@@ -778,8 +1134,13 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    with FirstCall(matcher, "join_carry") as join, \
-            FirstCall(greedy_scs, "sweep_pair_claim") as pair_round:
+    with ExitStack() as stack:
+        spy = stack.enter_context(SweepSpy())
+        if not first:
+            join = stack.enter_context(FirstCall(matcher, "join_carry"))
+            firsts = {name: stack.enter_context(FirstCall(greedy_scs, name)) for name in (
+                "sweep_full_hashes", "sweep_init_links", "sweep_roll_entries",
+                "sweep_pair_claim", "sweep_compact")}
         t0 = time.time()
         rc = cli.main(argv)
         torch.cuda.synchronize()
@@ -815,7 +1176,8 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
         f"{card_archive[0]}), {bits:.6f} bits/base (gate {gate}), encode {enc_s:.2f} s = "
         f"{bases / 1e6 / enc_s:.2f} Mbases/s, decode {dec_s:.2f} s = "
         f"{bases / 1e6 / dec_s:.2f} Mbases/s, input synth {gen_s:.1f} s, "
-        f"peak device memory {peak_mb:.0f} MiB, stage s {stages}, "
+        f"peak device memory {peak_mb:.0f} MiB{'' if first else ' (with the spy copies)'}, "
+        f"stage s {stages}, "
         f"exact multiset round trip {same}, launches {launches}")
     require(same, f"{label}: decoded reads differ from the input")
     require(cpu_same is not False, f"{label}: the card's archive differs from the CPU's")
@@ -825,18 +1187,42 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
                 f"the port's recorded card archive without zstd ({card_archive})")
     idle = [k for k in MAIN_KERNELS if launches[k] == 0]
     require(not idle, f"{label}: kernels never launched on the main path: {idle}")
+    require_launched(label, launches, spy)
     if not first:
         skey, perm, ipos, P = join.args
         timings["join_carry"] = check_join(
             "join_carry", join.args, f"{label}'s first join: m2={skey.numel()} "
             f"({ipos.numel()} index entries, {P} probes)", 20)
-        ks = pair_round.args[0]
+        del join.args, skey, perm, ipos
+        args = firsts["sweep_pair_claim"].args
         timings["sweep_pair_claim"] = check_pair(
-            "sweep_pair_claim", pair_round.args, f"{label}'s first sweep round: "
-            f"m={ks.numel()} entries of {pair_round.args[2].numel()} rows", 20)
-        del join.args, pair_round.args
+            "sweep_pair_claim", args, f"{label}'s first sweep round: "
+            f"m={args[0].numel()} entries of {args[2].numel()} rows", 20)
+        args = firsts["sweep_full_hashes"].args
+        timings["sweep_full_hashes"] = check_hashes(
+            args, f"{label}'s first init: n={args[0].shape[0]} N={args[1] is not None}", 20)
+        args = firsts["sweep_init_links"].args
+        timings["sweep_init_links"] = check_links(
+            args, f"{label}'s first init: n={args[0].numel()}", 20)
+        args = firsts["sweep_roll_entries"].args
+        timings["sweep_roll_entries"] = check_roll(
+            args, f"{label}'s first sweep round: n={args[0].shape[0]} rows, "
+            f"{int(args[2].sum()) + int(args[3].sum())} active entries", 20)
+        args = firsts["sweep_compact"].args
+        timings["sweep_compact"] = check_compact(
+            args, f"{label}'s first compaction: n={args[2].numel()} rows, "
+            f"{int((args[7] | args[8]).sum())} kept", 20)
+        for fc in firsts.values():
+            fc.args = None
+        del args
         free_card()
-        profiled(lambda: cli.main(argv), f"{label} second encode", banned)
+        torch.cuda.synchronize()
+        held_mb = torch.cuda.memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
+        profiled(lambda: cli.main(argv), f"{label} second encode", banned, sweep=True)
+        say(f"[{label}] second encode, no spy copies: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB ({held_mb:.0f} MiB "
+            f"allocated before it)")
     return launches, src, pair, codes
 
 
@@ -863,8 +1249,9 @@ def unordered(a, b):
 def decodes_exactly(archive: str, prefix: str, kind: str, inputs: list):
     """Decode with the port's decoder and compare with the input reads:
     in order ("order"), as a multiset of pairs ("pairs"), of unordered pairs
-    ("unordered pairs") or of reads ("reads"). Never decoder.validate, which
-    accepts swapped bytes and swapped pairs. -> (exact, decode seconds)."""
+    ("unordered pairs") or of reads ("reads"), read for read; not
+    decoder.validate, which compares fingerprints. -> (exact, decode
+    seconds)."""
     from pgrc_tpu_torch.archive import decoder
 
     t0 = time.time()
@@ -1061,8 +1448,9 @@ def phase_modes(work: str) -> None:
             card, cpu = (os.path.join(work, f"{name}.{d}.pgtc") for d in ("card", "cpu"))
             kernels.reset_launches()
             t0 = time.time()
-            require(cli.main(["--device", "cuda", *argv, card]) == 0,
-                    f"{label}: compress on the card failed")
+            with SweepSpy() as spy:
+                require(cli.main(["--device", "cuda", *argv, card]) == 0,
+                        f"{label}: compress on the card failed")
             torch.cuda.synchronize()
             card_s = time.time() - t0
             launches = dict(kernels.launches)
@@ -1082,8 +1470,7 @@ def phase_modes(work: str) -> None:
                                                if capped else ""))
         require(same, f"{label}: the card's archive differs from the CPU's")
         require(exact, f"{label}: the decoded reads differ from the input")
-        idle = [k for k in MAIN_KERNELS if launches[k] == 0]
-        require(not idle, f"{label}: kernels never launched: {idle}")
+        require_launched(f"modes {label}", launches, spy)
         if capped:
             require(parts and launches["index_kmer_hash"] >= 2,
                     f"{label}: no partitioned sweep or no blocked index")
@@ -1102,8 +1489,9 @@ def phase_bench_200k(src: str, pair: str, codes) -> None:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.time()
-        require(cli.main(["--device", "cuda", *argv, archive]) == 0,
-                f"{label}: compress failed")
+        with SweepSpy() as spy:
+            require(cli.main(["--device", "cuda", *argv, archive]) == 0,
+                    f"{label}: compress failed")
         torch.cuda.synchronize()
         enc_s = time.time() - t0
         launches = dict(kernels.launches)
@@ -1117,11 +1505,14 @@ def phase_bench_200k(src: str, pair: str, codes) -> None:
             f"Mbases/s, peak device memory {peak_mb:.0f} MiB, exact round trip "
             f"({kind}) {exact}, launches {launches}")
         require(exact, f"{label}: the decoded reads differ from the input")
-        idle = [k for k in SCAN_KERNELS if launches[k] == 0]
-        require(not idle, f"{label}: kernels never launched: {idle}")
+        require_launched(label, launches, spy)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    if args not in ([], ["--kernels-only"]):
+        print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
               file=sys.stderr)
@@ -1136,6 +1527,8 @@ def main() -> int:
     timings = phase_kernels(dev)
     banned = cummax_kernel_names(dev)
     say(f"[time] phases 1-3 {time.time() - t_all:.1f} s")
+    if args:
+        return 0
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=HERE)
     try:
         t0 = time.time()

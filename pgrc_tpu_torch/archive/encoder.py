@@ -114,6 +114,12 @@ def _submit_self_match(params, hq_pg):
 
 def encode(params: PgRCParams, out_path: str | None = None, *, device) -> EncodeStats:
     """Run the 7-stage encoder chain with the device stages on `device`."""
+    if params.end_stage == 6:
+        # the chain has no stage-6 checkpoint, and an archive cut after
+        # stage 6 lacks the stage-7 pg streams and cannot be decoded (the
+        # reference writes one and raises nothing, its encoder.py:434-442)
+        raise ValueError("-E 6 is not supported: end the chain at stage 5 "
+                         "(a checkpoint) or 7 (the archive)")
     t = {}
     t0 = time.time()
     params.resolve()

@@ -17,7 +17,11 @@ from . import build
 
 launches = {"verify_best": 0, "verify_best.int64": 0, "index_kmer_hash": 0,
             "index_kmer_hash.int64": 0, "probe_kmer_hash": 0, "sweep_roll_entries": 0,
-            "join_carry": 0, "join_carry.int64": 0, "sweep_pair_claim": 0}
+            "join_carry": 0, "join_carry.int64": 0, "sweep_pair_claim": 0,
+            "sweep_full_hashes": 0, "sweep_init_links": 0, "sweep_compact": 0}
+# scratch word of a compacting scan's first total (csrc/seg_scan.cuh
+# kTotalsWord): kernel D's entry count, kernel H's three counts
+TOTALS_WORD = 1
 
 
 def reset_launches() -> None:
@@ -61,10 +65,11 @@ def scan_tile() -> int:
 
 
 def scan_scratch(m: int, device: torch.device) -> torch.Tensor:
-    """Zeroed int64 scratch of a one-pass scan over m entries: a tile counter
-    and one look-back descriptor per tile, sized by csrc/seg_scan.cuh."""
+    """int64 scratch of a one-pass scan over m entries: a tile counter, the
+    totals and one look-back descriptor per tile, sized by csrc/seg_scan.cuh.
+    Left uninitialised: the kernel's entry point zeroes it on its stream."""
     words = build.lib().pgrc_seg_scan_scratch_words(m)
-    return torch.zeros((words,), dtype=torch.int64, device=device)
+    return torch.empty((words,), dtype=torch.int64, device=device)
 
 
 def launch(entry: str, device: torch.device, *args) -> None:

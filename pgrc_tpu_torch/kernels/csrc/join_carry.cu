@@ -135,6 +135,8 @@ extern "C" int pgrc_join_carry(int device, void* stream, int64_t m2,
   if (m2 == 0) return 0;
   if (scratch_words < seg_scan::scratch_words(m2) || (ipos_bytes != 4 && ipos_bytes != 8))
     return (int)cudaErrorInvalidValue;
+  err = seg_scan::zero_scratch(scratch, m2, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)seg_scan::tiles_for(m2);
   if (ipos_bytes == 8)
     join_carry_kernel<int64_t><<<grid, seg_scan::kThreads, 0, (cudaStream_t)stream>>>(

@@ -1,6 +1,8 @@
-// seg_scan.cuh — the device-wide scan that kernels E (join_carry.cu) and F
-// (sweep_pair_claim.cu) share: one pass over the entries, with decoupled
-// look-back, and each kernel's epilogue in the same pass.
+// seg_scan.cuh — the device-wide scan that kernels E (join_carry.cu), F
+// (sweep_pair_claim.cu), D (sweep_round.cu) and H (sweep_compact.cu) share:
+// one pass over the entries, with decoupled look-back, and each kernel's
+// epilogue in the same pass. E and F stage their sorted inputs as below; D
+// and H, which compact, count active entries and write them out.
 //
 // A block of kThreads threads takes one tile of kTile consecutive entries.
 // Tiles are numbered by an atomic counter, not by blockIdx, so a tile only
@@ -27,7 +29,8 @@
 // (a before b). combine must be associative — the window and the warp scans
 // fold in tree order, not left to right — and identity() a two-sided
 // identity on the states the kernel makes. JoinOp (a max, and a segmented
-// max reset by the first word) and PairOp (two maxima) are both.
+// max reset by the first word), PairOp (two maxima) and the compactions'
+// CountOp (two sums) are all three.
 //
 // The geometry was chosen by timing on an H100 at the inputs of an SE 2M
 // encode's first join and first sweep round: 256 threads x 8 entries, in
@@ -54,20 +57,35 @@ struct State {
   long long a, b;
 };
 
-// The scratch the wrapper allocates with torch.zeros (int64 words): word 0
-// counts the tiles handed out; tile t's descriptor is the kDescWords words
-// from kHeadWords + kDescWords * t: [status, -, agg.a, agg.b, inc.a, inc.b,
-// -, -], status 0 = nothing yet, 1 = aggregate published, 2 = inclusive
-// prefix published. The values are read with L2-coherent loads after an
-// acquire of the status.
+// The scratch (int64 words), which the wrapper allocates and each kernel's
+// entry point zeroes on its stream before the launch (zero_scratch: a
+// memset, not a fill kernel): word 0 counts the tiles handed out; tile t's
+// descriptor is the kDescWords words from kHeadWords + kDescWords * t:
+// [status, -, agg.a, agg.b, inc.a, inc.b, -, -], status 0 = nothing yet,
+// 1 = aggregate published, 2 = inclusive prefix published. The values are
+// read with L2-coherent loads after an acquire of the status.
 constexpr int64_t kHeadWords = 8;
 constexpr int64_t kDescWords = 8;
+// Head words from kTotalsWord on: the totals that a compacting scan (D,
+// sweep_round.cu; H, sweep_compact.cu) writes from its last tile, which the
+// host reads in one copy.
+constexpr int kTotalsWord = 1;
+// The compacting scans' op: two independent sums.
+struct CountOp {
+  __device__ static State identity() { return {0, 0}; }
+  __device__ static State combine(State a, State b) { return {a.a + b.a, a.b + b.b}; }
+};
 constexpr int kAggWord = 2;
 constexpr int kIncWord = 4;
 
 __host__ __device__ inline int64_t tiles_for(int64_t m) { return (m + kTile - 1) / kTile; }
 __host__ __device__ inline int64_t scratch_words(int64_t m) {
   return kHeadWords + kDescWords * tiles_for(m);
+}
+
+// Zero the scratch of a scan over m entries on `stream`.
+inline cudaError_t zero_scratch(void* scratch, int64_t m, cudaStream_t stream) {
+  return cudaMemsetAsync(scratch, 0, scratch_words(m) * sizeof(long long), stream);
 }
 
 __device__ __forceinline__ State shfl_up(State v, int d) {

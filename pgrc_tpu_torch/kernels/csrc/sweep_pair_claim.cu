@@ -151,6 +151,8 @@ extern "C" int pgrc_sweep_pair_claim(int device, void* stream, int64_t m, int64_
   if (err != cudaSuccess) return (int)err;
   if (m == 0) return 0;
   if (scratch_words < seg_scan::scratch_words(m)) return (int)cudaErrorInvalidValue;
+  err = seg_scan::zero_scratch(scratch, m, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   sweep_pair_claim_kernel<<<(unsigned)seg_scan::tiles_for(m), seg_scan::kThreads, 0,
                             (cudaStream_t)stream>>>(
       m, n, (const long long*)ks, (const long long*)ent, (const int32_t*)ids,

@@ -1,0 +1,91 @@
+"""Kernels G, `sweep_full_hashes`, and G2, `sweep_init_links`: the sweep's
+init (csrc/sweep_init.cu). G replaces greedy_scs.py `_build_init_fn`'s and
+`_build_hash_fn`'s Horner loops (:429-441, :475-483) and writes the init's
+sort key; G2 replaces the init's linking (:442-465) after the stable sort.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.packed import col_vals
+from ..overlap.host import HASH_BASE64, HASH_BASE64B
+from ..utils.uint import SIGN64, s64
+from . import check, launch, launches, on_cpu, ptr
+
+_A, _B = int(HASH_BASE64), int(HASH_BASE64B)
+
+
+def sweep_full_hashes_plain(lanes, nmask, L: int, with_key: bool = False):
+    """Both full-read u64 hashes by Horner over the columns; with_key adds
+    the init's order key min(h0, INV64 - 1) ^ SIGN64."""
+    n = lanes.shape[0]
+    h = torch.zeros((n,), dtype=torch.int64, device=lanes.device)
+    hb = torch.zeros_like(h)
+    for t in range(L):
+        v = col_vals(lanes, nmask, t)
+        h = h * s64(_A) + v
+        hb = hb * s64(_B) + v
+    if not with_key:
+        return h, hb
+    return h, hb, torch.where(h == -1, -2, h) ^ SIGN64
+
+
+def sweep_full_hashes(lanes: torch.Tensor, nmask: torch.Tensor | None, L: int,
+                      with_key: bool = False):
+    """lanes [n, W+1] int32, nmask [n, Wn+1] int32 or None -> (h0, h0b) [n]
+    int64 (u64 bit patterns), and with_key the init's order key [n] int64.
+    CUDA tensors run kernel G."""
+    n = lanes.shape[0]
+    check(lanes, "lanes", torch.int32, (n, None))
+    if nmask is not None:
+        check(nmask, "nmask", torch.int32, (n, None))
+    if not 1 <= L <= 16 * lanes.shape[1]:
+        raise ValueError(f"read length {L} out of range for {lanes.shape[1]} lanes")
+    if on_cpu(lanes, nmask):
+        return sweep_full_hashes_plain(lanes, nmask, L, with_key)
+    dev = lanes.device
+    h0 = torch.empty((n,), dtype=torch.int64, device=dev)
+    h0b = torch.empty_like(h0)
+    key = torch.empty_like(h0) if with_key else None
+    launch("pgrc_sweep_full_hashes", dev, n, ptr(lanes), lanes.shape[1], ptr(nmask),
+           0 if nmask is None else nmask.shape[1], L, _A, _B, ptr(h0), ptr(h0b), ptr(key))
+    launches["sweep_full_hashes"] += 1
+    return (h0, h0b, key) if with_key else (h0, h0b)
+
+
+def sweep_init_links_plain(ks, sidx, h0b, L: int):
+    """Sorted position j links row sidx[j] to row sidx[j+1] when their keys
+    and second hashes agree; the last position never links forward."""
+    n = ks.numel()
+    dev = ks.device
+    hb_s = h0b[sidx]
+    same = (ks[1:] == ks[:-1]) & (hb_s[1:] == hb_s[:-1])
+    me, nx = sidx[:-1][same], sidx[1:][same]
+    succ = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    ovl = torch.zeros((n,), dtype=torch.int32, device=dev)
+    succ[me] = nx.to(torch.int32)
+    ovl[me] = L
+    a_p = torch.ones((n,), dtype=torch.bool, device=dev)
+    a_p[nx] = False
+    return succ, ovl, succ < 0, a_p
+
+
+def sweep_init_links(ks: torch.Tensor, sidx: torch.Tensor, h0b: torch.Tensor, L: int):
+    """ks [n] int64 stably sorted init keys, sidx [n] int64 their rows, h0b
+    [n] int64 the second hashes by row -> (succ, ovl [n] int32, active_s,
+    active_p [n] bool), by row. CUDA tensors run kernel G2."""
+    n = ks.numel()
+    check(ks, "ks", torch.int64, (n,))
+    check(sidx, "sidx", torch.int64, (n,))
+    check(h0b, "h0b", torch.int64, (n,))
+    if on_cpu(ks, sidx, h0b):
+        return sweep_init_links_plain(ks, sidx, h0b, L)
+    dev = ks.device
+    succ = torch.empty((n,), dtype=torch.int32, device=dev)
+    ovl = torch.empty_like(succ)
+    a_s = torch.empty((n,), dtype=torch.bool, device=dev)
+    a_p = torch.empty_like(a_s)
+    launch("pgrc_sweep_init_links", dev, n, ptr(ks), ptr(sidx), ptr(h0b), L, ptr(succ),
+           ptr(ovl), ptr(a_s), ptr(a_p))
+    launches["sweep_init_links"] += 1
+    return succ, ovl, a_s, a_p

@@ -20,6 +20,14 @@ form only:
     sort; links go straight to the global arrays instead of a per-segment
     flush (kernel F does ranks, pairing, claim and links in one pass);
     compaction keeps exactly the active rows.
+
+On the card every device program of the sweep is a hand-written kernel but
+the library's stable sorts: G hashes the rows (and writes the init's sort
+key), G2 links the init's duplicates, D rolls a round's hashes and writes
+its active entries compacted, F pairs and links, H compacts the table. The
+host reads one count a round (D's entry count, before the sort) and three
+at a segment end (H's kept rows and active sides), and nothing else until
+the links come back.
 """
 from __future__ import annotations
 
@@ -28,11 +36,11 @@ import torch
 
 from .. import state
 from ..core import packed
-from ..core.packed import col_vals
-from ..kernels.sweep import sweep_roll_entries
+from ..kernels.sweep import round_buffers, sweep_roll_entries
+from ..kernels.sweep_compact import sweep_compact
+from ..kernels.sweep_init import sweep_full_hashes, sweep_init_links
 from ..kernels.sweep_pair_claim import sweep_pair_claim
 from ..utils.trace import span
-from ..utils.uint import SIGN64, s64
 from .host import (  # noqa: F401  (re-exported host layer)
     HASH_BASE64, HASH_BASE64B, OverlapResult, _SEG_PLAN, _SEG_TAIL,
     _find_overlaps_host, _layout_and_assemble, _verify_links,
@@ -49,62 +57,40 @@ _ONE_SEGMENT_MAX_ROWS = 32768
 # setting it here reaches every call. Raising it changes the links (and so
 # the archive bytes) of inputs past 48M rows.
 _SWEEP_MAX_ROWS = 48_000_000
-
-_A = s64(int(HASH_BASE64))
-_B = s64(int(HASH_BASE64B))
-
-
-def _full_hashes(lanes, nmask, L: int):
-    """Both full-read u64 hashes by Horner over the columns (K1/K4)."""
-    n = lanes.shape[0]
-    h = torch.zeros((n,), dtype=torch.int64, device=lanes.device)
-    hb = torch.zeros_like(h)
-    for t in range(L):
-        v = col_vals(lanes, nmask, t)
-        h = h * _A + v
-        hb = hb * _B + v
-    return h, hb
+# the per-row arrays of a sweep table, in kernel H's order
+_TABLE = ("lanes", "nmask", "ids", "h", "p", "h2", "p2", "a_s", "a_p")
 
 
-def _init_links(h0, h0b, L: int):
-    """Duplicate linking (K1, greedy_scs.py:442-465): stable sort of the
-    first hash (clamped below INV64); each row links to its sorted neighbour
-    when both hashes match. The reference's wrap-around neighbour of the
-    last sorted row never links (its key test is forced false), so only
-    the n-1 adjacent pairs are tested."""
-    n = h0.numel()
-    ks = torch.where(h0 == -1, -2, h0)              # min(h0, INV64 - 1)
-    _, sidx = torch.sort(ks ^ SIGN64, stable=True)  # unsigned order
-    ks_s, hb_s = ks[sidx], h0b[sidx]
-    matched = (ks_s[1:] == ks_s[:-1]) & (hb_s[1:] == hb_s[:-1])
-    me, nx = sidx[:-1][matched], sidx[1:][matched]
-    succ = torch.full((n,), -1, dtype=torch.int32, device=h0.device)
-    ovl = torch.zeros((n,), dtype=torch.int32, device=h0.device)
-    succ[me] = nx.to(torch.int32)
-    ovl[me] = L
-    has_pred = torch.zeros((n,), dtype=torch.bool, device=h0.device)
-    has_pred[nx] = True
-    return succ, ovl, succ < 0, ~has_pred
+def _init_links(lanes, nmask, L: int):
+    """The init (K1, greedy_scs.py:417-468): both full-read hashes and the
+    init's sort key (kernel G), the library's stable sort of the keys, and
+    the duplicate links of equal neighbours (kernel G2). -> (h0, h0b, succ,
+    ovl, active_s, active_p)."""
+    h0, h0b, key = sweep_full_hashes(lanes, nmask, L, with_key=True)
+    ks, sidx = torch.sort(key, stable=True)
+    del key
+    return (h0, h0b, *sweep_init_links(ks, sidx, h0b, L))
 
 
-def round_order(k1, a_p, a_s):
-    """The round's sort: the valid entries (active prefixes, then active
-    suffixes) in construction order = (side, gid) order, because ids ascend
-    with the row (compaction keeps row order), stably sorted by k1, which
-    keeps the reference's (key, side|gid) order. -> (ks, ent), or None when
-    no entry is valid."""
-    sel = torch.nonzero(torch.cat([a_p, a_s])).squeeze(1)
-    if sel.numel() == 0:
+def round_order(keys, ent, count):
+    """The round's sort: kernel D's active entries keys[:m], ent[:m] in
+    construction order = (side, gid) order (ids ascend with the row, and
+    compaction keeps row order), stably sorted by key, which keeps the
+    reference's (key, side|gid) order. Reading m is the round's one host
+    sync. -> (ks, ent), or None when no entry is active."""
+    m = int(count)
+    if m == 0:
         return None
-    ks, perm = torch.sort(k1[sel], stable=True)
-    return ks, sel[perm]
+    ks, perm = torch.sort(keys[:m], stable=True)
+    return ks, ent[perm]
 
 
 def _round(i: int, L: int, t: dict, succ_g, ovl_g) -> None:
     """One overlap round on table `t` (in place); links go to succ_g/ovl_g."""
-    k1 = sweep_roll_entries(t["lanes"], t["nmask"], t["a_s"], t["a_p"], i, L,
-                            t["h"], t["p"], t["h2"], t["p2"])
-    order = round_order(k1, t["a_p"], t["a_s"])
+    keys, ent, scratch = t["entries"]
+    count = sweep_roll_entries(t["lanes"], t["nmask"], t["a_s"], t["a_p"], i, L,
+                               t["h"], t["p"], t["h2"], t["p2"], keys, ent, scratch)
+    order = round_order(keys, ent, count)
     if order is None:
         return
     # ranks, pairing, claim and links in one pass (kernel F)
@@ -138,18 +124,20 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
         raise NotImplementedError("overlap rounds index reads with 31-bit ids")
     with span(f"sweep pack+upload n={n}"):
         lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), device)
-    h0, h0b = _full_hashes(lanes, nmask, L)
     if init_active is None:
-        succ_g, ovl_g, a_s, a_p = _init_links(h0, h0b, L)
+        h0, h0b, succ_g, ovl_g, a_s, a_p = _init_links(lanes, nmask, L)
     else:
+        h0, h0b = sweep_full_hashes(lanes, nmask, L)
         succ_g = torch.full((n,), -1, dtype=torch.int32, device=device)
         ovl_g = torch.zeros((n,), dtype=torch.int32, device=device)
         a_s, a_p = (torch.from_numpy(np.ascontiguousarray(a, dtype=bool)).to(device)
                     for a in init_active)
-    # the round kernel rolls h, p, h2, p2 in place: four distinct buffers
+    # the round kernel rolls h, p, h2, p2 in place: four distinct buffers;
+    # the table holds its rounds' entry buffers (kernel D's outputs)
     t = dict(lanes=lanes, nmask=nmask,
              ids=torch.arange(n, dtype=torch.int32, device=device),
-             h=h0, p=h0.clone(), h2=h0b, p2=h0b.clone(), a_s=a_s, a_p=a_p)
+             h=h0, p=h0.clone(), h2=h0b, p2=h0b.clone(), a_s=a_s, a_p=a_p,
+             entries=round_buffers(n, device))
     iters = int(L * coef)
     i, seg_idx = 1, 0
     with span(f"sweep rounds n={n}"):
@@ -162,15 +150,23 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
             for r in range(i, i1):
                 _round(r, L, t, succ_g, ovl_g)
             i = i1
-            if i >= iters or not (t["a_s"].any() and t["a_p"].any()):
+            if i >= iters:
                 break
             # compaction moves rows, never changes a link: every decision is
-            # in global-id space (greedy_scs.py:824-826)
-            keep = torch.nonzero(t["a_s"] | t["a_p"]).squeeze(1)
-            if keep.numel() < t["ids"].numel():
-                for key, v in t.items():
-                    if v is not None:
-                        t[key] = v[keep]
+            # in global-id space (greedy_scs.py:824-826). Kernel H writes the
+            # kept rows to the front of new arrays and counts the kept rows
+            # and both active sides, the segment end's one host read; the
+            # entry buffers go first, so they are not held through it
+            rows = t["ids"].numel()
+            del t["entries"]
+            new, counts = sweep_compact(*(t[k] for k in _TABLE))
+            kept, n_suf, n_pref = counts.tolist()
+            if n_suf == 0 or n_pref == 0:
+                break
+            if kept < rows:
+                t.update((k, None if v is None else v[:kept]) for k, v in zip(_TABLE, new))
+            del new
+            t["entries"] = round_buffers(kept, device)
     res = OverlapResult(succ_g.cpu().numpy(), ovl_g.cpu().numpy(), L)
     with span("sweep verify_links"):
         _verify_links(res, codes)

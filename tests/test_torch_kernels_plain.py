@@ -226,38 +226,63 @@ def test_probe_hash_matches_window_hashes(pg_case, k):
     np.testing.assert_array_equal(key2, 1 + np.arange(want.size))
 
 
-@pytest.mark.parametrize("with_n", [False, True])
-def test_sweep_roll_entries_matches_reference_rounds(with_n):
-    """Kernel D: rounds 1..6 of roll + order keys against the reference's
-    round arithmetic in numpy (`_pow_table64`, the inverse bases)."""
-    rng = np.random.default_rng(7 + with_n)
+def roll_rounds(with_n, act, seed):
+    """Kernel D's plain version over rounds 1..6 against the reference's
+    round arithmetic in numpy (`_pow_table64`, the inverse bases) and its
+    entries k1 = [p if active_p else INV64, h if active_s else INV64]: the
+    entries the round's sort keeps are the valid ones of k1, in (side, gid)
+    order. -> the entry counts m of the rounds."""
+    rng = np.random.default_rng(seed)
     n = 500
     codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
     if with_n:
         codes[rng.random((n, L)) < 0.02] = 4
     v = codes.astype(np.uint64)
-    a_s = rng.random(n) < 0.7
-    a_p = rng.random(n) < 0.7
+    a_s = rng.random(n) < act
+    a_p = rng.random(n) < act
     hs = [rng.integers(0, 2**64, n, dtype=np.uint64) for _ in range(4)]
     lanes, nmask = state.lanes_to_device(*ref_packed.pack_lanes(codes), "cpu")
     assert (nmask is not None) == with_n
     ts = [state.hashes_to_device(h.copy(), "cpu") for h in hs]
+    keys, ent, scratch = sweep.round_buffers(n, "cpu")
     pa, pb = ref_scs._pow_table64(L), ref_scs._pow_table64(L, ref_scs.HASH_BASE64B)
     h, p, h2, p2 = hs
     INV64 = np.uint64(2**64 - 1)
+    counts = []
     with np.errstate(over="ignore"):
         for i in range(1, 7):
             h = h - v[:, i - 1] * pa[L - i]
             h2 = h2 - v[:, i - 1] * pb[L - i]
             p = (p - v[:, L - i]) * ref_scs.HASH_BASE64_INV
             p2 = (p2 - v[:, L - i]) * ref_scs.HASH_BASE64B_INV
-            k1 = sweep.sweep_roll_entries_plain(
-                lanes, nmask, torch.from_numpy(a_s), torch.from_numpy(a_p), i, L, *ts)
+            count = sweep.sweep_roll_entries(
+                lanes, nmask, torch.from_numpy(a_s), torch.from_numpy(a_p), i, L, *ts,
+                keys, ent, scratch)
+            k1 = np.concatenate([np.where(a_p, p, INV64), np.where(a_s, h, INV64)])
+            valid = np.concatenate([a_p, a_s])
+            m = int(count)
+            assert count.shape == (1,) and m == valid.sum()
+            np.testing.assert_array_equal(ent[:m].numpy(), np.nonzero(valid)[0])
             np.testing.assert_array_equal(
-                uint.tensor_to_np_u64(uint.from_order_key64(k1)),
-                np.concatenate([np.where(a_p, p, INV64), np.where(a_s, h, INV64)]))
+                uint.tensor_to_np_u64(uint.from_order_key64(keys[:m])), k1[valid])
             for t, want in zip(ts, (h, p, h2, p2)):
                 np.testing.assert_array_equal(uint.tensor_to_np_u64(t), want)
+            counts.append(m)
+    return counts
+
+
+@pytest.mark.parametrize("with_n", [False, True])
+def test_sweep_roll_entries_matches_reference_rounds(with_n):
+    """Kernel D: rounds 1..6 of roll, active entries and their count."""
+    counts = roll_rounds(with_n, 0.7, 7 + with_n)
+    assert all(0 < m < 1000 for m in counts)
+
+
+@pytest.mark.parametrize("act", [0.0, 1.0])
+def test_sweep_roll_entries_at_no_and_all_active(act):
+    """Kernel D with no active entry (m = 0: the hashes still roll) and with
+    every entry active (m = 2n)."""
+    assert roll_rounds(True, act, 9) == [int(act * 1000)] * 6
 
 
 @pytest.mark.parametrize("L_rc,with_n", [(100, False), (100, True), (80, True), (37, True)])

@@ -2,10 +2,12 @@
 numpy mirror with _HOST_SWEEP_MAX = 0): identical links, bit for bit."""
 import numpy as np
 import pytest
+import torch
 
 from pgrc_tpu.core import packed as ref_packed
 from pgrc_tpu.overlap import greedy_scs as ref
 from pgrc_tpu_torch import state
+from pgrc_tpu_torch.kernels import sweep_compact, sweep_init
 from pgrc_tpu_torch.overlap import greedy_scs as port
 from pgrc_tpu_torch.utils import uint
 from test_overlap import sample_genome_reads
@@ -80,27 +82,109 @@ def test_compaction_keeps_links(monkeypatch, seed):
     assert len(set(compactions)) > 3 and min(compactions) < N_READS // 4
 
 
-@pytest.mark.parametrize("with_n", [False, True])
-def test_init_hashes_and_links_match_reference(with_n):
-    """K1/K4: both full-read hashes and the duplicate links of the init."""
-    n = 3072  # a bucket size, so the reference adds no padding rows
-    rng = np.random.default_rng(12 + with_n)
+def init_codes(n, with_n, seed):
+    """Random reads with many exact duplicates, N in a few symbols."""
+    rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
     codes[rng.integers(0, n, 800)] = codes[rng.integers(0, n, 800)]
     if with_n:
         codes[rng.random((n, L)) < 0.002] = 4
+    return codes
+
+
+@pytest.mark.parametrize("with_n", [False, True])
+def test_init_hashes_and_links_match_reference(with_n):
+    """K1: both full-read hashes (kernel G's plain version, with its sort
+    key) and the duplicate links of the init (the stable sort, then kernel
+    G2's plain version)."""
+    n = 3072  # a bucket size, so the reference adds no padding rows
+    codes = init_codes(n, with_n, 12 + with_n)
     lanes, nmask = ref_packed.pack_lanes(codes)
     init_fn = ref._build_init_fn(n, L, with_n)
     nm = nmask if with_n else np.zeros((n, 1), np.uint32)
     want = [np.asarray(x) for x in init_fn(lanes, nm, np.int32(n))]
     lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
-    h0, h0b = port._full_hashes(lt, nt, L)
-    succ, ovl, a_s, a_p = port._init_links(h0, h0b, L)
+    h0, h0b, succ, ovl, a_s, a_p = port._init_links(lt, nt, L)
     got = [uint.tensor_to_np_u64(h0), uint.tensor_to_np_u64(h0b), a_s.numpy(),
            a_p.numpy(), succ.numpy(), ovl.numpy()]
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert (want[4] >= 0).sum() > 100
+    # G's order key: min(h0, INV64 - 1) in unsigned order
+    _, _, key = sweep_init.sweep_full_hashes(lt, nt, L, with_key=True)
+    np.testing.assert_array_equal(uint.tensor_to_np_u64(uint.from_order_key64(key)),
+                                  np.minimum(want[0], np.uint64(2**64 - 2)))
+
+
+@pytest.mark.parametrize("with_n", [False, True])
+def test_full_hashes_match_hash_fn(with_n):
+    """K4 (repair mode's hash-only init): kernel G's plain version against
+    the reference's `_build_hash_fn`."""
+    n = 3072
+    codes = init_codes(n, with_n, 22 + with_n)
+    lanes, nmask = ref_packed.pack_lanes(codes)
+    nm = nmask if with_n else np.zeros((n, 1), np.uint32)
+    want = [np.asarray(x) for x in ref._build_hash_fn(n, L, with_n)(lanes, nm)]
+    lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
+    got = sweep_init.sweep_full_hashes(lt, nt, L)
+    assert len(got) == 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(uint.tensor_to_np_u64(g), w)
+
+
+@pytest.mark.parametrize("L_,with_n", [(16, False), (17, True), (37, True), (64, False),
+                                        (255, True)])
+def test_full_hashes_at_any_read_length(L_, with_n):
+    """Kernel G's plain version against the reference's `_build_hash_fn` at
+    read lengths on and off the 16-symbol lane, up to the longest read."""
+    n = 256
+    rng = np.random.default_rng(L_)
+    codes = rng.integers(0, 4, size=(n, L_), dtype=np.uint8)
+    if with_n:
+        codes[rng.random((n, L_)) < 0.01] = 4
+    lanes, nmask = ref_packed.pack_lanes(codes)
+    nm = nmask if with_n else np.zeros((n, 1), np.uint32)
+    want = [np.asarray(x) for x in ref._build_hash_fn(n, L_, with_n)(lanes, nm)]
+    lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
+    for g, w in zip(sweep_init.sweep_full_hashes(lt, nt, L_), want):
+        np.testing.assert_array_equal(uint.tensor_to_np_u64(g), w)
+
+
+@pytest.mark.parametrize("kind", ["random", "none kept", "all kept", "random, N"])
+def test_sweep_compact_matches_compact_fn(kind):
+    """K3: kernel H's plain version against the reference's
+    `_build_compact_fn` on a random table: the kept rows in the same order,
+    every array, and the three counts the segment end reads."""
+    n = 3072
+    rng = np.random.default_rng(["random", "none kept", "all kept", "random, N"].index(kind))
+    with_n = kind.endswith("N")
+    codes = init_codes(n, with_n, 30)
+    lanes, nmask = ref_packed.pack_lanes(codes)
+    nm = nmask if with_n else np.zeros((n, 1), np.uint32)
+    ids = np.sort(rng.choice(10 * n, n, replace=False)).astype(np.int32)
+    hs = [rng.integers(0, 2**64, n, dtype=np.uint64) for _ in range(4)]
+    act = {"none kept": 0.0, "all kept": 1.0}.get(kind, 0.3)
+    a_s, a_p = rng.random(n) < act, rng.random(n) < act
+    if kind == "all kept":
+        a_s[::2] = False        # every row kept by one side or the other
+    succ_l, ovl_l = np.full(n, -1, np.int32), np.zeros(n, np.int32)
+    want = [np.asarray(x) for x in ref._build_compact_fn(n, n, L, with_n)(
+        lanes, nm, ids, *hs, a_s, a_p, succ_l, ovl_l)][:9]
+    lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
+    table = (lt, nt, torch.from_numpy(ids), *(state.hashes_to_device(h, "cpu") for h in hs),
+             torch.from_numpy(a_s), torch.from_numpy(a_p))
+    got, counts = sweep_compact.sweep_compact(*table)
+    k = int((a_s | a_p).sum())
+    assert counts.tolist() == [k, int(a_s.sum()), int(a_p.sum())]
+    assert k == {"none kept": 0, "all kept": n}.get(kind, k) and (0 < k < n or act in (0, 1))
+    for g, w in zip(got, want):
+        if g is None:
+            assert not with_n
+            continue
+        g = g[:k]
+        g = uint.tensor_to_np_u64(g) if g.dtype == torch.int64 else (
+            uint.tensor_to_np_u32(g) if g.dim() == 2 else g.numpy())
+        np.testing.assert_array_equal(g, w[:k])
 
 
 def test_divide_and_generate_matches_reference():

@@ -17,9 +17,9 @@ import torch
 from pgrc_tpu_torch.align import matcher
 from pgrc_tpu_torch.kernels import join_carry as kjoin
 from pgrc_tpu_torch.kernels import kmer_hash
+from pgrc_tpu_torch.kernels import sweep as ksweep
 from pgrc_tpu_torch.kernels import sweep_pair_claim as kpair
 from pgrc_tpu_torch.overlap import greedy_scs
-from pgrc_tpu_torch.utils.uint import SIGN64
 
 INV32 = 0xFFFFFFFF
 
@@ -212,15 +212,16 @@ def pair_case(kind, rng):
 
 
 def port_round(ids, a_s, a_p, p, h, p2, h2, i, L, succ, ovl):
-    """The port's round after kernel D: its order keys (k1 with the sign bit
-    flipped, prefixes first), the round's sort, then F's plain version on
-    the entry indices, ids and the confirm hashes."""
+    """The port's round after kernel D's roll: its active entries (order
+    keys with the sign bit flipped, prefixes first), the round's sort, then
+    F's plain version on the entry indices, ids and the confirm hashes."""
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     tp, th = t(p.view(np.int64)), t(h.view(np.int64))
     ta_s, ta_p = t(a_s.copy()), t(a_p.copy())
-    k1 = torch.cat([torch.where(ta_p, tp, -1), torch.where(ta_s, th, -1)]) ^ SIGN64
+    keys, ent, scratch = ksweep.round_buffers(ids.size, "cpu")
+    count = ksweep.round_entries_plain(ta_s, ta_p, th, tp, keys, ent, scratch)
     succ_t, ovl_t = t(succ.copy()), t(ovl.copy())
-    order = greedy_scs.round_order(k1, ta_p, ta_s)
+    order = greedy_scs.round_order(keys, ent, count)
     if order is not None:
         kpair.sweep_pair_claim(*order, t(ids), t(p2.view(np.int64)), t(h2.view(np.int64)),
                                succ_t, ovl_t, ta_s, ta_p, i, L)
