@@ -4,6 +4,7 @@ a process per tree (each imports pgrc_tpu_torch from its tree and builds
 that tree's kernels).
 
     python3 ab.py --what kmer TREE [TREE ...]
+    python3 ab.py --what sweep TREE [TREE ...]
     python3 ab.py --what encode [--pairs 5] [--reads 2000000] [--encodes 2] TREE_A TREE_B
 
 Each TREE is the root of a checkout. Without a CUDA card it exits 2.
@@ -26,6 +27,17 @@ kernel's entry point alone, since that wrapper read the offsets' minimum
 and maximum from the card on every call. Prints one `[ab]` line per kernel
 and tree: the time, the bound (chip_smoke.bound over the bytes that tree's
 kernel moves) and the share.
+
+--what sweep: kernels G (sweep_full_hashes) and H (sweep_compact) the same
+way, one process per TREE, with chip_smoke.py's `check_hashes` and
+`check_compact` (10 launches bit-equal to the tree's plain version, then
+the device time beside the plain version's and chip_smoke's bound), on
+random tables made on the card:
+  G in its init form (with the key) at SE 2M's first init, 1,760,000 rows
+    of L 100 without N, and at 2^18 rows with N;
+  H at SE 2M's first compaction, 1,760,000 rows of L 100 without N, 81%
+    kept, and at 2^18 rows with N, 58% kept (chip_smoke's 2^18 table).
+The `[kernel]` lines name the tree.
 
 --what encode: SE encode walls of two trees in alternating pairs. The input
 is bench.py's SE 2M file (`synth_fastq(src, 2_000_000, 100, 5_000_000,
@@ -63,6 +75,14 @@ BLOCK_LANES = (1 << 26) * K1 // 16   # lanes of one 2^26-entry index block
 WIDE_FROM = 0x7FFF0000               # the matcher's wide probe: pg_len > WIDE_FROM - L
 C_ROWS, C_LANES, C_K = 1 << 18, 8, 32
 C_OFFS = tuple(range(0, L - C_K + 1, 3))
+# (label, rows, N, each side active with this probability) of --what sweep:
+# SE 2M's first init and compaction (81% of its rows kept) and chip_smoke's
+# 2^18 table
+SE2M_ROWS = 1_760_000
+SWEEP_SHAPES = (
+    ("SE 2M's first init / compaction shape", SE2M_ROWS, False, 1 - 0.19 ** 0.5),
+    ("2^18 rows with N", 1 << 18, True, 0.35),
+)
 
 
 def load_timer():
@@ -160,6 +180,32 @@ def kmer_tree(tree: str) -> None:
                in_bytes + 4 * C_ROWS * S, ops)
 
 
+def sweep_tree(tree: str) -> None:
+    import_from(tree)
+    from pgrc_tpu_torch import kernels
+
+    cs = load_timer()
+    dev = torch.device("cuda")
+    kernels.build.lib()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    words = lambda n, w: torch.randint(-(1 << 31), (1 << 31) - 1, (n, w), dtype=torch.int32,
+                                       device=dev, generator=gen)
+    for label, n, with_n, act in SWEEP_SHAPES:
+        lanes = words(n, (L + 15) // 16 + 1)
+        nmask = words(n, (L + 31) // 32 + 1) if with_n else None
+        cs.check_hashes((lanes, nmask, L, True), f"{tree}: {label}, n={n} N={with_n} key=True",
+                        REPS)
+        hashes = [torch.randint(-(1 << 63), (1 << 63) - 1, (n,), dtype=torch.int64, device=dev,
+                                generator=gen) for _ in range(4)]
+        flags = [torch.rand((n,), device=dev, generator=gen) < act for _ in range(2)]
+        ids = torch.arange(0, 3 * n, 3, dtype=torch.int32, device=dev)
+        table = (lanes, nmask, ids, *hashes, *flags)
+        kept = int((flags[0] | flags[1]).sum())
+        cs.check_compact(table, f"{tree}: {label}, n={n} N={with_n}, {kept} kept", REPS)
+        del lanes, nmask, hashes, flags, ids, table
+        torch.cuda.empty_cache()
+
+
 def encode_tree(tree: str, src: str, encodes: int) -> None:
     """One warm-up and `encodes` timed SE compresses of src on the card."""
     import_from(tree)
@@ -226,7 +272,7 @@ def encode_ab(trees: list, pairs: int, reads: int, encodes: int) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
-    ap.add_argument("--what", choices=("kmer", "encode"), required=True)
+    ap.add_argument("--what", choices=("kmer", "sweep", "encode"), required=True)
     ap.add_argument("--pairs", type=int, default=5, help="encode: alternating pairs")
     ap.add_argument("--reads", type=int, default=2_000_000, help="encode: SE reads")
     ap.add_argument("--encodes", type=int, default=2, help="encode: timed encodes a process")
@@ -241,6 +287,8 @@ def main(argv=None) -> int:
     if args.one:
         if args.what == "kmer":
             kmer_tree(trees[0])
+        elif args.what == "sweep":
+            sweep_tree(trees[0])
         else:
             encode_tree(trees[0], args.src, args.encodes)
         return 0
@@ -249,7 +297,7 @@ def main(argv=None) -> int:
             ap.error("--what encode takes two trees")
         return encode_ab(trees, args.pairs, args.reads, args.encodes)
     for tree in trees:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--what", "kmer", "--one",
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--what", args.what, "--one",
                         tree], check=True)
     return 0
 

@@ -23,9 +23,12 @@ Phases, each printed with its times; the first failure exits nonzero:
      (sweep_init_links), D (sweep_roll_entries) and H (sweep_compact) at n
      2^18 rows, and D and H on their scan edge cases
      (m = 0, all active, one active entry at the last position, n off the
-     tile, a count scan past one 32-tile look-back window), G and G2 on
-     theirs (one row, rows off the block, one long run of equal keys),
-     each over 10 launches;
+     tile, a count scan past one 32-tile look-back window), H also at its
+     own tile (n on it and one off, a ragged last tile, each output base
+     residue mod 4, rows too wide for its tile), G and G2 on theirs
+     (one row, rows off the block, more tiles than resident blocks, L 37,
+     99 and 255, rows all N, one long run of equal keys), each over 10
+     launches;
   4. SE 200k (bench.py's headline input): compress through the port's CLI
      on the card, decode with the port's decoder, require an exact multiset
      round trip, every kernel launched, and bits/base <= 0.1412;
@@ -552,17 +555,17 @@ def check_compact(args, note, reps, timed=True):
                   OPS_SCAN * n, err=err)
 
 
-def sweep_table(dev, n, rng, act, n_frac=0.05, dup_frac=0.1):
-    """A sweep table of n random reads (a share duplicated, N in a share of
-    rows), random 64-bit hashes and active flags with probability act:
-    (lanes, nmask, ids, h, p, h2, p2, a_s, a_p)."""
+def sweep_table(dev, n, rng, act, n_frac=0.05, dup_frac=0.1, read_len=L):
+    """A sweep table of n random reads of read_len symbols (a share
+    duplicated, N in a share of rows), random 64-bit hashes and active flags
+    with probability act: (lanes, nmask, ids, h, p, h2, p2, a_s, a_p)."""
     from pgrc_tpu_torch import state
     from pgrc_tpu_torch.core import packed
 
-    codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
+    codes = rng.integers(0, 4, size=(n, read_len), dtype=np.uint8)
     dup = np.nonzero(rng.random(n) < dup_frac)[0]
     codes[dup] = codes[rng.integers(0, n, dup.size)]
-    codes[rng.random(n) < n_frac, rng.integers(0, L)] = 4
+    codes[rng.random(n) < n_frac, rng.integers(0, read_len)] = 4
     lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), dev)
     ids = torch.from_numpy(np.sort(rng.choice(3 * n, n, replace=False)).astype(np.int32)).to(dev)
     hs = [state.hashes_to_device(rng.integers(0, 2**64, n, dtype=np.uint64), dev)
@@ -593,14 +596,21 @@ def links_args(lanes, nmask):
 def sweep_edge_cases(dev) -> int:
     """Kernels D and H where a compacting count scan goes wrong (no active
     entry, all active, one active entry at the last position, a length off
-    the tile, more tiles than one 32-tile look-back window), and G and G2
-    at their edges (one row, rows off the block, L off the lane, one long
-    run of equal keys). Each case over CHECK_LAUNCHES launches bit-equal;
-    -> the number of cases."""
+    the tile, more tiles than one 32-tile look-back window), H also at its
+    own tile (n at the tile and one off, a ragged last tile under the
+    asynchronous copies, the rows kept before a tile at each residue mod 4,
+    where its 16-byte stores start their runs, with and without N, and rows
+    too wide for its tile, which it halves), and G and G2 at their edges
+    (one row, rows off the block, more tiles than the resident blocks take
+    in one pass, L off the byte and the lane, 17 lanes, rows all N, one
+    long run of equal keys). Each case over CHECK_LAUNCHES launches
+    bit-equal; -> the number of cases."""
     from pgrc_tpu_torch import kernels, state
     from pgrc_tpu_torch.core import packed
+    from pgrc_tpu_torch.kernels import sweep_compact
 
     T = kernels.scan_tile()
+    T_H = sweep_compact.tile()
     rng = np.random.default_rng(987)
     cases = []
     for label, n, act in (("m = 0", 3 * T + 5, 0.0), ("all active", 5 * T, 1.0),
@@ -615,19 +625,49 @@ def sweep_edge_cases(dev) -> int:
     check_roll(roll_args(table), "one active entry, the last", 0, timed=False)
     check_compact(table, "one kept row, the last", 0, timed=False)
     cases += ["D one active entry, the last", "H one kept row, the last"]
+    for label, n, n_frac in ((f"n = H's tile - 1 ({T_H - 1})", T_H - 1, 0.0),
+                             (f"n = H's tile ({T_H}), N", T_H, 0.05),
+                             (f"n = H's tile + 1 ({T_H + 1})", T_H + 1, 0.0),
+                             ("a ragged last tile (333 rows), N", 5 * T_H + 333, 0.05)):
+        check_compact(sweep_table(dev, n, rng, 0.5, n_frac=n_frac), label, 0, timed=False)
+        cases.append(f"H {label}")
+    for r in range(4):
+        table = sweep_table(dev, 3 * T_H + 5, rng, 0.45, n_frac=0.05 if r % 2 else 0.0)
+        keep = table[7] | table[8]
+        dropped = torch.nonzero(~keep[:T_H]).squeeze(1)
+        table[8][dropped[:(r - int(keep[:T_H].sum())) % 4]] = True
+        require(int((table[7] | table[8])[:T_H].sum()) % 4 == r, "H base residue not set")
+        label = f"output base {r} mod 4 from the second tile, N {table[1] is not None}"
+        check_compact(table, label, 0, timed=False)
+        cases.append(f"H {label}")
+    check_compact(sweep_table(dev, 3 * T_H + 7, rng, 0.6, read_len=496),
+                  "L 496 with N, 234-byte rows (the tile halved to fit)", 0, timed=False)
+    cases.append("H rows too wide for its tile")
     for label, n, n_frac in (("one row", 1, 0.0), ("rows off the block", 4096 + 77, 0.05)):
         table = sweep_table(dev, n, rng, 1.0, n_frac=n_frac)
         check_hashes((table[0], table[1], L, True), label, 0, timed=False)
         check_links(links_args(table[0], table[1]), label, 0, timed=False)
         cases += [f"G {label}", f"G2 {label}"]
+    table = sweep_table(dev, 400_003, rng, 1.0, n_frac=0.0, dup_frac=0.0)
+    check_hashes((table[0], None, L, True), "400,003 rows (blocks walk several tiles)", 0,
+                 timed=False)
+    cases.append("G more tiles than resident blocks")
     table = sweep_table(dev, 20_000, rng, 1.0, dup_frac=0.0)
     same = table[0][:1].expand(20_000, -1).contiguous()   # one read 20,000 times
     check_links(links_args(same, None), "one run of 20,000 equal keys", 0, timed=False)
     cases.append("G2 one run of equal keys")
-    codes = rng.integers(0, 5, size=(5000, 37), dtype=np.uint8)
+    for read_len, n_sym, with_key in ((37, 5, False), (99, 5, True), (99, 4, False),
+                                      (255, 5, True), (255, 4, False)):
+        codes = rng.integers(0, n_sym, size=(5000, read_len), dtype=np.uint8)
+        lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), dev)
+        label = f"L {read_len} ({lanes.shape[1]} lanes), N {nmask is not None}, key {with_key}"
+        check_hashes((lanes, nmask, read_len, with_key), label, 0, timed=False)
+        cases.append(f"G {label}")
+    codes = rng.integers(0, 5, size=(3000, L), dtype=np.uint8)
+    codes[::3] = 4                 # every third row all N
     lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), dev)
-    check_hashes((lanes, nmask, 37, False), "L 37", 0, timed=False)
-    cases.append("G L 37")
+    check_hashes((lanes, nmask, L, True), "rows all N", 0, timed=False)
+    cases.append("G rows all N")
     return len(cases)
 
 

@@ -39,7 +39,7 @@ SIGNATURES = {
     "pgrc_probe_kmer_hash": [_I, _P, _P, _I64, _I, _P, _I, _I, _I, _U32, _P],
     "pgrc_sweep_roll_entries": [_I, _P, _I64, _P, _I, _P, _I, _P, _P, _I, _I,
                                 _U64, _U64, _U64, _U64, _P, _P, _P, _P, _P, _P, _P, _I64],
-    "pgrc_sweep_full_hashes": [_I, _P, _I64, _P, _I, _P, _I, _I, _U64, _U64, _P, _P, _P],
+    "pgrc_sweep_full_hashes": [_I, _P, _I64, _P, _I, _P, _I, _I, _U64, _U64, _P, _P, _P, _P],
     "pgrc_sweep_init_links": [_I, _P, _I64, _P, _P, _P, _I, _P, _P, _P, _P],
     "pgrc_sweep_compact": [_I, _P, _I64, _P, _I, _P, _I] + [_P] * 16 + [_P, _I64],
     "pgrc_join_carry": [_I, _P, _I64, _P, _P, _P, _I, _P, _P, _I64],
@@ -50,6 +50,8 @@ SIGNATURES = {
 QUERIES = {
     "pgrc_seg_scan_tile": ([], _I64),
     "pgrc_seg_scan_scratch_words": ([_I64], _I64),
+    "pgrc_sweep_compact_scratch_words": ([_I64], _I64),
+    "pgrc_sweep_compact_tile": ([], _I64),
 }
 
 

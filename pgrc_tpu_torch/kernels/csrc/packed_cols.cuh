@@ -1,5 +1,5 @@
 // packed_cols.cuh — a read's symbols from the packed lanes, for the sweep's
-// kernels (G, sweep_init.cu; D, sweep_round.cu).
+// round (kernel D, sweep_round.cu).
 //
 // Layout (core/packed.py): symbol t of a row sits at bits 2 * (15 - t % 16)
 // of lane t / 16, N packed as A; the N mask holds bit 31 - t % 32 of lane
@@ -18,13 +18,6 @@ __device__ __forceinline__ uint64_t col_val(const uint32_t* __restrict__ lanes, 
   if (nmask != nullptr)
     c += (uint64_t)((nmask[r * ld_nmask + (t >> 5)] >> (31 - (t & 31))) & 1u) << 2;
   return c;
-}
-
-// The N bits of lane w's 16 symbols, symbol s at bit 15 - s (0 without N).
-__device__ __forceinline__ uint32_t lane_nbits(const uint32_t* __restrict__ nmask,
-                                               int ld_nmask, int64_t r, int w) {
-  if (nmask == nullptr) return 0;
-  return (nmask[r * ld_nmask + (w >> 1)] >> ((w & 1) ? 0 : 16)) & 0xFFFFu;
 }
 
 }  // namespace packed_cols

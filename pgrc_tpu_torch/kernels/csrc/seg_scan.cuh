@@ -36,6 +36,10 @@
 // encode's first join and first sweep round: 256 threads x 8 entries, in
 // shared memory, beat 8 entries in registers, 16 entries a thread, 1024-
 // and 4096-entry tiles, and a persistent double-buffered form (PERF.md).
+// E, F and D use it. H, whose tile stages ~70-90 bytes a row, has tiles of
+// its own size: the tile counts (tiles_for, scratch_words, zero_scratch)
+// take the tile, and thread_prefix the block's warps, with E's, F's and D's
+// geometry as the default.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -78,14 +82,17 @@ struct CountOp {
 constexpr int kAggWord = 2;
 constexpr int kIncWord = 4;
 
-__host__ __device__ inline int64_t tiles_for(int64_t m) { return (m + kTile - 1) / kTile; }
-__host__ __device__ inline int64_t scratch_words(int64_t m) {
-  return kHeadWords + kDescWords * tiles_for(m);
+__host__ __device__ inline int64_t tiles_for(int64_t m, int64_t tile = kTile) {
+  return (m + tile - 1) / tile;
+}
+__host__ __device__ inline int64_t scratch_words(int64_t m, int64_t tile = kTile) {
+  return kHeadWords + kDescWords * tiles_for(m, tile);
 }
 
-// Zero the scratch of a scan over m entries on `stream`.
-inline cudaError_t zero_scratch(void* scratch, int64_t m, cudaStream_t stream) {
-  return cudaMemsetAsync(scratch, 0, scratch_words(m) * sizeof(long long), stream);
+// Zero the scratch of a scan over m entries in tiles of `tile` on `stream`.
+inline cudaError_t zero_scratch(void* scratch, int64_t m, cudaStream_t stream,
+                               int64_t tile = kTile) {
+  return cudaMemsetAsync(scratch, 0, scratch_words(m, tile) * sizeof(long long), stream);
 }
 
 __device__ __forceinline__ State shfl_up(State v, int d) {
@@ -151,9 +158,32 @@ __device__ __forceinline__ void stage_tile(const long long* __restrict__ p, int6
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
+// Start copying `bytes` bytes from src (device memory) to dst (shared
+// memory, 16-byte aligned), the block's threads striped over them: cp.async
+// 16-byte chunks where src is 16-byte aligned, plain byte copies for the
+// ragged end (and for all of an unaligned src). Commits no group.
+__device__ __forceinline__ void copy_async(void* dst, const void* __restrict__ src, int bytes) {
+  char* d = static_cast<char*>(dst);
+  const char* s = static_cast<const char*>(src);
+  const int chunks = (reinterpret_cast<uintptr_t>(s) & 15) == 0 ? bytes >> 4 : 0;
+  for (int k = threadIdx.x; k < chunks; k += blockDim.x) cp_async16(d + 16 * k, s + 16 * k);
+  for (int i = 16 * chunks + threadIdx.x; i < bytes; i += blockDim.x) d[i] = s[i];
+}
+
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's latest copy groups are in
+// flight; the caller syncs the block before it reads what they staged.
+template <int pending>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(pending) : "memory");
+}
+
 // Wait for this block's staged copies; then every thread may read them.
 __device__ __forceinline__ void staged_wait() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  wait_copies<0>();
   __syncthreads();
 }
 
@@ -227,12 +257,14 @@ __device__ State look_back(long long* descs, int64_t tile, int lane) {
   }
 }
 
-// Called by every thread of the block with the aggregate of its kItems
-// entries: returns the thread's exclusive prefix in the device-wide scan.
-template <typename Op>
+// Called by every thread of the block (kBlockWarps warps) with the
+// aggregate of its entries: returns the thread's exclusive prefix in the
+// device-wide scan.
+template <typename Op, int kBlockWarps = kWarps>
 __device__ State thread_prefix(State agg, long long* scratch, int64_t tile) {
-  __shared__ State s_warp[kWarps];
-  __shared__ State s_pre[kWarps];
+  static_assert(kBlockWarps <= 32, "warp 0 scans one state a warp");
+  __shared__ State s_warp[kBlockWarps];
+  __shared__ State s_pre[kBlockWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const State inc = warp_scan<Op>(agg, lane);
   State excl = shfl_up(inc, 1);
@@ -240,8 +272,8 @@ __device__ State thread_prefix(State agg, long long* scratch, int64_t tile) {
   if (lane == 31) s_warp[warp] = inc;
   __syncthreads();
   if (warp == 0) {
-    const State w = warp_scan<Op>(lane < kWarps ? s_warp[lane] : Op::identity(), lane);
-    const State block = shfl(w, kWarps - 1);
+    const State w = warp_scan<Op>(lane < kBlockWarps ? s_warp[lane] : Op::identity(), lane);
+    const State block = shfl(w, kBlockWarps - 1);
     State wex = shfl_up(w, 1);
     if (lane == 0) wex = Op::identity();
     long long* descs = scratch + kHeadWords;
@@ -253,7 +285,7 @@ __device__ State thread_prefix(State agg, long long* scratch, int64_t tile) {
       pre = look_back<Op>(descs, tile, lane);
       if (lane == 0) publish(descs + tile * kDescWords, Op::combine(pre, block), 2);
     }
-    if (lane < kWarps) s_pre[lane] = Op::combine(pre, wex);
+    if (lane < kBlockWarps) s_pre[lane] = Op::combine(pre, wex);
   }
   __syncthreads();
   return Op::combine(s_pre[warp], excl);

@@ -18,14 +18,29 @@
 // takes the first k rows of each output.
 //
 // What bounds H on the card: memory, the flags of every row (2 B) and each
-// kept row's ~72 B (at L = 100) read once and written once. What the
-// design does about it: one pass — the keep flags of a thread's eight
-// consecutive rows go through seg_scan.cuh's count scan (one segment, the
-// warp-wide decoupled look-back; the state carries the kept count and the
-// two side counts packed in one word), each row's output slot goes to
-// shared memory, and the copies run striped over the tile so that
-// consecutive threads read consecutive words (a warp copies whole lane
-// rows, 32 / ld of them a pass).
+// kept row's ~70 B (at L = 100 without N; ~90 B with N) read once and
+// written once. The design:
+// - Loads before the look-back. A block takes a tile of kItems * threads
+//   consecutive rows and, first thing, starts cp.async copies of the tile's
+//   slice of every per-row array into shared memory: the flags in one copy
+//   group, the rest (lanes, N mask, ids, the four hashes) in a second. It
+//   waits for the flags alone, scans them (seg_scan.cuh's count scan with
+//   its warp-wide look-back: thread t's kItems consecutive rows, each flag
+//   array read as one 8-byte word), and the row bytes arrive meanwhile.
+// - Writes from shared memory. The tile's kept rows land in one contiguous
+//   output run per array, rows base .. base + cnt, where base is the count
+//   kept before the tile and can take any value. Each array's run is
+//   written as 32-bit words, consecutive threads on consecutive words, in
+//   16-byte stores between a head and a tail of single words that reach and
+//   leave 16-byte alignment (int32 runs start at any residue of base mod 4,
+//   int64 runs at any residue mod 2, lane rows anywhere); each word comes
+//   from its row's staged copy through the tile's list of kept rows. The
+//   flags go out a byte a thread (2 of a row's ~70 bytes).
+// - The tile: a tile of 70-90 B rows fills shared memory fast (2048 rows:
+//   140-180 KB, one block an SM), so H has its own tile, kTile = 1024 rows
+//   (timed on an H100 against 512 and 2048 at SE 2M's first compaction,
+//   PERF.md), halved to 512 for rows too wide for a block's shared memory
+//   (long reads with N).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -35,97 +50,175 @@ namespace {
 
 using seg_scan::State;
 
-// Copy the words of the tile's kept rows of a row-major [n, ld] int32
-// matrix (ld <= 32: at most 17 lane words at L <= 255): a warp copies
-// 32 / ld whole rows a pass, lane l word l mod ld, so a pass reads one
-// contiguous run of the source and no index is divided in the loop.
-__device__ __forceinline__ void copy_rows(const int32_t* __restrict__ src,
-                                          int32_t* __restrict__ dst, int ld, int64_t first,
-                                          long long base, const int* s_slot) {
-  const int lane = threadIdx.x & 31, per = 32 / ld;
-  const int sub = lane / ld, w = lane - sub * ld;
-  if (sub >= per) return;
-  for (int row = (threadIdx.x >> 5) * per + sub; row < seg_scan::kTile;
-       row += seg_scan::kWarps * per) {
-    const int d = s_slot[row];
-    if (d >= 0) dst[(base + d) * ld + w] = src[(first + row) * ld + w];
-  }
+constexpr int kItems = 8;        // rows a thread scans: one 8-byte word of each flag array
+constexpr int kTile = 1024;      // rows a block
+constexpr int kMinTile = 512;    // for wide rows; the wrapper sizes the scratch for it
+constexpr int kArrays = 9;       // lanes, nmask, ids, h, p, h2, p2, a_s, a_p (the ABI's order)
+constexpr int kLanes = 0, kNmask = 1, kIds = 2, kHash = 3, kAs = 7, kAp = 8;
+
+struct Arrays {
+  const void* in[kArrays];   // nmask may be null
+  void* out[kArrays];
+};
+
+// Bytes a row of each array.
+__host__ __device__ inline int row_bytes(int a, int ld_lanes, int ld_nmask) {
+  return a == kLanes ? 4 * ld_lanes : a == kNmask ? 4 * ld_nmask : a == kIds ? 4 : a < kAs ? 8 : 1;
 }
 
-__global__ void __launch_bounds__(seg_scan::kThreads, seg_scan::kMinBlocks)
-sweep_compact_kernel(int64_t n, const int32_t* __restrict__ lanes, int ld_lanes,
-                     const int32_t* __restrict__ nmask, int ld_nmask,
-                     const int32_t* __restrict__ ids, const long long* __restrict__ h,
-                     const long long* __restrict__ p, const long long* __restrict__ h2,
-                     const long long* __restrict__ p2, const bool* __restrict__ a_s,
-                     const bool* __restrict__ a_p, int32_t* __restrict__ o_lanes,
-                     int32_t* __restrict__ o_nmask, int32_t* __restrict__ o_ids,
-                     long long* __restrict__ o_h, long long* __restrict__ o_p,
-                     long long* __restrict__ o_h2, long long* __restrict__ o_p2,
-                     bool* __restrict__ o_as, bool* __restrict__ o_ap, long long* scratch) {
-  using namespace seg_scan;
-  __shared__ int s_slot[kTile];   // the row's output slot in the tile's run, or -1
-  __shared__ long long s_base;
-  const int64_t tile = next_tile(scratch);
-  const int64_t first = tile * kTile;
-  const int mine = threadIdx.x * kItems;
+// Shared memory of a tile: each array's staged rows (16-byte aligned, as
+// tile is a multiple of 16), then the list of the tile's kept rows.
+__host__ __device__ inline int tile_smem(int tile, int ld_lanes, int ld_nmask, bool has_nmask) {
+  int bytes = 2 * tile;
+  for (int a = 0; a < kArrays; ++a)
+    if (a != kNmask || has_nmask) bytes += tile * row_bytes(a, ld_lanes, ld_nmask);
+  return bytes;
+}
 
-  // keep flags of the thread's kItems consecutive rows; State: (kept,
-  // active suffixes + active prefixes << 32), each below 2^30
-  unsigned keep = 0;
-  long long suf = 0, pref = 0;
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t r = first + mine + j;
-    if (r < n) {
-      const bool s = a_s[r], pr = a_p[r];
-      keep |= (unsigned)(s | pr) << j;
-      suf += s;
-      pref += pr;
-    }
+// Write the tile's kept rows of a staged array of w 32-bit words a row (kW
+// when it is known here, else w >= 2 and magic = ceil(2^32 / w)) to the
+// output rows base .. base + cnt: consecutive threads on consecutive words,
+// 16-byte stores between a head and a tail of single words. src[d] is the
+// staged row of the tile's d-th kept row.
+template <int kW>
+__device__ __forceinline__ void write_words(uint32_t* __restrict__ out, const uint32_t* s, int w,
+                                            uint32_t magic, long long base, int cnt,
+                                            const short* src) {
+  if (kW) w = kW;
+  const long long o0 = base * w;
+  uint32_t* dst = out + o0;
+  const int total = cnt * w;
+  const int head = min(total, (int)((4 - (o0 & 3)) & 3));
+  const auto word = [&](int x) -> uint32_t {
+    const int q = kW == 1 ? x : kW == 2 ? x >> 1 : (int)__umulhi((unsigned)x, magic);
+    return s[src[q] * w + (x - q * w)];
+  };
+  for (int x = threadIdx.x; x < head; x += blockDim.x) dst[x] = word(x);
+  const int body = (total - head) >> 2;
+  for (int g = threadIdx.x; g < body; g += blockDim.x) {
+    const int x = head + 4 * g;
+    *reinterpret_cast<uint4*>(dst + x) = make_uint4(word(x), word(x + 1), word(x + 2), word(x + 3));
   }
-  const long long cnt = __popc(keep);
-  const State pre = thread_prefix<CountOp>({cnt, suf + (pref << 32)}, scratch, tile);
+  for (int x = head + 4 * body + threadIdx.x; x < total; x += blockDim.x) dst[x] = word(x);
+}
+
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+sweep_compact_kernel(int64_t n, Arrays arr, int ld_lanes, int ld_nmask, long long* scratch) {
+  constexpr int kRows = kThreads * kItems;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ long long s_base;
+  __shared__ int s_cnt;
+  const int64_t tile = seg_scan::next_tile(scratch);
+  const int64_t first = tile * kRows;
+  const int rows = (int)min((int64_t)kRows, n - first);
+
+  // start the tile's copies: the flags (group 1), then the rows (group 2)
+  unsigned char* staged[kArrays];
+  int off = 0;
+#pragma unroll
+  for (int a = 0; a < kArrays; ++a) {
+    staged[a] = smem + off;
+    if (a != kNmask || arr.in[kNmask] != nullptr) off += kRows * row_bytes(a, ld_lanes, ld_nmask);
+  }
+  short* src = reinterpret_cast<short*>(smem + off);
+#pragma unroll
+  for (int a = kAs; a <= kAp; ++a)
+    seg_scan::copy_async(staged[a], static_cast<const char*>(arr.in[a]) + first, rows);
+  seg_scan::commit_copies();
+#pragma unroll
+  for (int a = kLanes; a < kAs; ++a) {
+    if (arr.in[a] == nullptr) continue;
+    const int rb = row_bytes(a, ld_lanes, ld_nmask);
+    seg_scan::copy_async(staged[a], static_cast<const char*>(arr.in[a]) + first * rb, rows * rb);
+  }
+  seg_scan::commit_copies();
+  seg_scan::wait_copies<1>();
+  __syncthreads();
+
+  // the keep flags of the thread's kItems consecutive rows, a byte each
+  // (bool: 0 or 1), past the table's end masked off; State: (kept, active
+  // suffixes + active prefixes << 32), each below 2^30
+  // (the mask is built a byte at a time: a shift by 8 * the valid count,
+  // with its end cases, gave all ones for 0 or 1 valid rows on an H100)
+  const int mine = threadIdx.x * kItems;
+  unsigned long long live = 0;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j)
+    if (mine + j < rows) live |= 0xFFull << (8 * j);
+  const auto flags = [&](int a) {
+    return *reinterpret_cast<const unsigned long long*>(staged[a] + mine) & live;
+  };
+  const unsigned long long fs = flags(kAs), fp = flags(kAp);
+  const unsigned long long keep = fs | fp;
+  const long long cnt = __popcll(keep), suf = __popcll(fs), pref = __popcll(fp);
+  const State pre = seg_scan::thread_prefix<seg_scan::CountOp, kThreads / 32>(
+      {cnt, suf + (pref << 32)}, scratch, tile);
   if (threadIdx.x == 0) s_base = pre.a;
   __syncthreads();
   int slot = (int)(pre.a - s_base);
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) s_slot[mine + j] = (keep >> j) & 1 ? slot++ : -1;
-  if (threadIdx.x == kThreads - 1 && tile == tiles_for(n) - 1) {
-    const long long sides = pre.b + suf + (pref << 32);
-    scratch[kTotalsWord] = pre.a + cnt;
-    scratch[kTotalsWord + 1] = sides & 0xFFFFFFFFll;
-    scratch[kTotalsWord + 2] = sides >> 32;
-  }
-  __syncthreads();
-  const long long base = s_base;
-
-  // the kept rows, striped
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int idx = k * kThreads + threadIdx.x;
-    const int d = s_slot[idx];
-    if (d >= 0) {
-      const int64_t r = first + idx, o = base + d;
-      o_ids[o] = ids[r];
-      o_h[o] = h[r];
-      o_p[o] = p[r];
-      o_h2[o] = h2[r];
-      o_p2[o] = p2[r];
-      o_as[o] = a_s[r];
-      o_ap[o] = a_p[r];
+  for (int j = 0; j < kItems; ++j)
+    if ((keep >> (8 * j)) & 1) src[slot++] = (short)(mine + j);
+  if (threadIdx.x == kThreads - 1) {
+    s_cnt = slot;
+    if (tile == seg_scan::tiles_for(n, kRows) - 1) {
+      const long long sides = pre.b + suf + (pref << 32);
+      scratch[seg_scan::kTotalsWord] = pre.a + cnt;
+      scratch[seg_scan::kTotalsWord + 1] = sides & 0xFFFFFFFFll;
+      scratch[seg_scan::kTotalsWord + 2] = sides >> 32;
     }
   }
-  copy_rows(lanes, o_lanes, ld_lanes, first, base, s_slot);
-  if (nmask != nullptr) copy_rows(nmask, o_nmask, ld_nmask, first, base, s_slot);
+  seg_scan::wait_copies<0>();
+  __syncthreads();
+
+  // the kept rows, from shared memory, one contiguous run per array
+  const long long base = s_base;
+  const int kept = s_cnt;
+  const auto words = [&](int a) { return reinterpret_cast<const uint32_t*>(staged[a]); };
+  const auto out = [&](int a) { return static_cast<uint32_t*>(arr.out[a]); };
+  write_words<0>(out(kLanes), words(kLanes), ld_lanes,
+                 (uint32_t)(0xFFFFFFFFull / ld_lanes + 1), base, kept, src);
+  if (arr.in[kNmask] != nullptr)
+    write_words<0>(out(kNmask), words(kNmask), ld_nmask,
+                   (uint32_t)(0xFFFFFFFFull / ld_nmask + 1), base, kept, src);
+  write_words<1>(out(kIds), words(kIds), 1, 0, base, kept, src);
+#pragma unroll
+  for (int a = kHash; a < kAs; ++a) write_words<2>(out(a), words(a), 2, 0, base, kept, src);
+#pragma unroll
+  for (int a = kAs; a <= kAp; ++a) {
+    unsigned char* o = static_cast<unsigned char*>(arr.out[a]) + base;
+    for (int d = threadIdx.x; d < kept; d += kThreads) o[d] = staged[a][src[d]];
+  }
+}
+
+template <int kThreads>
+cudaError_t launch(int64_t n, const Arrays& arr, int ld_lanes, int ld_nmask, int smem,
+                   long long* scratch, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(sweep_compact_kernel<kThreads>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  sweep_compact_kernel<kThreads>
+      <<<(unsigned)seg_scan::tiles_for(n, kThreads * kItems), kThreads, smem, s>>>(
+          n, arr, ld_lanes, ld_nmask, scratch);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// int64 scratch words the wrapper allocates for a compaction of n rows (at
+// the smaller tile, so either tile fits).
+extern "C" int64_t pgrc_sweep_compact_scratch_words(int64_t n) {
+  return seg_scan::scratch_words(n, kMinTile);
+}
+
+// Rows a tile (of rows that fit; chip_smoke.py sizes H's edge cases by it).
+extern "C" int64_t pgrc_sweep_compact_tile() { return kTile; }
+
 // Inputs [n] (lanes [n, ld_lanes], nmask [n, ld_nmask] or null), outputs of
-// the same shapes; scratch: seg_scan::scratch_words(n) int64 words, zeroed
-// here; the totals (kept, active suffixes, active prefixes) land in
-// scratch[kTotalsWord ..].
+// the same shapes (16-byte aligned, as torch allocates them); scratch:
+// pgrc_sweep_compact_scratch_words(n) int64 words, zeroed here; the totals
+// (kept, active suffixes, active prefixes) land in scratch[kTotalsWord ..].
 extern "C" int pgrc_sweep_compact(int device, void* stream, int64_t n, const void* lanes,
                                   int ld_lanes, const void* nmask, int ld_nmask, const void* ids,
                                   const void* h, const void* p, const void* h2, const void* p2,
@@ -135,16 +228,23 @@ extern "C" int pgrc_sweep_compact(int device, void* stream, int64_t n, const voi
                                   int64_t scratch_words) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (scratch_words < seg_scan::scratch_words(n) || ld_lanes > 32 || ld_nmask > 32)
+  if (scratch_words < seg_scan::scratch_words(n, kMinTile) || ld_lanes < 2 || ld_lanes > 32 ||
+      (nmask != nullptr && (ld_nmask < 2 || ld_nmask > 32)))
     return (int)cudaErrorInvalidValue;
+  int smem_max = 0;
+  err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  // the static shared memory of the scan and the tile's counters, with room
+  const int reserve = 1024;
+  const bool fits = tile_smem(kTile, ld_lanes, ld_nmask, nmask != nullptr) + reserve <= smem_max;
+  const int tile = fits ? kTile : kMinTile;
+  const int smem = tile_smem(tile, ld_lanes, ld_nmask, nmask != nullptr);
   cudaStream_t s = (cudaStream_t)stream;
-  err = seg_scan::zero_scratch(scratch, n, s);
+  err = seg_scan::zero_scratch(scratch, n, s, tile);
   if (err != cudaSuccess || n == 0) return (int)err;
-  sweep_compact_kernel<<<(unsigned)seg_scan::tiles_for(n), seg_scan::kThreads, 0, s>>>(
-      n, (const int32_t*)lanes, ld_lanes, (const int32_t*)nmask, ld_nmask,
-      (const int32_t*)ids, (const long long*)h, (const long long*)p, (const long long*)h2,
-      (const long long*)p2, (const bool*)a_s, (const bool*)a_p, (int32_t*)o_lanes,
-      (int32_t*)o_nmask, (int32_t*)o_ids, (long long*)o_h, (long long*)o_p, (long long*)o_h2,
-      (long long*)o_p2, (bool*)o_as, (bool*)o_ap, (long long*)scratch);
-  return (int)cudaGetLastError();
+  const Arrays arr = {{lanes, nmask, ids, h, p, h2, p2, a_s, a_p},
+                      {o_lanes, o_nmask, o_ids, o_h, o_p, o_h2, o_p2, o_as, o_ap}};
+  long long* sc = (long long*)scratch;
+  if (fits) return (int)launch<kTile / kItems>(n, arr, ld_lanes, ld_nmask, smem, sc, s);
+  return (int)launch<kMinTile / kItems>(n, arr, ld_lanes, ld_nmask, smem, sc, s);
 }

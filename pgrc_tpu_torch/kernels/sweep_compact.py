@@ -6,7 +6,13 @@ from __future__ import annotations
 
 import torch
 
-from . import TOTALS_WORD, check, launch, launches, on_cpu, ptr, scan_scratch
+from . import TOTALS_WORD, build, check, launch, launches, on_cpu, ptr
+
+
+def tile() -> int:
+    """Rows a tile of kernel H (csrc/sweep_compact.cu; half that for rows
+    too wide for a block's shared memory), through the kernel library."""
+    return build.lib().pgrc_sweep_compact_tile()
 
 
 def sweep_compact_plain(lanes, nmask, ids, h, p, h2, p2, a_s, a_p):
@@ -51,7 +57,8 @@ def sweep_compact(lanes: torch.Tensor, nmask: torch.Tensor | None, ids: torch.Te
     dev = ids.device
     ins = (lanes, nmask, ids, h, p, h2, p2, a_s, a_p)
     outs = tuple(None if v is None else torch.empty_like(v) for v in ins)
-    scratch = scan_scratch(n, dev)
+    scratch = torch.empty((build.lib().pgrc_sweep_compact_scratch_words(n),),
+                          dtype=torch.int64, device=dev)
     launch("pgrc_sweep_compact", dev, n, ptr(lanes), lanes.shape[1], ptr(nmask),
            0 if nmask is None else nmask.shape[1], *(ptr(v) for v in ins[2:]),
            *(ptr(v) for v in outs), ptr(scratch), scratch.numel())

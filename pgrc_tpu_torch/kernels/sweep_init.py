@@ -13,6 +13,33 @@ from ..utils.uint import SIGN64, s64
 from . import check, launch, launches, on_cpu, ptr
 
 _A, _B = int(HASH_BASE64), int(HASH_BASE64B)
+_U64 = (1 << 64) - 1
+_tables: dict = {}
+
+
+def chunk_tables(base: int):
+    """Kernel G's chunked Horner tables for one hash base X, mod 2^64: T[byte]
+    = sum_i code_i X^(3-i), code_i the byte's bits 7-2i..6-2i (its four
+    symbols, the first in the top bits), and TN[nib] = sum_i 4 bit_i
+    X^(3-i), bit_i the nibble's bit 3-i (the four symbols' N bits). Per byte
+    of lane bits, h * X^4 + T[byte] + TN[nib] is four steps of h * X + v.
+    -> (T, TN): 256 and 16 Python ints."""
+    powers = [pow(base, 3 - i, 1 << 64) for i in range(4)]
+    t = [sum(((b >> (6 - 2 * i)) & 3) * powers[i] for i in range(4)) & _U64 for b in range(256)]
+    tn = [sum(4 * ((b >> (3 - i)) & 1) * powers[i] for i in range(4)) & _U64 for b in range(16)]
+    return t, tn
+
+
+def table_tensor(device) -> torch.Tensor:
+    """G's tables as the kernel reads them, int64 [272, 2]: rows 0-255 the
+    byte table, rows 256-271 the N-nibble table, column 0 for HASH_BASE64
+    and 1 for HASH_BASE64B (u64 bit patterns). Built once per device."""
+    device = torch.device(device)
+    if device not in _tables:
+        (ta, tna), (tb, tnb) = chunk_tables(_A), chunk_tables(_B)
+        _tables[device] = torch.tensor([[s64(a), s64(b)] for a, b in zip(ta + tna, tb + tnb)],
+                                       dtype=torch.int64, device=device)
+    return _tables[device]
 
 
 def sweep_full_hashes_plain(lanes, nmask, L: int, with_key: bool = False):
@@ -48,7 +75,8 @@ def sweep_full_hashes(lanes: torch.Tensor, nmask: torch.Tensor | None, L: int,
     h0b = torch.empty_like(h0)
     key = torch.empty_like(h0) if with_key else None
     launch("pgrc_sweep_full_hashes", dev, n, ptr(lanes), lanes.shape[1], ptr(nmask),
-           0 if nmask is None else nmask.shape[1], L, _A, _B, ptr(h0), ptr(h0b), ptr(key))
+           0 if nmask is None else nmask.shape[1], L, _A, _B, ptr(table_tensor(dev)), ptr(h0),
+           ptr(h0b), ptr(key))
     launches["sweep_full_hashes"] += 1
     return (h0, h0b, key) if with_key else (h0, h0b)
 

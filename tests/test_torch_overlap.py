@@ -150,23 +150,126 @@ def test_full_hashes_at_any_read_length(L_, with_n):
         np.testing.assert_array_equal(uint.tensor_to_np_u64(g), w)
 
 
-@pytest.mark.parametrize("kind", ["random", "none kept", "all kept", "random, N"])
+def chunked_hashes(lanes, nmask, L: int):
+    """Kernel G's loop (csrc/sweep_init.cu) in torch, on the tables it reads
+    (`sweep_init.table_tensor`): per lane word, four bytes of h = h * X^4 +
+    T[byte] + TN[nibble], and the read's last word byte by byte, then symbol
+    by symbol. -> (h0, h0b, key) [n] int64."""
+    tab = sweep_init.table_tensor("cpu")
+    A, B = int(ref.HASH_BASE64), int(ref.HASH_BASE64B)
+    a4, b4 = (uint.s64(pow(x, 4, 1 << 64)) for x in (A, B))
+    n = lanes.shape[0]
+    ha = torch.zeros((n,), dtype=torch.int64)
+    hb = torch.zeros_like(ha)
+    for w in range(-(-L // 16)):
+        word = lanes[:, w]
+        nb = (torch.zeros_like(word) if nmask is None
+              else (nmask[:, w // 2] >> (0 if w % 2 else 16)) & 0xFFFF)
+        syms = min(16, L - 16 * w)
+        for j in range(syms // 4):
+            e = tab[((word >> (24 - 8 * j)) & 0xFF).long()]
+            ha, hb = ha * a4 + e[:, 0], hb * b4 + e[:, 1]
+            if nmask is not None:
+                f = tab[256 + ((nb >> (12 - 4 * j)) & 0xF).long()]
+                ha, hb = ha + f[:, 0], hb + f[:, 1]
+        for s_ in range(syms & ~3, syms):
+            v = (((word >> (30 - 2 * s_)) & 3) + (((nb >> (15 - s_)) & 1) << 2)).long()
+            ha, hb = ha * uint.s64(A) + v, hb * uint.s64(B) + v
+    return ha, hb, torch.where(ha == -1, -2, ha) ^ uint.SIGN64
+
+
+@pytest.mark.parametrize("base", ["A", "B"])
+def test_chunk_tables_are_four_horner_steps(base):
+    """Each byte's entry is four steps h * X + code from h = 0, and each
+    nibble's four steps of h * X + 4 * bit: kernel G's tables, as uploaded."""
+    x = int(ref.HASH_BASE64 if base == "A" else ref.HASH_BASE64B)
+    col = sweep_init.table_tensor("cpu")[:, "AB".index(base)]
+    t, tn = sweep_init.chunk_tables(x)
+
+    def horner(vals):
+        h = 0
+        for v in vals:
+            h = (h * x + v) % (1 << 64)
+        return h
+
+    assert t == [horner([(b >> (6 - 2 * i)) & 3 for i in range(4)]) for b in range(256)]
+    assert tn == [horner([4 * ((b >> (3 - i)) & 1) for i in range(4)]) for b in range(16)]
+    assert uint.tensor_to_np_u64(col).tolist() == t + tn
+
+
+@pytest.mark.parametrize("L_", [1, 3, 4, 16, 17, 37, 99, 100, 255])
+@pytest.mark.parametrize("with_n", [False, True])
+def test_chunked_hashes_match_plain_and_hash_fn(L_, with_n):
+    """Kernel G's chunked Horner (its loop in torch, on its tables) against
+    G's plain version and the reference's `_build_hash_fn`, at read lengths
+    on and off the byte and the lane; with N, one row is all N."""
+    n = 256
+    rng = np.random.default_rng(100 + L_)
+    codes = rng.integers(0, 4, size=(n, L_), dtype=np.uint8)
+    if with_n:
+        codes[rng.random((n, L_)) < 0.05] = 4
+        codes[7] = 4
+    lanes, nmask = ref_packed.pack_lanes(codes)
+    nm = nmask if with_n else np.zeros((n, 1), np.uint32)
+    want = [np.asarray(x) for x in ref._build_hash_fn(n, L_, with_n)(lanes, nm)]
+    lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
+    got = chunked_hashes(lt, nt, L_)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(uint.tensor_to_np_u64(g), w)
+    for g, p in zip(got, sweep_init.sweep_full_hashes_plain(lt, nt, L_, with_key=True)):
+        assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("with_n", [False, True])
+def test_chunked_key_matches_init_fn(with_n):
+    """Kernel G's chunked Horner and its order key against the reference's
+    `_build_init_fn` (K1): h0, h0b and min(h0, INV64 - 1) in unsigned order."""
+    n = 384
+    codes = init_codes(n, with_n, 40 + with_n)
+    lanes, nmask = ref_packed.pack_lanes(codes)
+    nm = nmask if with_n else np.zeros((n, 1), np.uint32)
+    want = [np.asarray(x) for x in ref._build_init_fn(n, L, with_n)(lanes, nm, np.int32(n))]
+    lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
+    h0, h0b, key = chunked_hashes(lt, nt, L)
+    np.testing.assert_array_equal(uint.tensor_to_np_u64(h0), want[0])
+    np.testing.assert_array_equal(uint.tensor_to_np_u64(h0b), want[1])
+    np.testing.assert_array_equal(uint.tensor_to_np_u64(uint.from_order_key64(key)),
+                                  np.minimum(want[0], np.uint64(2**64 - 2)))
+
+
+T_H = 1024   # rows a tile of kernel H (csrc/sweep_compact.cu kTile)
+# kind -> (rows, keep probability a side, N, kept rows of the first tile mod 4)
+COMPACT_CASES = {
+    "random": (3072, 0.3, False, None), "none kept": (3072, 0.0, False, None),
+    "all kept": (3072, 1.0, False, None), "random, N": (3072, 0.3, True, None),
+    "tile - 1": (T_H - 1, 0.3, False, None), "tile": (T_H, 0.3, False, None),
+    "tile + 1": (T_H + 1, 0.3, True, None),
+    "base 1 mod 4": (2 * T_H + 37, 0.3, False, 1), "base 2 mod 4": (2 * T_H + 37, 0.3, False, 2),
+    "base 3 mod 4": (2 * T_H + 37, 0.3, True, 3),
+}
+
+
+@pytest.mark.parametrize("kind", list(COMPACT_CASES))
 def test_sweep_compact_matches_compact_fn(kind):
     """K3: kernel H's plain version against the reference's
     `_build_compact_fn` on a random table: the kept rows in the same order,
-    every array, and the three counts the segment end reads."""
-    n = 3072
-    rng = np.random.default_rng(["random", "none kept", "all kept", "random, N"].index(kind))
-    with_n = kind.endswith("N")
+    every array, and the three counts the segment end reads; at H's tile
+    size (n off and on it) and with the rows kept before the second tile at
+    each residue mod 4 (where H's 16-byte stores start their runs)."""
+    n, act, with_n, residue = COMPACT_CASES[kind]
+    rng = np.random.default_rng(list(COMPACT_CASES).index(kind))
     codes = init_codes(n, with_n, 30)
     lanes, nmask = ref_packed.pack_lanes(codes)
     nm = nmask if with_n else np.zeros((n, 1), np.uint32)
     ids = np.sort(rng.choice(10 * n, n, replace=False)).astype(np.int32)
     hs = [rng.integers(0, 2**64, n, dtype=np.uint64) for _ in range(4)]
-    act = {"none kept": 0.0, "all kept": 1.0}.get(kind, 0.3)
     a_s, a_p = rng.random(n) < act, rng.random(n) < act
     if kind == "all kept":
         a_s[::2] = False        # every row kept by one side or the other
+    if residue is not None:     # keep rows of the first tile until its count fits
+        dropped = np.nonzero(~(a_s | a_p)[:T_H])[0]
+        a_p[dropped[:(residue - int((a_s | a_p)[:T_H].sum())) % 4]] = True
+        assert int((a_s | a_p)[:T_H].sum()) % 4 == residue
     succ_l, ovl_l = np.full(n, -1, np.int32), np.zeros(n, np.int32)
     want = [np.asarray(x) for x in ref._build_compact_fn(n, n, L, with_n)(
         lanes, nm, ids, *hs, a_s, a_p, succ_l, ovl_l)][:9]
