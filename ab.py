@@ -5,6 +5,7 @@ that tree's kernels).
 
     python3 ab.py --what kmer TREE [TREE ...]
     python3 ab.py --what sweep TREE [TREE ...]
+    python3 ab.py --what verify TREE [TREE ...]
     python3 ab.py --what encode [--pairs 5] [--reads 2000000] [--encodes 2] TREE_A TREE_B
 
 Each TREE is the root of a checkout. Without a CUDA card it exits 2.
@@ -28,16 +29,35 @@ and maximum from the card on every call. Prints one `[ab]` line per kernel
 and tree: the time, the bound (chip_smoke.bound over the bytes that tree's
 kernel moves) and the share.
 
---what sweep: kernels G (sweep_full_hashes) and H (sweep_compact) the same
-way, one process per TREE, with chip_smoke.py's `check_hashes` and
-`check_compact` (10 launches bit-equal to the tree's plain version, then
-the device time beside the plain version's and chip_smoke's bound), on
-random tables made on the card:
+--what sweep: kernels G (sweep_full_hashes), G2 (sweep_init_links) and H
+(sweep_compact) the same way, one process per TREE, with chip_smoke.py's
+`check_hashes` and `check_compact` (10 launches bit-equal to the tree's
+plain version, then the device time beside the plain version's and
+chip_smoke's bound), on random tables made on the card:
   G in its init form (with the key) at SE 2M's first init, 1,760,000 rows
-    of L 100 without N, and at 2^18 rows with N;
+    of L 100 without N, a share SE2M_DUP of them copies of other rows, and
+    at 2^18 rows with N;
+  G2 on G's key of those rows, sorted stably (as the init does), as the
+    init calls it (the rows' unlinked state and the links) and, in a tree
+    with G2's fill kernel (`link_defaults`), kernel G2 alone patching a
+    filled state; and G + G2;
   H at SE 2M's first compaction, 1,760,000 rows of L 100 without N, 81%
     kept, and at 2^18 rows with N, 58% kept (chip_smoke's 2^18 table).
 The `[kernel]` lines name the tree.
+
+--what verify: kernel A (verify_best) the same way, on random pg lanes and
+read lanes made on the card and anchors made by chip_smoke's `anchors`
+(a share of the slots in range, the rest without an anchor, before the pg
+or past its last start), at VERIFY_SHAPES: chip_smoke's synthetic rows (R
+2^18, S 23, n_verify 6 and 1, a 5M-symbol pg, 70% in range), its int64
+rows (R 2^18, S 21, a 2.3G-symbol pg, starts from 2^31) and SE 2M's first
+probe (its R, S, pg length and share of slots in range, 18.3%, from a
+chip_smoke.py run on an H100). A tree
+whose A takes the anchors (`verify.probe_starts_plain` exists) is timed
+as the matcher calls it; a tree whose A takes starts and a mask is timed
+with the probe's epilogue before it (matcher.py's anchors-to-starts
+lines, ~8 elementwise launches) and alone. Each against the plain
+composition (the epilogue, then the tree's `verify_best_plain`), bit-equal.
 
 --what encode: SE encode walls of two trees in alternating pairs. The input
 is bench.py's SE 2M file (`synth_fastq(src, 2_000_000, 100, 5_000_000,
@@ -82,6 +102,18 @@ SE2M_ROWS = 1_760_000
 SWEEP_SHAPES = (
     ("SE 2M's first init / compaction shape", SE2M_ROWS, False, 1 - 0.19 ** 0.5),
     ("2^18 rows with N", 1 << 18, True, 0.35),
+)
+# the share of SE 2M's first-init rows made copies of other rows for G2,
+# so that its share of tied positions is about SE 2M's (chip_smoke.py
+# prints it)
+SE2M_DUP = 0.039
+# (label, pg symbols, rows, probe k, n_verify, wide, first start, share of
+# slots in range) of --what verify
+VERIFY_SHAPES = (
+    ("chip_smoke's synthetic rows", 5_000_000, 1 << 18, 32, 6, False, 0, 0.7),
+    ("chip_smoke's synthetic rows, n_verify 1", 5_000_000, 1 << 18, 32, 1, False, 0, 0.7),
+    ("chip_smoke's int64 rows", 2_300_000_003, 1 << 18, 40, 6, True, 1 << 31, 0.7),
+    ("SE 2M's first probe", 10_781_184, 1_690_146, 32, 6, False, 0, 0.183),
 )
 
 
@@ -190,11 +222,18 @@ def sweep_tree(tree: str) -> None:
     gen = torch.Generator(device=dev).manual_seed(7)
     words = lambda n, w: torch.randint(-(1 << 31), (1 << 31) - 1, (n, w), dtype=torch.int32,
                                        device=dev, generator=gen)
+    from pgrc_tpu_torch.kernels import sweep_init as ki
+
     for label, n, with_n, act in SWEEP_SHAPES:
         lanes = words(n, (L + 15) // 16 + 1)
+        if not with_n:
+            dup = torch.nonzero(torch.rand((n,), device=dev, generator=gen) < SE2M_DUP)[:, 0]
+            lanes[dup] = lanes[torch.randint(0, n, (dup.numel(),), device=dev, generator=gen)]
         nmask = words(n, (L + 31) // 32 + 1) if with_n else None
         cs.check_hashes((lanes, nmask, L, True), f"{tree}: {label}, n={n} N={with_n} key=True",
                         REPS)
+        if not with_n:
+            links_tree(tree, cs, ki, lanes, f"{label}, n={n}")
         hashes = [torch.randint(-(1 << 63), (1 << 63) - 1, (n,), dtype=torch.int64, device=dev,
                                 generator=gen) for _ in range(4)]
         flags = [torch.rand((n,), device=dev, generator=gen) < act for _ in range(2)]
@@ -203,6 +242,108 @@ def sweep_tree(tree: str) -> None:
         kept = int((flags[0] | flags[1]).sum())
         cs.check_compact(table, f"{tree}: {label}, n={n} N={with_n}, {kept} kept", REPS)
         del lanes, nmask, hashes, flags, ids, table
+        torch.cuda.empty_cache()
+
+
+def links_tree(tree, cs, ki, lanes, label) -> None:
+    """G2 and G + G2 on `lanes` (no N) of one tree."""
+    n = lanes.shape[0]
+    h0, h0b, key = ki.sweep_full_hashes(lanes, None, L, True)
+    ks, sidx = torch.sort(key, stable=True)
+    del h0, key
+    # a tree with G2's fill kernel: the init fills the rows' unlinked state,
+    # then G2 patches it
+    filled = hasattr(ki, "link_defaults")
+    if filled:
+        g2 = lambda: ki.sweep_init_links(ks, sidx, h0b, L, ki.link_defaults(n, lanes.device))
+        want = ki.sweep_init_links_plain(ks, sidx, h0b, L, ki.link_defaults_plain(n, lanes.device))
+    else:
+        g2 = lambda: ki.sweep_init_links(ks, sidx, h0b, L)
+        want = ki.sweep_init_links_plain(ks, sidx, h0b, L)
+    err = max(cs.max_abs_err(g2(), want) for _ in range(cs.CHECK_LAUNCHES))
+    if err:
+        raise SystemExit(f"{tree}: G2 {label} differs from its plain version")
+    nbytes, ops, n_tied = cs.links_work(ks, sidx, h0b, want[0], want[3])
+    g_bytes, g_ops = cs.hashes_work(lanes, None, L, True)
+    del want
+
+    def both():
+        ki.sweep_full_hashes(lanes, None, L, True)
+        return g2()
+
+    # G2 as the init calls it writes every row's unlinked state (10 bytes a
+    # row) and the links; a tree with the fill is also timed patching a
+    # filled state alone (kernel G2 without its fill)
+    runs = [("G2 sweep_init_links", g2, nbytes + 10 * n, ops),
+            ("G + G2", both, g_bytes + nbytes + 10 * n, g_ops + ops)]
+    if filled:
+        mine = ki.link_defaults(n, lanes.device)
+        runs.insert(0, ("G2 kernel alone (patching a filled state)",
+                        lambda: ki.sweep_init_links(ks, sidx, h0b, L, mine), nbytes, ops))
+    for name, fn, b, o in runs:
+        ms = cs.cuda_ms(fn, REPS)
+        bound_ms, by = cs.bound(b, o)
+        print(f"[ab] {tree} {name} {label}, {n_tied} tied positions ({n_tied / n:.4f}): "
+              f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: {b} B), share {bound_ms / ms:.3f}",
+              flush=True)
+
+
+def verify_tree(tree: str) -> None:
+    import_from(tree)
+    import numpy as np
+
+    from pgrc_tpu_torch import kernels
+    from pgrc_tpu_torch.align.matcher import probe_offsets
+    from pgrc_tpu_torch.kernels import kmer_hash as kh
+    from pgrc_tpu_torch.kernels import verify
+
+    cs = load_timer()
+    dev = torch.device("cuda")
+    kernels.build.lib()
+    takes_anchors = hasattr(verify, "probe_starts_plain")
+    rng = np.random.default_rng(11)
+    for label, pg_len, R, k, nv, wide, lo, frac in VERIFY_SHAPES:
+        pg_lanes = rand_lanes((-(-pg_len // 16) + 1,), dev)
+        pg_lanes[-1] = 0
+        lanes = rand_lanes((R, (L + 15) // 16 + 1), dev)
+        offs = probe_offsets(L, k, 3)
+        res = torch.from_numpy(cs.anchors(rng, R, offs, pg_len, L, frac, lo=lo)).to(dev)
+        max_mis = 33
+        args = (lanes, res, offs, pg_lanes, pg_len, L, max_mis, nv, wide)
+
+        def epilogue():
+            st = res - 1 - kh.offsets_tensor(offs, dev).to(torch.int64)[None, :]
+            in_range = (res > 0) & (st >= 0) & (st <= pg_len - L)
+            return (st if wide else st.to(torch.int32)), in_range
+
+        plain = lambda: verify.verify_best_plain(lanes, *epilogue(), pg_lanes,
+                                                 max(pg_len - L, 0), L, max_mis, nv)
+        if takes_anchors:
+            runs = (("A", lambda: verify.verify_best(*args)),)
+        else:
+            start_all, in_range = epilogue()
+            runs = (("A + epilogue", lambda: verify.verify_best(
+                        lanes, *epilogue(), pg_lanes, max(pg_len - L, 0), L, max_mis, nv)),
+                    ("A alone", lambda: verify.verify_best(
+                        lanes, start_all, in_range, pg_lanes, max(pg_len - L, 0), L, max_mis,
+                        nv)))
+        want = plain()
+        nbytes, ops = cs.verify_work(*args)
+        bound_ms, by = cs.bound(nbytes, ops)
+        note = (f"{label}: R={R} S={len(offs)} pg {pg_len} n_verify={nv} "
+                f"{'int64' if wide else 'int32'}")
+        for name, fn in runs:
+            err = max(cs.max_abs_err(fn(), want) for _ in range(cs.CHECK_LAUNCHES))
+            if err:
+                raise SystemExit(f"{tree}: verify_best {name} {note} differs from its plain "
+                                 f"version")
+            ms = cs.cuda_ms(fn, REPS)
+            print(f"[ab] {tree} verify_best {name} {note}: {ms:.4f} ms, bound {bound_ms:.4f} "
+                  f"ms ({by}: {nbytes} B of the anchors' function), share {bound_ms / ms:.3f}",
+                  flush=True)
+        del pg_lanes, lanes, res, want, runs
+        if not takes_anchors:
+            del start_all, in_range
         torch.cuda.empty_cache()
 
 
@@ -272,7 +413,7 @@ def encode_ab(trees: list, pairs: int, reads: int, encodes: int) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
-    ap.add_argument("--what", choices=("kmer", "sweep", "encode"), required=True)
+    ap.add_argument("--what", choices=("kmer", "sweep", "verify", "encode"), required=True)
     ap.add_argument("--pairs", type=int, default=5, help="encode: alternating pairs")
     ap.add_argument("--reads", type=int, default=2_000_000, help="encode: SE reads")
     ap.add_argument("--encodes", type=int, default=2, help="encode: timed encodes a process")
@@ -289,6 +430,8 @@ def main(argv=None) -> int:
             kmer_tree(trees[0])
         elif args.what == "sweep":
             sweep_tree(trees[0])
+        elif args.what == "verify":
+            verify_tree(trees[0])
         else:
             encode_tree(trees[0], args.src, args.encodes)
         return 0

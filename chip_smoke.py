@@ -10,7 +10,13 @@ Phases, each printed with its times; the first failure exits nonzero:
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes — outputs must be bit-equal — and both timed
      (device time of each call, with the L2 cache evicted before it; the
-     card is kept busy while the host queues the timed calls); kernels B
+     card is kept busy while the host queues the timed calls); kernel A
+     (verify_best) on 20 edge cases (every window width, its batch of 6
+     and of 4 windows, more slots than a 64-bit mask, n_verify 1, 6 and
+     12, rows with few or no in-range slots, a pg shorter than the read,
+     start residues 0 and 15, the pg's first and last lane, equal
+     mismatches at two starts, int64 starts past 2^31, R off the block
+     and a warp); kernels B
      (index_kmer_hash) and C (probe_kmer_hash) also on 20 edge cases (a
      ragged tile, one entry, the pg's last lane, block starts, int64
      positions past 2^31, k 24-40 with k1 2-8, offsets at both ends of the
@@ -20,26 +26,34 @@ Phases, each printed with its times; the first failure exits nonzero:
      window; runs of one entry; runs that end at tile edges; one entry; a
      length off the tile; partners 40 tiles back); every edge case over 10
      launches, each bit-equal; kernels G (sweep_full_hashes), G2
-     (sweep_init_links), D (sweep_roll_entries) and H (sweep_compact) at n
+     (sweep_init_links, with its fill sweep_link_defaults), D
+     (sweep_roll_entries) and H (sweep_compact) at n
      2^18 rows, and D and H on their scan edge cases
      (m = 0, all active, one active entry at the last position, n off the
      tile, a count scan past one 32-tile look-back window), H also at its
      own tile (n on it and one off, a ragged last tile, each output base
      residue mod 4, rows too wide for its tile), G and G2 on theirs
      (one row, rows off the block, more tiles than resident blocks, L 37,
-     99 and 255, rows all N, one long run of equal keys), each over 10
-     launches;
+     99 and 255, rows all N, one long run of equal keys; G2 also with no
+     tie, every position tied, h0b changing inside runs of equal keys,
+     tied pairs across a warp's and a block's edge, ties at the first and
+     last positions), and the init (`_init_links`: G, the sort, G2) on the
+     card against its CPU run, each over 10 launches;
   4. SE 200k (bench.py's headline input): compress through the port's CLI
      on the card, decode with the port's decoder, require an exact multiset
      round trip, every kernel launched, and bits/base <= 0.1412;
   5. SE 2M (bench.py's scale input): the same, with bits/base <= 0.1384;
-     E, F, G, G2, D and H against their plain versions on the inputs of
-     this encode's first join, first init, first sweep round and first
-     compaction; a second encode under torch.profiler, without the spies
+     A, E, F, G, G2 (and its fill), D and H against their plain versions
+     on the inputs of
+     this encode's first probe, first join, first init, first sweep round
+     and first compaction (and its share of tied init positions), the
+     init on the card against its CPU run there; a second encode under
+     torch.profiler, without the spies
      that copy those inputs: the peak device memory, the device busy share, the kernels that take the
      device time (B, C, the sweep's kernels, the sorts, any cat or
      elementwise kernel by name), no cummax kernel, the join's sort
-     dispatching torch.sort alone (its keys are B's and C's outputs), and
+     dispatching torch.sort alone (its keys are B's and C's outputs), no
+     op but a view between the join's anchors and kernel A, and
      the sweep (every find_overlaps call) dispatching no nonzero, cat, any
      or boolean-mask indexing, with its host syncs counted;
   6. large pg: the matcher with the encoder's lazy index where the blocked
@@ -49,8 +63,9 @@ Phases, each printed with its times; the first failure exits nonzero:
      position and strand, every match re-verified on the host, one kernel B
      launch per index block and row batch (the blocks are built per join,
      not held), the peak device memory. On the same pgs, kernel B at a
-     block start (int32 and int64), kernel A's int64 form and kernel E on
-     the match's first join (111M entries) against their plain versions; a
+     block start (int32 and int64), kernel A's int64 form (on synthetic
+     rows and on the match's first probe) and kernel E on the match's
+     first join (111M entries) against their plain versions; a
      second match_reads under torch.profiler, as in phase 5;
   7. modes at 30k reads (bench.py's generator, with a pair file): SE -l 2,
      PE, MIN_PE, SE_ORD, PE_ORD, and SE with the sweep and index caps
@@ -60,9 +75,9 @@ Phases, each printed with its times; the first failure exits nonzero:
      bits/base, Mbases/s, peak device memory, kernels launched.
 "Kernels launched" is each run's expected set, no more and no fewer among
 the sweep's: the matcher's A, B, C and E; G, D and F wherever a device
-sweep ran (inputs past 3072 reads), G2 where one ran its init (not a
-repair), and H where a device sweep table had more than 32,768 rows (the
-one table size that compacts).
+sweep ran (inputs past 3072 reads), G2 and its fill (sweep_link_defaults)
+where one ran its init (not a repair), and H where a device sweep table
+had more than 32,768 rows (the one table size that compacts).
     python3 chip_smoke.py --kernels-only
 runs phases 1-3 alone (a kernel's first build and check) and prints no
 result.
@@ -112,6 +127,8 @@ REPLACES = {
                          "pgrc_tpu/overlap/greedy_scs.py:267"),
     "sweep_full_hashes": ("pgrc_tpu_torch/kernels/csrc/sweep_init.cu",
                           "pgrc_tpu/overlap/greedy_scs.py:417, :471"),
+    "sweep_link_defaults": ("pgrc_tpu_torch/kernels/csrc/sweep_init.cu",
+                            "pgrc_tpu/overlap/greedy_scs.py:457"),
     "sweep_init_links": ("pgrc_tpu_torch/kernels/csrc/sweep_init.cu",
                          "pgrc_tpu/overlap/greedy_scs.py:442"),
     "sweep_compact": ("pgrc_tpu_torch/kernels/csrc/sweep_compact.cu",
@@ -127,8 +144,8 @@ VARIANTS = {
 # the main path's int32 kernels: SE 200k and SE 2M launch each of them
 MAIN_KERNELS = tuple(REPLACES)
 MATCH_KERNELS = ("verify_best", "index_kmer_hash", "probe_kmer_hash", "join_carry")
-SWEEP_KERNELS = ("sweep_full_hashes", "sweep_init_links", "sweep_roll_entries",
-                 "sweep_pair_claim", "sweep_compact")
+SWEEP_KERNELS = ("sweep_full_hashes", "sweep_link_defaults", "sweep_init_links",
+                 "sweep_roll_entries", "sweep_pair_claim", "sweep_compact")
 LARGE_PGS = (  # label, pg symbols, seed, lane_off of the kernel B block checked
     ("pg 300M", 300_000_007, 21, 1 << 24),
     ("pg 2.3G", 2_300_000_003, 22, 1 << 27),
@@ -172,10 +189,12 @@ INT_OPS_S = 132 * 64 * 1.98e9
 # table loads and two 64-bit multiply-adds with the entry as addend (three
 # 32-bit multiply-adds each), and with N the nibble's extraction, two loads
 # from a 16-entry table and two 64-bit adds (two each); per row the key's
-# clamp and flip, 2; G2 per sorted position (two key and two hash compares,
-# the selects of succ, ovl and the flags)
-OPS_A_LANE, OPS_A_SLOT, OPS_HASH_SYM, OPS_HASH_KMER, OPS_SCAN = 8, 4, 4, 2, 8
-OPS_D_ENTRY, OPS_G_BYTE, OPS_G_NIBBLE, OPS_G_ROW, OPS_G2_POS = 18, 10, 8, 2, 8
+# clamp and flip, 2; A per slot a read needs, the anchor's start (a 64-bit
+# subtract, two) and its range test (three compares, two ands); G2 per sorted
+# position its two key compares, and per tied position its two hash
+# compares and the selects of succ, ovl and the flags
+OPS_A_LANE, OPS_A_SLOT, OPS_HASH_SYM, OPS_HASH_KMER, OPS_SCAN = 8, 7, 4, 2, 8
+OPS_D_ENTRY, OPS_G_BYTE, OPS_G_NIBBLE, OPS_G_ROW, OPS_G2_POS, OPS_G2_TIED = 18, 10, 8, 2, 2, 6
 # launches of E and F held against one plain result on each input: a race
 # in a look-back scan shows only now and then
 CHECK_LAUNCHES = 10
@@ -308,17 +327,80 @@ def hash_ops(symbols: int, kmers: int) -> int:
     return symbols * OPS_HASH_SYM + kmers * OPS_HASH_KMER
 
 
-def verify_work(lanes, start_all, in_range, pg_lanes, n_verify):
-    """Bytes and operations of one verify_best call on these inputs: the read
-    lanes, starts and masks read once, the pg lanes of every verified window
-    (at most the whole pg), (mis, pos) written once."""
-    R, S = start_all.shape
-    W1 = lanes.shape[1]
-    verified = int(in_range.sum(1).clamp(max=n_verify).sum())
-    pg_bytes = min(pg_lanes.numel() * 4, verified * (W1 + 1) * 4)
-    nbytes = (lanes.numel() * 4 + R * S * (start_all.element_size() + 1) + pg_bytes
-              + R * (1 + start_all.element_size()))
-    return nbytes, verified * (W1 + 1) * OPS_A_LANE + R * S * OPS_A_SLOT
+def verify_work(lanes, res, offs, pg_lanes, pg_len, L_, max_mis, n_verify, wide):
+    """Bytes and operations of one verify_best call on these inputs (its
+    arguments): the W lanes of each read; of each read's anchors (8 bytes a
+    slot) the slots up to its n_verify-th in range, or all S where fewer
+    are in range (a read stops there), counted as the 32-byte sectors that
+    hold them; the offsets of those slots; the W+1 pg lanes of every
+    verified window (at most the whole pg); (mis, pos) written once."""
+    R, S = res.shape
+    W = (L_ + 15) // 16
+    cum = anchored(res, offs, pg_len, L_).cumsum(1)
+    verified = int(cum[:, -1].clamp(max=n_verify).sum())
+    # slots a read needs: up to and including its n_verify-th in range
+    need = ((cum < n_verify).sum(1) + 1).clamp(max=S)
+    first = torch.arange(R, dtype=torch.int64, device=res.device) * (S * 8)
+    lo, hi = first // 32, (first + need * 8 - 1) // 32
+    # rows lie back to back: a read may start in the sector the last one ended in
+    sectors = int((hi - lo + 1).sum()) - int((lo[1:] == hi[:-1]).sum())
+    pg_bytes = min(pg_lanes.numel() * 4, verified * (W + 1) * 4)
+    nbytes = (R * W * 4 + 32 * sectors + int(need.max()) * 4 + pg_bytes
+              + R * (1 + (8 if wide else 4)))
+    return nbytes, verified * W * OPS_A_LANE + int(need.sum()) * OPS_A_SLOT
+
+
+def anchored(res, offs, pg_len, L_):
+    """[R, S] bool: the slots of the join's anchors `res` whose start (anchor
+    - offset) is in range, as matcher.py:262-266 has it."""
+    st = res - 1 - torch.tensor(offs, dtype=torch.int64, device=res.device)[None, :]
+    return (res > 0) & (st >= 0) & (st <= pg_len - L_)
+
+
+def check_verify(args, note, reps, timed=True):
+    """Kernel A against its plain version on (read_lanes, res, offs,
+    pg_lanes, pg_len, L, max_mis, n_verify, wide): every one of
+    CHECK_LAUNCHES launches bit-equal."""
+    from pgrc_tpu_torch.kernels import verify
+
+    lanes, res, offs, pg_lanes, pg_len, L_, max_mis, n_verify, wide = args
+    run = lambda: verify.verify_best(*args)
+    run_plain = lambda: verify.verify_best_plain(
+        lanes, *verify.probe_starts_plain(res, offs, pg_len, L_, wide), pg_lanes,
+        max(pg_len - L_, 0), L_, max_mis, n_verify)
+    want = run_plain()
+    err = max(max_abs_err(run(), want) for _ in range(CHECK_LAUNCHES))
+    found = int((want[0] != 255).sum())
+    del want
+    require(err == 0, f"verify_best {note}: kernel differs from its plain version")
+    if not timed:
+        return err, found
+    return record("verify_best", run, run_plain, reps, note, *verify_work(*args), err=err)
+
+
+def anchors(rng, R, offs, pg_len, L_, frac_in, near=None, lo=0):
+    """A join's anchors res [R, S] (numpy int64, position + 1, 0 = none) at
+    probe offsets `offs`: a share frac_in of slots in range (half of them
+    within 2 of `near` [R], where given, the rest anywhere in [lo, pg_len -
+    L]), the others a third without an anchor, a third starting before the
+    pg (where the offset allows; else without) and a third past its last
+    start."""
+    S = len(offs)
+    off = np.asarray(offs, dtype=np.int64)[None, :]
+    hi = pg_len - L_
+    st = rng.integers(lo, max(hi, lo) + 1, size=(R, S))
+    if near is not None:
+        st = np.where(rng.random((R, S)) < 0.5,
+                      np.clip(near[:, None] + rng.integers(-2, 3, size=(R, S)), lo, max(hi, lo)),
+                      st)
+    res = st + 1 + off
+    out = rng.random((R, S)) >= frac_in
+    kind = rng.integers(0, 3, size=(R, S))
+    before = np.where(off > 0, 1 + rng.integers(0, 1 << 40, size=(R, S)) % np.maximum(off, 1), 0)
+    past = hi + 2 + off + rng.integers(0, 1000, size=(R, S))
+    res = np.where(out & (kind == 0), 0, res)
+    res = np.where(out & (kind == 1), before, res)
+    return np.where(out & (kind == 2), past, res)
 
 
 def join_work(skey, ipos, P):
@@ -463,23 +545,71 @@ def check_hashes(args, note, reps, timed=True):
     return record("sweep_full_hashes", run, run_plain, reps, note, *hashes_work(*args), err=err)
 
 
+def links_work(ks, sidx, h0b, succ_after, a_p_after):
+    """Bytes and operations of kernel G2 on these inputs: every sorted key
+    read once; at each tied position (a neighbour's key equal) its row
+    index and the row's h0b; the changed results written: succ, ovl and
+    active_s of a row that links forward, active_p of one linked from
+    behind. -> (bytes, operations, tied positions)."""
+    n = ks.numel()
+    same = ks[1:] == ks[:-1]
+    tied = torch.zeros((n,), dtype=torch.bool, device=ks.device)
+    tied[1:] |= same
+    tied[:-1] |= same
+    n_tied = int(tied.sum())
+    fwd, back = int((succ_after >= 0).sum()), int((~a_p_after).sum())
+    return (8 * n + 16 * n_tied + 9 * fwd + back,
+            OPS_G2_POS * n + OPS_G2_TIED * n_tied, n_tied)
+
+
 def check_links(args, note, reps, timed=True):
-    """Kernel G2 against its plain version on (ks, sidx, h0b, L): every one
-    of CHECK_LAUNCHES launches bit-equal. Bytes: the sorted keys, their rows
-    and the rows' second hashes read once, 10 bytes written a row."""
+    """G2 (its fill kernel, then kernel G2 patching the filled state)
+    against its plain version on (ks, sidx, h0b, L): every one of
+    CHECK_LAUNCHES launches bit-equal. Timed: kernel G2 alone, patching
+    one filled state again and again (the same values each time; the fill
+    is timed on its own, `check_fill`), and that state then held bit-equal
+    too."""
     from pgrc_tpu_torch.kernels import sweep_init as ki
 
-    run = lambda: ki.sweep_init_links(*args)
-    run_plain = lambda: ki.sweep_init_links_plain(*args)
-    want = run_plain()
+    n, dev = args[0].numel(), args[0].device
+    run = lambda: ki.sweep_init_links(*args, ki.link_defaults(n, dev))
+    want = ki.sweep_init_links_plain(*args, ki.link_defaults_plain(n, dev))
     err = max(max_abs_err(run(), want) for _ in range(CHECK_LAUNCHES))
-    del want
     require(err == 0, f"sweep_init_links {note}: kernel differs from its plain version")
     if not timed:
         return err
-    n = args[0].numel()
-    return record("sweep_init_links", run, run_plain, reps, note, 34 * n, OPS_G2_POS * n,
-                  err=err)
+    mine = ki.link_defaults(n, dev)
+    nbytes, ops, n_tied = links_work(*args[:3], want[0], want[3])
+    say(f"[kernel] sweep_init_links {note}: {n_tied} tied positions of {n} "
+        f"({n_tied / max(n, 1):.4f})")
+    out = record("sweep_init_links", lambda: ki.sweep_init_links(*args, mine),
+                 lambda: ki.sweep_init_links_plain(*args, mine), reps, note, nbytes, ops,
+                 err=err)
+    require(max_abs_err(mine, want) == 0,
+            f"sweep_init_links {note}: the state patched while timed differs")
+    return out
+
+
+def check_fill(n, dev, note, reps):
+    """G2's fill kernel (the rows' unlinked state) against its plain version
+    (four torch.full calls) on n rows, timed: 10 bytes written a row."""
+    from pgrc_tpu_torch.kernels import sweep_init as ki
+
+    return record("sweep_link_defaults", lambda: ki.link_defaults(n, dev),
+                  lambda: ki.link_defaults_plain(n, dev), reps, note, 10 * n, 0)
+
+
+def check_init_links(lanes, nmask, L_, note):
+    """greedy_scs._init_links (G, the stable sort, G2) on the card against
+    its composition of plain versions on the CPU, over CHECK_LAUNCHES
+    runs: every output bit-equal."""
+    from pgrc_tpu_torch.overlap import greedy_scs
+
+    want = greedy_scs._init_links(lanes.cpu(), None if nmask is None else nmask.cpu(), L_)
+    err = max(max_abs_err(tuple(t.cpu() for t in greedy_scs._init_links(lanes, nmask, L_)),
+                          want) for _ in range(CHECK_LAUNCHES))
+    require(err == 0, f"_init_links {note}: the card's init differs from the CPU's")
+    return err
 
 
 def roll_outputs(fn, args):
@@ -593,6 +723,23 @@ def links_args(lanes, nmask):
     return ks, sidx, h0b, L
 
 
+def synthetic_links_args(dev, runs, hb_of=None):
+    """Kernel G2's arguments from key runs: `runs` the lengths of the runs
+    of equal sorted keys, in order; the rows a random permutation; h0b per
+    sorted position from hb_of(position, run) (default: the run's number,
+    so a run's rows agree), scattered to the rows."""
+    rng = np.random.default_rng(sum(runs) + len(runs))
+    run_of = np.repeat(np.arange(len(runs)), runs)
+    n = run_of.size
+    ks = np.sort(rng.choice(1 << 62, len(runs), replace=False))[run_of] - (1 << 61)
+    sidx = rng.permutation(n)
+    hb_s = run_of.astype(np.int64) if hb_of is None else hb_of(np.arange(n), run_of)
+    h0b = np.empty(n, np.int64)
+    h0b[sidx] = hb_s
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(dev)
+    return on(ks), on(sidx), on(h0b), L
+
+
 def sweep_edge_cases(dev) -> int:
     """Kernels D and H where a compacting count scan goes wrong (no active
     entry, all active, one active entry at the last position, a length off
@@ -647,7 +794,8 @@ def sweep_edge_cases(dev) -> int:
         table = sweep_table(dev, n, rng, 1.0, n_frac=n_frac)
         check_hashes((table[0], table[1], L, True), label, 0, timed=False)
         check_links(links_args(table[0], table[1]), label, 0, timed=False)
-        cases += [f"G {label}", f"G2 {label}"]
+        check_init_links(table[0], table[1], L, label)
+        cases += [f"G {label}", f"G2 {label}", f"init {label}"]
     table = sweep_table(dev, 400_003, rng, 1.0, n_frac=0.0, dup_frac=0.0)
     check_hashes((table[0], None, L, True), "400,003 rows (blocks walk several tiles)", 0,
                  timed=False)
@@ -655,7 +803,21 @@ def sweep_edge_cases(dev) -> int:
     table = sweep_table(dev, 20_000, rng, 1.0, dup_frac=0.0)
     same = table[0][:1].expand(20_000, -1).contiguous()   # one read 20,000 times
     check_links(links_args(same, None), "one run of 20,000 equal keys", 0, timed=False)
-    cases.append("G2 one run of equal keys")
+    check_init_links(same, None, L, "one run of 20,000 equal reads")
+    cases += ["G2 one run of equal keys", "init one run of equal reads"]
+    # G2 where only tied positions work: a warp's or a block's edge inside a
+    # pair, the first and last positions, h0b changing inside a run
+    for label, runs, hb_of in (
+            ("no tie", [1] * 5000, None),
+            ("every position tied (runs of 2)", [2] * 3000, None),
+            ("every position tied (runs of 3 and 40)", [3, 40] * 300, None),
+            ("equal keys with h0b changing every 3 positions of a run",
+             [7, 300, 1, 45, 2, 96] * 20, lambda pos, run: run * 4 + (pos // 3) % 2),
+            ("tied pairs across a warp edge (31|32) and a block edge (255|256)",
+             [1] * 31 + [2] + [1] * 222 + [2] + [1] * 100, None),
+            ("a tie at the first and at the last position", [2] + [1] * 1000 + [2], None)):
+        check_links(synthetic_links_args(dev, runs, hb_of), label, 0, timed=False)
+        cases.append(f"G2 {label}")
     for read_len, n_sym, with_key in ((37, 5, False), (99, 5, True), (99, 4, False),
                                       (255, 5, True), (255, 4, False)):
         codes = rng.integers(0, n_sym, size=(5000, read_len), dtype=np.uint8)
@@ -738,6 +900,120 @@ def scan_edge_cases(dev) -> int:
     return len(cases)
 
 
+def verify_edge_cases(dev) -> int:
+    """Kernel A (a thread a read, 128 a block; anchors read 8 at a time;
+    windows verified in batches of 6 up to W 8, of 4 from W 9, each window
+    read as the aligned 16-byte chunks of the pg that hold it) where it
+    can go wrong: every window width (W 1, 7 at L 100 and 112, 8 and 9 on
+    either side of the batch's switch, 16 with and without a full last
+    lane), more slots than a 64-bit mask, n_verify 1, 6 and 12 (a batch
+    fills inside an 8-anchor step), rows with fewer in-range slots than
+    n_verify and rows with none, a pg shorter than the read, start residues
+    0 and 15, chunks at the pg's first and last lane, equal mismatches at
+    two starts (the lower wins), int64 starts from 2^31 + 48, and R off
+    the block and off a warp. Each case over CHECK_LAUNCHES launches
+    bit-equal; -> the number of cases."""
+    from pgrc_tpu_torch import state
+    from pgrc_tpu_torch.core import packed
+
+    rng = np.random.default_rng(777)
+    cases = []
+
+    def sampled(pg, L_, near):
+        reads = pg[near[:, None] + np.arange(L_)[None, :]].copy()
+        err = rng.random(reads.shape) < 0.03
+        reads[err] = (reads[err] + 1) % 4
+        return state.lanes_to_device(*packed.pack_lanes(reads), dev)[0]
+
+    def case(label, pg_lanes, pg_len, L_, lanes, offs, res, n_verify=6, max_mis=254,
+             wide=False):
+        args = (lanes, torch.from_numpy(res.astype(np.int64)).to(dev), tuple(int(o) for o in offs),
+                pg_lanes, pg_len, L_, max_mis, n_verify, wide)
+        _, found = check_verify(args, label, 0, timed=False)
+        say(f"[kernel] verify_best {label}: R={lanes.shape[0]} S={len(offs)} "
+            f"n_verify={n_verify}, {found} rows matched, bit-equal")
+        cases.append(label)
+
+    pg = rng.integers(0, 4, size=16 * 4000 + 7, dtype=np.uint8)
+    pg_lanes = state.pg_lanes_to_device(pg, dev)
+    R = 4096 + 37                   # off the block (128 threads) and off a warp
+    for L_ in (16, 100, 112, 113, 129, 255, 256):
+        near = rng.integers(0, pg.size - L_ + 1, R)
+        offs = tuple(range(0, max(L_ - 24, 1), 4))[:23]
+        case(f"L {L_} (W {(L_ + 15) // 16})", pg_lanes, pg.size, L_, sampled(pg, L_, near),
+             offs, anchors(rng, R, offs, pg.size, L_, 0.7, near))
+    near = rng.integers(0, pg.size - L + 1, R)
+    lanes = sampled(pg, L, near)
+    offs130 = tuple(j % 77 for j in range(130))
+    case("S 130, 5% in range (a read walks many 8-anchor steps)", pg_lanes, pg.size, L, lanes,
+         offs130, anchors(rng, R, offs130, pg.size, L, 0.05, near))
+    case("S 130, n_verify 12 (a batch of 6 fills inside an 8-anchor step)", pg_lanes, pg.size, L,
+         lanes, offs130, anchors(rng, R, offs130, pg.size, L, 0.5, near), n_verify=12)
+    offs8 = tuple(range(0, 64, 8))
+    res = anchors(rng, R, offs8, pg.size, L, 0.15, near)
+    res[::3] = 0
+    case("fewer in-range slots than n_verify, a third of the rows with none", pg_lanes,
+         pg.size, L, lanes, offs8, res)
+    offs = probe_offsets_l(L)
+    case("n_verify 1, max_mis 33", pg_lanes, pg.size, L, lanes, offs,
+         anchors(rng, R, offs, pg.size, L, 0.7, near), n_verify=1, max_mis=33)
+    case("wide (int64 starts) on a short pg", pg_lanes, pg.size, L, lanes, offs,
+         anchors(rng, R, offs, pg.size, L, 0.7, near), wide=True)
+    for r_label, R_ in (("one row", 1), ("R 37 (off a block and a warp)", 37)):
+        case(r_label, pg_lanes, pg.size, L, lanes[:R_], offs,
+             anchors(rng, R_, offs, pg.size, L, 0.7, near[:R_]))
+    # start residues 0 and 15
+    st = rng.integers(0, pg.size - L + 1, (R, len(offs)))
+    st = np.minimum(st - st % 16 + np.where(rng.random(st.shape) < 0.5, 0, 15), pg.size - L)
+    st[:, 0] = near
+    case("start residues 0 and 15", pg_lanes, pg.size, L, lanes, offs,
+         st + 1 + np.asarray(offs)[None, :])
+    # chunks at the pg's first lane: starts 0..23
+    st = rng.integers(0, 24, (R, len(offs)))
+    case("windows on the pg's first lane", pg_lanes, pg.size, L, sampled(pg, L, st[:, 0]), offs,
+         st + 1 + np.asarray(offs)[None, :])
+    # windows on the pg's last lane: pg_len 16n + 7, starts up to pg_len - L
+    near_end = pg.size - L - rng.integers(0, 24, R)
+    st = pg.size - L - rng.integers(0, 24, (R, len(offs)))
+    case("windows on the pg's last lane", pg_lanes, pg.size, L, sampled(pg, L, near_end), offs,
+         st + 1 + np.asarray(offs)[None, :])
+    # a pg shorter than the read: no slot is in range
+    short = rng.integers(0, 4, size=50, dtype=np.uint8)
+    case("pg_len 50 < L", state.pg_lanes_to_device(short, dev), short.size, L, lanes, offs,
+         anchors(rng, R, offs, short.size, L, 0.7))
+    # equal mismatches at two starts: window a copied to b > a, the slot of b
+    # first; the lower start a wins
+    n_eq = 150
+    pg2 = rng.integers(0, 4, size=70_000, dtype=np.uint8)
+    a = np.arange(n_eq) * 200 + rng.integers(0, 16, n_eq)
+    b = 30_000 + np.arange(n_eq) * 200 + rng.integers(0, 16, n_eq)
+    for i in range(n_eq):
+        pg2[b[i]:b[i] + L] = pg2[a[i]:a[i] + L]
+    res = np.zeros((n_eq, len(offs)), np.int64)
+    res[:, 0] = b + 1 + offs[0]
+    res[:, 1] = a + 1 + offs[1]
+    case("equal mismatches at two starts", state.pg_lanes_to_device(pg2, dev), pg2.size, L,
+         sampled(pg2, L, a), offs, res)
+    # int64 starts past 2^31 on a 2^31-symbol pg of random lanes
+    n_big = (1 << 27) + 4099
+    big = torch.randint(-(1 << 31), (1 << 31) - 1, (n_big + 1,), dtype=torch.int32, device=dev)
+    big[-1] = 0
+    big_len = 16 * n_big - 9
+    rand_lanes = torch.randint(-(1 << 31), (1 << 31) - 1, (R, (L + 15) // 16 + 1),
+                               dtype=torch.int32, device=dev)
+    case("int64 starts from 2^31 + 48", big, big_len, L, rand_lanes, offs,
+         anchors(rng, R, offs, big_len, L, 0.7, lo=PAST_INT32 + 48), wide=True)
+    del big
+    return len(cases)
+
+
+def probe_offsets_l(L_, k=32):
+    """The matcher's probe offsets of a read of L_ symbols (k 32, step 3)."""
+    from pgrc_tpu_torch.align.matcher import probe_offsets
+
+    return tuple(probe_offsets(L_, k, 3))
+
+
 def hash_edge_cases(dev) -> int:
     """Kernels B and C where a tiled rolling or prefix hash goes wrong: the
     ragged tile, one entry, the pg's last lane, block starts, positions
@@ -804,12 +1080,14 @@ def phase_kernels(dev) -> dict:
     from pgrc_tpu_torch import state
     from pgrc_tpu_torch.align.matcher import probe_offsets
     from pgrc_tpu_torch.core import packed
-    from pgrc_tpu_torch.kernels import kmer_hash, verify
+    from pgrc_tpu_torch.kernels import kmer_hash
 
     rng = np.random.default_rng(123)
     out = {}
 
-    # A: verify_best, R = 2^18 rows, S = 23 slots, reads sampled from the pg
+    # A: verify_best, R = 2^18 rows, S = 23 slots, reads sampled from the
+    # pg, anchors 70% in range (half of them within 2 of the read's start);
+    # its main-path row comes from SE 2M's encode (phase 5)
     pg_len, R = 5_000_000, 1 << 18
     offs = probe_offsets(L, 32, 3)
     S = len(offs)
@@ -820,19 +1098,13 @@ def phase_kernels(dev) -> dict:
     err_mask = rng.random(reads.shape) < 0.02
     reads[err_mask] = (reads[err_mask] + 1) % 4
     lanes, _ = state.lanes_to_device(*packed.pack_lanes(reads), dev)
-    jitter = rng.integers(-2, 3, size=(R, S))
-    cand = np.where(rng.random((R, S)) < 0.5, true_st[:, None] + jitter,
-                    rng.integers(-L, pg_len, size=(R, S)))
-    start_all = torch.from_numpy(cand.astype(np.int32)).to(dev)
-    in_range = torch.from_numpy(rng.random((R, S)) < 0.7).to(dev)
+    res = torch.from_numpy(anchors(rng, R, offs, pg_len, L, 0.7, true_st)).to(dev)
     rows = {}
     for nv in (6, 1):
-        args = (lanes, start_all, in_range, pg_lanes, pg_len - L, L, 33, nv)
-        rows[nv] = record("verify_best", lambda: verify.verify_best(*args),
-                          lambda: verify.verify_best_plain(*args), 20,
-                          f"R={R} S={S} n_verify={nv}",
-                          *verify_work(lanes, start_all, in_range, pg_lanes, nv))
+        rows[nv] = check_verify((lanes, res, offs, pg_lanes, pg_len, L, 33, nv, False),
+                                f"R={R} S={S} n_verify={nv}", 20)
     out["verify_best"] = rows[6]
+    del res
 
     # B: index_kmer_hash over the 5M-symbol pg, k = 32, k1 = 4: join keys
     # (8 B) and int32 positions written, the pg's lanes read once
@@ -872,6 +1144,9 @@ def phase_kernels(dev) -> dict:
     # scan edge cases, G and G2 on theirs (E's and F's main-path shapes come
     # in phases 5, 6)
     t0 = time.time()
+    cases = verify_edge_cases(dev)
+    say(f"[kernel] verify_best: {cases} edge cases bit-equal in {time.time() - t0:.1f} s")
+    t0 = time.time()
     cases = sweep_edge_cases(dev)
     say(f"[kernel] sweep_full_hashes, sweep_init_links, sweep_roll_entries, sweep_compact: "
         f"{cases} edge cases bit-equal in {time.time() - t0:.1f} s")
@@ -888,17 +1163,25 @@ def phase_kernels(dev) -> dict:
 class FirstCall:
     """Spy on a kernel wrapper of the main path: calls through, and keeps
     copies of the inputs of its first call (before a call that writes in
-    place). The wrapper counts its own launches, so the spy changes none."""
+    place). Tensor arguments at the indices in `hold` are kept as they are
+    (ones the run never writes and keeps alive anyway), those in `host`
+    copied to the host (so the copy adds nothing to the run's peak device
+    memory), the others cloned on the card. The wrapper counts its own
+    launches, so the spy changes none."""
 
-    def __init__(self, module, name):
-        self.module, self.name = module, name
+    def __init__(self, module, name, hold=(), host=()):
+        self.module, self.name, self.hold, self.host = module, name, hold, host
         self.real, self.args = getattr(module, name), None
 
     def __enter__(self):
+        def copy(i, a):
+            if not isinstance(a, torch.Tensor) or i in self.hold:
+                return a
+            return a.cpu() if i in self.host else a.clone()
+
         def spy(*args, **kwargs):
             if self.args is None:
-                self.args = tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                                  for a in args) + tuple(kwargs.values())
+                self.args = tuple(copy(i, a) for i, a in enumerate(args)) + tuple(kwargs.values())
             return self.real(*args, **kwargs)
 
         setattr(self.module, self.name, spy)
@@ -907,6 +1190,23 @@ class FirstCall:
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.real)
         return False
+
+
+# kernel A's first call on the main path: the read lanes and the pg lanes
+# kept as they are, the join's anchors copied to the host
+VERIFY_SPY = {"hold": (0, 3), "host": (1,)}
+
+
+def check_verify_call(args, dev, note):
+    """Kernel A held against its plain version on the inputs of a captured
+    main-path call (FirstCall with VERIFY_SPY), and timed there."""
+    lanes, res, offs, pg_lanes, pg_len, L_, max_mis, n_verify, wide = args
+    res = res.to(dev)
+    share = float(anchored(res, offs, pg_len, L_).float().mean())
+    return check_verify((lanes, res, offs, pg_lanes, pg_len, L_, max_mis, n_verify, wide),
+                        f"{note}: R={res.shape[0]} S={res.shape[1]}, pg {pg_len} symbols, "
+                        f"n_verify {n_verify}, max_mis {max_mis}, {'int64' if wide else 'int32'}, "
+                        f"{share:.3f} of the slots in range", 20)
 
 
 def cummax_kernel_names(dev) -> set:
@@ -955,6 +1255,57 @@ class JoinOps:
         from pgrc_tpu_torch.align import matcher
 
         matcher.join_sort = self.real
+        return False
+
+
+class ProbeGap:
+    """Spy on matcher.probe: the aten ops its calls dispatch between the
+    join's anchors (matcher.join_anchors returning) and kernel A's call
+    (matcher.verify_best), and the number of calls. Only views may run
+    there: kernel A turns the anchors into starts itself."""
+
+    VIEWS = {"aten.view", "aten._unsafe_view", "aten.alias"}
+    NAMES = ("probe", "join_anchors", "verify_best")
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        from pgrc_tpu_torch.align import matcher
+
+        ops = self.ops = set()
+        self.calls = 0
+        gap = [False]
+        real = self.real = {n: getattr(matcher, n) for n in self.NAMES}
+
+        class Log(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if gap[0]:
+                    ops.add(str(func.overloadpacket))
+                return func(*args, **(kwargs or {}))
+
+        def probe(*args, **kwargs):
+            self.calls += 1
+            with Log():
+                return real["probe"](*args, **kwargs)
+
+        def join_anchors(*args, **kwargs):
+            out = real["join_anchors"](*args, **kwargs)
+            gap[0] = True
+            return out
+
+        def verify_best(*args, **kwargs):
+            gap[0] = False
+            return real["verify_best"](*args, **kwargs)
+
+        for name, fn in zip(self.NAMES, (probe, join_anchors, verify_best)):
+            setattr(matcher, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        from pgrc_tpu_torch.align import matcher
+
+        for name, fn in self.real.items():
+            setattr(matcher, name, fn)
         return False
 
 
@@ -1032,14 +1383,15 @@ class SweepSpy:
 
     def expected(self) -> set:
         """The sweep kernels these tables launch: G, D and F in every device
-        sweep, G2 in one that ran its init, H in a table that compacts."""
+        sweep, G2 and its fill in one that ran its init, H in a table that
+        compacts."""
         from pgrc_tpu_torch.overlap import greedy_scs as g
 
         exp = set()
         if self.tables:
             exp |= {"sweep_full_hashes", "sweep_roll_entries", "sweep_pair_claim"}
         if any(init for _, init in self.tables):
-            exp.add("sweep_init_links")
+            exp |= {"sweep_link_defaults", "sweep_init_links"}
         if any(n > g._ONE_SEGMENT_MAX_ROWS for n, _ in self.tables):
             exp.add("sweep_compact")
         return exp
@@ -1062,8 +1414,10 @@ def require_launched(label, launches, spy, matcher=True):
 # the kernel names): B and C, the sweep's kernels, the join's and the
 # sweep's sorts, the scans' scratch memsets, and what a concatenation or an
 # elementwise key pass would launch
-TRACED_GROUPS = (("B", "index_kmer_hash"), ("C", "probe_kmer_hash"),
-                 ("G", "sweep_full_hashes"), ("G2", "sweep_init_links"),
+TRACED_GROUPS = (("A", "verify_best"), ("B", "index_kmer_hash"), ("C", "probe_kmer_hash"),
+                 ("E", "join_carry"),
+                 ("G", "sweep_full_hashes"), ("G2 fill", "sweep_link_defaults"),
+                 ("G2", "sweep_init_links"),
                  ("D", "sweep_roll_entries"), ("F", "sweep_pair_claim"),
                  ("H", "sweep_compact"), ("sorts", "Sort"), ("memset", "Memset"),
                  ("cat", "CatArray"), ("elementwise", "elementwise_kernel"))
@@ -1076,7 +1430,8 @@ def profiled(fn, label, banned=(), sweep=False):
     the eight largest device items and the TRACED_GROUPS; fail if a kernel
     named in `banned` or an aten::cummax op ran, or if the join's sort
     (matcher.join_sort) dispatched any op but torch.sort and its slice of
-    the key buffer. With `sweep`, also fail if the sweep dispatched an op
+    the key buffer, or any op but a view ran between the join's anchors and
+    kernel A (ProbeGap). With `sweep`, also fail if the sweep dispatched an op
     of SweepSpy.BANNED or indexed by a boolean mask, or read the card more
     often than once a round (D's count), once a segment end (H's counts)
     and twice a sweep (its links); print those host syncs. -> fn's
@@ -1092,7 +1447,7 @@ def profiled(fn, label, banned=(), sweep=False):
     t0 = time.time()
     was, trace._ON = trace._ON, True
     try:
-        with JoinOps() as join_ops, SweepSpy(dispatch=sweep) as sweep_spy, \
+        with JoinOps() as join_ops, ProbeGap() as gap, SweepSpy(dispatch=sweep) as sweep_spy, \
                 profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             res = fn()
             torch.cuda.synchronize()
@@ -1117,6 +1472,11 @@ def profiled(fn, label, banned=(), sweep=False):
         f"{join_ops.calls} calls dispatching {sorted(join_ops.ops)}")
     require(join_ops.calls > 0 and join_ops.ops - {"aten.slice"} == {"aten.sort"},
             f"{label}: the join's sort ran {sorted(join_ops.ops)}, not torch.sort alone")
+    between = sorted(gap.ops - ProbeGap.VIEWS)
+    say(f"[{label}] {gap.calls} probes; ops dispatched between the join's anchors and kernel "
+        f"A: {sorted(gap.ops) or 'none'}")
+    require(gap.calls > 0 and not between,
+            f"{label}: ops ran between the join and kernel A: {between}")
     ran = sorted({e.key for e in events if e.key in banned or "cummax" in e.key})
     require(not ran, f"{label}: the traced run launched cummax: {ran}")
     require(busy > 0, f"{label}: the profiler saw no device time")
@@ -1163,6 +1523,7 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
     from pgrc_tpu_torch.overlap import greedy_scs
     from pgrc_tpu_torch.streams import codecs
 
+    dev = torch.device("cuda")
     src = os.path.join(work, f"se_{n_reads}.fastq")
     pair = os.path.join(work, f"se_{n_reads}_2.fastq") if first else None
     t0 = time.time()
@@ -1178,6 +1539,7 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
         spy = stack.enter_context(SweepSpy())
         if not first:
             join = stack.enter_context(FirstCall(matcher, "join_carry"))
+            probe = stack.enter_context(FirstCall(matcher, "verify_best", **VERIFY_SPY))
             firsts = {name: stack.enter_context(FirstCall(greedy_scs, name)) for name in (
                 "sweep_full_hashes", "sweep_init_links", "sweep_roll_entries",
                 "sweep_pair_claim", "sweep_compact")}
@@ -1238,12 +1600,20 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
         timings["sweep_pair_claim"] = check_pair(
             "sweep_pair_claim", args, f"{label}'s first sweep round: "
             f"m={args[0].numel()} entries of {args[2].numel()} rows", 20)
+        timings["verify_best"] = check_verify_call(probe.args, dev, f"{label}'s first probe")
+        probe.args = None
         args = firsts["sweep_full_hashes"].args
         timings["sweep_full_hashes"] = check_hashes(
             args, f"{label}'s first init: n={args[0].shape[0]} N={args[1] is not None}", 20)
-        args = firsts["sweep_init_links"].args
+        t0 = time.time()
+        check_init_links(args[0], args[1], args[2], f"{label}'s first init")
+        say(f"[kernel] _init_links on the card at {label}'s first init: bit-equal to the "
+            f"CPU's over {CHECK_LAUNCHES} runs ({time.time() - t0:.1f} s)")
+        args = firsts["sweep_init_links"].args[:4]   # the state it patched is the run's
         timings["sweep_init_links"] = check_links(
             args, f"{label}'s first init: n={args[0].numel()}", 20)
+        timings["sweep_link_defaults"] = check_fill(
+            args[0].numel(), args[0].device, f"{label}'s first init: n={args[0].numel()}", 20)
         args = firsts["sweep_roll_entries"].args
         timings["sweep_roll_entries"] = check_roll(
             args, f"{label}'s first sweep round: n={args[0].shape[0]} rows, "
@@ -1332,7 +1702,7 @@ def phase_large_pg(dev, label, pg_len, seed, lane_off, banned):
     from pgrc_tpu_torch.align.matcher import probe_offsets
     from pgrc_tpu_torch.config import PgRCParams, matching_chars_correction
     from pgrc_tpu_torch.core import packed
-    from pgrc_tpu_torch.kernels import kmer_hash, verify
+    from pgrc_tpu_torch.kernels import kmer_hash
 
     t0 = time.time()
     rng = np.random.default_rng(seed)
@@ -1382,18 +1752,11 @@ def phase_large_pg(dev, label, pg_len, seed, lane_off, banned):
         vmask = rng.random(vr.shape) < 0.02
         vr[vmask] = (vr[vmask] + 1) % 4
         lanes, _ = state.lanes_to_device(*packed.pack_lanes(vr), dev)
-        cand = np.where(rng.random((R, S)) < 0.5,
-                        true_st[:, None] + rng.integers(-2, 3, size=(R, S)),
-                        rng.integers(PAST_INT32 - L, pg_len, size=(R, S)))
-        start_all = torch.from_numpy(cand.astype(np.int64)).to(dev)
-        in_range = torch.from_numpy(rng.random((R, S)) < 0.7).to(dev)
-        vargs = (lanes, start_all, in_range, pg_lanes, pg_len - L, L, max_mis, 6)
-        out["verify_best.int64"] = record(
-            "verify_best", lambda: verify.verify_best(*vargs),
-            lambda: verify.verify_best_plain(*vargs), 20,
-            f"int64 R={R} S={S} n_verify=6, starts {int(cand.min())}..{int(cand.max())}",
-            *verify_work(lanes, start_all, in_range, pg_lanes, 6))
-        del lanes, start_all, in_range
+        res = torch.from_numpy(anchors(rng, R, offs, pg_len, L, 0.7, true_st,
+                                       lo=PAST_INT32)).to(dev)
+        check_verify((lanes, res, offs, pg_lanes, pg_len, L, max_mis, 6, True),
+                     f"int64 R={R} S={S} n_verify=6, starts from {PAST_INT32}", 20)
+        del lanes, res
     del pg_lanes
     free_card()
     say(f"[{label}] kernel checks {time.time() - t0:.1f} s")
@@ -1407,7 +1770,8 @@ def phase_large_pg(dev, label, pg_len, seed, lane_off, banned):
     caps, real_cap = [], matcher._batch_cap
     matcher._batch_cap = lambda *a: caps.append(real_cap(*a)) or caps[-1]
     try:
-        with FirstCall(matcher, "join_carry") as join:
+        with FirstCall(matcher, "join_carry") as join, \
+                FirstCall(matcher, "verify_best", **VERIFY_SPY) as probe:
             t0 = time.time()
             res = run()
             torch.cuda.synchronize()
@@ -1454,7 +1818,12 @@ def phase_large_pg(dev, label, pg_len, seed, lane_off, banned):
         out["join_carry.int64"] = fields
     del join.args, skey, perm, ipos
     free_card()
-    say(f"[{label}] kernel E check {time.time() - t0:.1f} s")
+    fields = check_verify_call(probe.args, dev, f"{label}'s first probe")
+    if wide:
+        out["verify_best.int64"] = fields
+    probe.args = None
+    free_card()
+    say(f"[{label}] kernel E and A checks {time.time() - t0:.1f} s")
     profiled(run, f"{label} second match_reads", banned)
     free_card()
     return out, launches

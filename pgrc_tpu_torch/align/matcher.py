@@ -5,9 +5,9 @@ Per read and strand: hash a k-mer anchor at every probe offset (kernel C),
 join the anchors with each block of the pg's sampled k-mer table (kernel B)
 so each gets the block's lowest-position index entry of exactly its hash
 (B and C write the join's sort keys into one buffer, and the join sorts it),
-turn anchors into candidate starts, and verify the first n_verify in-range
-starts against the packed pg, keeping the (mismatches, position) minimum
-(kernel A). Blocks merge by the reference's rule (matcher.py:447-458).
+and verify the first n_verify in-range candidate starts (anchor - offset)
+against the packed pg, keeping the (mismatches, position) minimum (kernel
+A, which reads the join's anchors itself). Blocks merge by the reference's rule (matcher.py:447-458).
 With `accept_mis > 0` (`-l N`) a spread-offset first pass accepts reads
 early and only the others fan out (:625-724). Reads both strands missed go
 to the reference's host rescue. Pgs past 2^31 symbols carry int64
@@ -27,7 +27,7 @@ from .. import state
 from ..core import packed
 from ..core.packed import revcomp_lanes
 from ..kernels.join_carry import JOIN_MAX, join_carry
-from ..kernels.kmer_hash import index_keys, index_kmer_hash, offsets_tensor, probe_kmer_hash
+from ..kernels.kmer_hash import index_keys, index_kmer_hash, probe_kmer_hash
 from ..kernels.verify import verify_best
 from ..utils.trace import span
 from .host import (  # noqa: F401  (re-exported host layer)
@@ -135,12 +135,9 @@ def probe(read_lanes, offs: tuple, keys, ipos, pg_lanes, pg_len: int, L: int,
     R, S, M = read_lanes.shape[0], len(offs), ipos.numel()
     probe_kmer_hash(read_lanes, offs, k, keys[M:M + R * S])
     res = join_anchors(keys, ipos, R * S).reshape(R, S)
-    start_all = res - 1 - offsets_tensor(offs, read_lanes.device).to(torch.int64)[None, :]
-    in_range = (res > 0) & (start_all >= 0) & (start_all <= pg_len - L)
-    if ipos.dtype != torch.int64:
-        start_all = start_all.to(torch.int32)
-    return verify_best(read_lanes, start_all, in_range, pg_lanes,
-                       max(pg_len - L, 0), L, max_mis, n_verify)
+    # kernel A turns the anchors into starts itself: no pass between
+    return verify_best(read_lanes, res, offs, pg_lanes, pg_len, L, max_mis, n_verify,
+                       ipos.dtype == torch.int64)
 
 
 def probe_rows(lanes, offs, index: KmerIndex, blocks, pg_lanes, wide: bool, L: int,

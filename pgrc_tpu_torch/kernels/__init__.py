@@ -18,7 +18,8 @@ from . import build
 launches = {"verify_best": 0, "verify_best.int64": 0, "index_kmer_hash": 0,
             "index_kmer_hash.int64": 0, "probe_kmer_hash": 0, "sweep_roll_entries": 0,
             "join_carry": 0, "join_carry.int64": 0, "sweep_pair_claim": 0,
-            "sweep_full_hashes": 0, "sweep_init_links": 0, "sweep_compact": 0}
+            "sweep_full_hashes": 0, "sweep_link_defaults": 0, "sweep_init_links": 0,
+            "sweep_compact": 0}
 # scratch word of a compacting scan's first total (csrc/seg_scan.cuh
 # kTotalsWord): kernel D's entry count, kernel H's three counts
 TOTALS_WORD = 1

@@ -32,7 +32,7 @@ _P, _I, _I64, _U32, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                             ctypes.c_uint32, ctypes.c_uint64)
 # entry point -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
-    "pgrc_verify_best": [_I, _P, _P, _I64, _I, _I, _P, _P, _I, _P, _I64, _I64,
+    "pgrc_verify_best": [_I, _P, _P, _I64, _I, _I, _P, _P, _I, _P, _I64, _I64, _I,
                          _U32, _I, _I, _I, _P, _P],
     "pgrc_index_kmer_hash": [_I, _P, _P, _I64, _I, _I, _I64, _I64, _I64, _U32,
                              _I, _P, _P],
@@ -40,6 +40,7 @@ SIGNATURES = {
     "pgrc_sweep_roll_entries": [_I, _P, _I64, _P, _I, _P, _I, _P, _P, _I, _I,
                                 _U64, _U64, _U64, _U64, _P, _P, _P, _P, _P, _P, _P, _I64],
     "pgrc_sweep_full_hashes": [_I, _P, _I64, _P, _I, _P, _I, _I, _U64, _U64, _P, _P, _P, _P],
+    "pgrc_sweep_link_defaults": [_I, _P, _I64, _P, _P, _P, _P],
     "pgrc_sweep_init_links": [_I, _P, _I64, _P, _P, _P, _I, _P, _P, _P, _P],
     "pgrc_sweep_compact": [_I, _P, _I64, _P, _I, _P, _I] + [_P] * 16 + [_P, _I64],
     "pgrc_join_carry": [_I, _P, _I64, _P, _P, _P, _I, _P, _P, _I64],

@@ -34,16 +34,25 @@
 //
 // G2 replaces the init's linking (:442-465) after the stable sort: sorted
 // position j links row sidx[j] to row sidx[j+1] when both their keys and
-// their second hashes agree, at overlap L. A thread per sorted position
-// compares j with j+1 and with j-1 and writes succ, ovl, active_s and
-// active_p of row sidx[j] — every row exactly once, so there is no init
-// pass, no mask indexing and no atomics. The last sorted position never
-// links forward (the reference's wrap-around neighbour is forced false,
-// :448-456). What bounds G2: memory, 8 bytes each of key, index and a
-// gathered h0b a position, 10 bytes of results scattered to the row. The
-// block stages its positions' keys, indices and gathered h0b (one gather a
-// position, plus a halo of one each side) in shared memory, so a
-// neighbour's h0b is not gathered again.
+// their second hashes agree, at overlap L. The last sorted position never
+// links forward and the first never back (the reference's wrap-around
+// neighbour is forced false, :448-456). What bounds G2: memory. Only a
+// position whose key equals a neighbour's (two equal reads: the key is the
+// full 64-bit read hash) can link, so the bytes it must move are the sorted
+// keys (8 a position) and, at tied positions only, the row index, the
+// gathered h0b and the changed results scattered to the row. The design:
+// G2's wrapper first has every row's unlinked state (succ -1, ovl 0,
+// active_s and active_p true) written in row order by a fill kernel
+// (sweep_link_defaults, 10 bytes a row, coalesced; writing it from G's
+// init form instead made G + G2 7% slower on an H100, PERF.md). Then G2
+// proper, a thread per sorted position, reads its key coalesced and its
+// neighbours' by warp shuffles (lanes 0 and 31 read the halo), and a warp
+// whose ballot of tied positions is empty leaves there. At a tied position
+// the thread reads sidx[j] and gathers h0b of its row, takes the
+// neighbours' rows and h0b by shuffles, and writes only what changes: succ,
+// ovl and active_s of a row that links forward, active_p of one linked
+// from behind. Each row sits at one sorted position, so no two threads
+// write one row, and nothing needs atomics.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -184,33 +193,55 @@ cudaError_t launch_hashes(int device, cudaStream_t s, int64_t n, const void* lan
 }
 
 __global__ void __launch_bounds__(kLinkThreads)
+sweep_link_defaults_kernel(int64_t n, int32_t* __restrict__ succ, int32_t* __restrict__ ovl,
+                           bool* __restrict__ a_s, bool* __restrict__ a_p) {
+  const int64_t i = (int64_t)blockIdx.x * kLinkThreads + threadIdx.x;
+  if (i >= n) return;
+  succ[i] = -1;
+  ovl[i] = 0;
+  a_s[i] = true;
+  a_p[i] = true;
+}
+
+__global__ void __launch_bounds__(kLinkThreads)
 sweep_init_links_kernel(int64_t n, const long long* __restrict__ ks,
                         const long long* __restrict__ sidx, const long long* __restrict__ h0b,
                         int L, int32_t* __restrict__ succ, int32_t* __restrict__ ovl,
                         bool* __restrict__ a_s, bool* __restrict__ a_p) {
-  // slot q holds sorted position base + q - 1
-  __shared__ long long s_k[kLinkThreads + 2], s_i[kLinkThreads + 2], s_h[kLinkThreads + 2];
-  const int64_t base = (int64_t)blockIdx.x * kLinkThreads;
-  for (int q = threadIdx.x; q < kLinkThreads + 2; q += kLinkThreads) {
-    const int64_t j = base + q - 1;
-    if (j >= 0 && j < n) {
-      const long long r = sidx[j];
-      s_k[q] = ks[j];
-      s_i[q] = r;
-      s_h[q] = h0b[r];
-    }
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  const int64_t j = (int64_t)blockIdx.x * kLinkThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  // every lane stays to the end of the shuffles, those past n too
+  const bool in = j < n;
+  const long long k = in ? ks[j] : 0;
+  long long k_next = __shfl_down_sync(kAll, k, 1);
+  long long k_prev = __shfl_up_sync(kAll, k, 1);
+  if (lane == 31 && j + 1 < n) k_next = ks[j + 1];
+  if (lane == 0 && in && j > 0) k_prev = ks[j - 1];
+  const bool tie_next = j + 1 < n && k_next == k;
+  const bool tie_prev = in && j > 0 && k_prev == k;
+  const bool tied = tie_next || tie_prev;
+  if (__ballot_sync(kAll, tied) == 0) return;   // the whole warp: no tie
+  long long r = 0, hb = 0;
+  if (tied) {
+    r = sidx[j];
+    hb = h0b[r];
   }
-  __syncthreads();
-  const int64_t j = base + threadIdx.x;
-  if (j >= n) return;
-  const int q = threadIdx.x + 1;
-  const bool fwd = j + 1 < n && s_k[q + 1] == s_k[q] && s_h[q + 1] == s_h[q];
-  const bool back = j > 0 && s_k[q - 1] == s_k[q] && s_h[q - 1] == s_h[q];
-  const long long r = s_i[q];
-  succ[r] = fwd ? (int32_t)s_i[q + 1] : -1;
-  ovl[r] = fwd ? L : 0;
-  a_s[r] = !fwd;
-  a_p[r] = !back;
+  // a tied neighbour is tied too, so its lane holds its row and h0b
+  long long r_next = __shfl_down_sync(kAll, r, 1);
+  long long hb_next = __shfl_down_sync(kAll, hb, 1);
+  long long hb_prev = __shfl_up_sync(kAll, hb, 1);
+  if (lane == 31 && tie_next) {
+    r_next = sidx[j + 1];
+    hb_next = h0b[r_next];
+  }
+  if (lane == 0 && tie_prev) hb_prev = h0b[sidx[j - 1]];
+  if (tie_next && hb_next == hb) {
+    succ[r] = (int32_t)r_next;
+    ovl[r] = L;
+    a_s[r] = false;
+  }
+  if (tie_prev && hb_prev == hb) a_p[r] = false;
 }
 
 }  // namespace
@@ -230,8 +261,21 @@ extern "C" int pgrc_sweep_full_hashes(int device, void* stream, int64_t n, const
                  base_b, tables, h0, h0b, key);
 }
 
-// ks [n] sorted keys, sidx [n] their rows, h0b [n] by row -> succ, ovl [n]
-// int32, a_s, a_p [n] bool, by row.
+// succ, ovl [n] int32, a_s, a_p [n] bool <- the init's unlinked state.
+extern "C" int pgrc_sweep_link_defaults(int device, void* stream, int64_t n, void* succ,
+                                        void* ovl, void* a_s, void* a_p) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n == 0) return 0;
+  sweep_link_defaults_kernel<<<(unsigned)((n + kLinkThreads - 1) / kLinkThreads), kLinkThreads,
+                               0, (cudaStream_t)stream>>>(n, (int32_t*)succ, (int32_t*)ovl,
+                                                          (bool*)a_s, (bool*)a_p);
+  return (int)cudaGetLastError();
+}
+
+// ks [n] sorted keys, sidx [n] their rows, h0b [n] by row; succ, ovl [n]
+// int32, a_s, a_p [n] bool, by row, holding the unlinked state
+// (pgrc_sweep_link_defaults), patched in place where rows link.
 extern "C" int pgrc_sweep_init_links(int device, void* stream, int64_t n, const void* ks,
                                      const void* sidx, const void* h0b, int L, void* succ,
                                      void* ovl, void* a_s, void* a_p) {

@@ -101,7 +101,8 @@ def index_kmer_hash(pg_lanes: torch.Tensor, k: int, k1: int, pg_len: int, m: int
 @functools.lru_cache(maxsize=32)
 def offsets_tensor(offs: tuple, device: torch.device) -> torch.Tensor:
     """Probe offsets (a tuple of ints) as an int32 tensor on `device`, made
-    once per offsets and device."""
+    once per offsets and device (kernels C and A of a probe read the same
+    tensor: a probe makes no upload of its offsets)."""
     return torch.tensor(offs, dtype=torch.int32, device=device)
 
 

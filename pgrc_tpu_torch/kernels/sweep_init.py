@@ -1,7 +1,10 @@
 """Kernels G, `sweep_full_hashes`, and G2, `sweep_init_links`: the sweep's
 init (csrc/sweep_init.cu). G replaces greedy_scs.py `_build_init_fn`'s and
 `_build_hash_fn`'s Horner loops (:429-441, :475-483) and writes the init's
-sort key; G2 replaces the init's linking (:442-465) after the stable sort.
+sort key; G2 replaces the init's linking (:442-465) after the stable sort:
+a fill kernel writes every row's unlinked state (:457-465), and G2 proper
+writes the links of equal neighbours over it, touching only tied
+positions.
 """
 from __future__ import annotations
 
@@ -81,39 +84,63 @@ def sweep_full_hashes(lanes: torch.Tensor, nmask: torch.Tensor | None, L: int,
     return (h0, h0b, key) if with_key else (h0, h0b)
 
 
-def sweep_init_links_plain(ks, sidx, h0b, L: int):
+def link_defaults_plain(n: int, device):
+    """The init's unlinked state of n rows: (succ -1, ovl 0 [n] int32,
+    active_s, active_p true [n] bool)."""
+    return (torch.full((n,), -1, dtype=torch.int32, device=device),
+            torch.zeros((n,), dtype=torch.int32, device=device),
+            torch.ones((n,), dtype=torch.bool, device=device),
+            torch.ones((n,), dtype=torch.bool, device=device))
+
+
+def link_defaults(n: int, device):
+    """`link_defaults_plain`; on a CUDA device written in row order by G2's
+    fill kernel (one launch, not four). G2 then patches it."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return link_defaults_plain(n, device)
+    outs = (torch.empty((n,), dtype=torch.int32, device=device),
+            torch.empty((n,), dtype=torch.int32, device=device),
+            torch.empty((n,), dtype=torch.bool, device=device),
+            torch.empty((n,), dtype=torch.bool, device=device))
+    launch("pgrc_sweep_link_defaults", device, n, *(ptr(t) for t in outs))
+    launches["sweep_link_defaults"] += 1
+    return outs
+
+
+def sweep_init_links_plain(ks, sidx, h0b, L: int, state):
     """Sorted position j links row sidx[j] to row sidx[j+1] when their keys
-    and second hashes agree; the last position never links forward."""
-    n = ks.numel()
-    dev = ks.device
+    and second hashes agree; the last position never links forward. The
+    links are written, in place, over `state` (succ, ovl, active_s,
+    active_p): the rows' unlinked state, `link_defaults_plain`'s. -> state"""
+    succ, ovl, a_s, a_p = state
     hb_s = h0b[sidx]
     same = (ks[1:] == ks[:-1]) & (hb_s[1:] == hb_s[:-1])
     me, nx = sidx[:-1][same], sidx[1:][same]
-    succ = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    ovl = torch.zeros((n,), dtype=torch.int32, device=dev)
     succ[me] = nx.to(torch.int32)
     ovl[me] = L
-    a_p = torch.ones((n,), dtype=torch.bool, device=dev)
+    a_s[me] = False
     a_p[nx] = False
-    return succ, ovl, succ < 0, a_p
+    return state
 
 
-def sweep_init_links(ks: torch.Tensor, sidx: torch.Tensor, h0b: torch.Tensor, L: int):
+def sweep_init_links(ks: torch.Tensor, sidx: torch.Tensor, h0b: torch.Tensor, L: int,
+                     state: tuple):
     """ks [n] int64 stably sorted init keys, sidx [n] int64 their rows, h0b
-    [n] int64 the second hashes by row -> (succ, ovl [n] int32, active_s,
-    active_p [n] bool), by row. CUDA tensors run kernel G2."""
+    [n] int64 the second hashes by row, state (succ, ovl [n] int32,
+    active_s, active_p [n] bool) the rows' unlinked state (`link_defaults`)
+    -> state, with the links of equal neighbours written over it in place.
+    CUDA tensors run kernel G2, which touches only tied positions."""
     n = ks.numel()
     check(ks, "ks", torch.int64, (n,))
     check(sidx, "sidx", torch.int64, (n,))
     check(h0b, "h0b", torch.int64, (n,))
-    if on_cpu(ks, sidx, h0b):
-        return sweep_init_links_plain(ks, sidx, h0b, L)
-    dev = ks.device
-    succ = torch.empty((n,), dtype=torch.int32, device=dev)
-    ovl = torch.empty_like(succ)
-    a_s = torch.empty((n,), dtype=torch.bool, device=dev)
-    a_p = torch.empty_like(a_s)
-    launch("pgrc_sweep_init_links", dev, n, ptr(ks), ptr(sidx), ptr(h0b), L, ptr(succ),
-           ptr(ovl), ptr(a_s), ptr(a_p))
+    for t, name, dtype in zip(state, ("succ", "ovl", "active_s", "active_p"),
+                              (torch.int32, torch.int32, torch.bool, torch.bool)):
+        check(t, name, dtype, (n,))
+    if on_cpu(ks, sidx, h0b, *state):
+        return sweep_init_links_plain(ks, sidx, h0b, L, state)
+    launch("pgrc_sweep_init_links", ks.device, n, ptr(ks), ptr(sidx), ptr(h0b), L,
+           *(ptr(t) for t in state))
     launches["sweep_init_links"] += 1
-    return succ, ovl, a_s, a_p
+    return state

@@ -38,7 +38,7 @@ from .. import state
 from ..core import packed
 from ..kernels.sweep import round_buffers, sweep_roll_entries
 from ..kernels.sweep_compact import sweep_compact
-from ..kernels.sweep_init import sweep_full_hashes, sweep_init_links
+from ..kernels.sweep_init import link_defaults, sweep_full_hashes, sweep_init_links
 from ..kernels.sweep_pair_claim import sweep_pair_claim
 from ..utils.trace import span
 from .host import (  # noqa: F401  (re-exported host layer)
@@ -63,13 +63,15 @@ _TABLE = ("lanes", "nmask", "ids", "h", "p", "h2", "p2", "a_s", "a_p")
 
 def _init_links(lanes, nmask, L: int):
     """The init (K1, greedy_scs.py:417-468): both full-read hashes and the
-    init's sort key (kernel G), the library's stable sort of the keys, and
-    the duplicate links of equal neighbours (kernel G2). -> (h0, h0b, succ,
-    ovl, active_s, active_p)."""
+    init's sort key (kernel G), the library's stable sort of the keys, the
+    rows' unlinked state (G2's fill) and the duplicate links of equal
+    neighbours written over it (kernel G2). -> (h0, h0b, succ, ovl,
+    active_s, active_p)."""
     h0, h0b, key = sweep_full_hashes(lanes, nmask, L, with_key=True)
     ks, sidx = torch.sort(key, stable=True)
     del key
-    return (h0, h0b, *sweep_init_links(ks, sidx, h0b, L))
+    state = link_defaults(ks.numel(), ks.device)
+    return (h0, h0b, *sweep_init_links(ks, sidx, h0b, L, state))
 
 
 def round_order(keys, ent, count):

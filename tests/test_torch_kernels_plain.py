@@ -351,3 +351,137 @@ def test_kmer_hash_wrappers_fill_one_key_buffer(pg_case):
         kmer_hash.probe_kmer_hash(lanes, offs, k, buf[:P - 1])
     with pytest.raises(ValueError, match="past the read lanes"):
         kmer_hash.probe_kmer_hash(lanes, tuple(o + 100 for o in offs), k)
+
+
+def test_offsets_tensor_is_made_once_per_offsets_and_device():
+    """Kernels C and A of a probe read one cached offsets tensor: a second
+    call returns the same object, and other offsets another one."""
+    offs = (0, 3, 6, 9)
+    a = kmer_hash.offsets_tensor(offs, torch.device("cpu"))
+    assert kmer_hash.offsets_tensor(offs, torch.zeros(1).device) is a
+    assert a.dtype == torch.int32 and a.tolist() == list(offs)
+    assert kmer_hash.offsets_tensor((0, 3), torch.device("cpu")) is not a
+
+
+ANCHOR_CASES = ("mixed", "S 69", "pg_len < L")
+
+
+def _anchor_case(case, wide):
+    """Reads (planted in a pg with ~3% substitutions where the pg is long
+    enough), their probe offsets and hashes, and the join's anchors [R, S]
+    (position + 1, 0 = none) chosen per slot: none, a start below 0, a
+    start past pg_len - L, or a start in range within 2 of the read's own.
+    int32 positions stay below 2^31, int64 ones reach past it."""
+    rng = np.random.default_rng(ANCHOR_CASES.index(case) + 10 * wide)
+    k, n = 32, 200
+    pg_len = 60 if case == "pg_len < L" else 20_011
+    pg = rng.integers(0, 4, size=pg_len, dtype=np.uint8)
+    offs = tuple(range(0, L - k + 1, 1 if case == "S 69" else 3))
+    if pg_len >= L:
+        near = rng.integers(0, pg_len - L + 1, n)
+        reads = pg[near[:, None] + np.arange(L)[None, :]].copy()
+        err = rng.random(reads.shape) < 0.03
+        reads[err] = (reads[err] + 1) % 4
+    else:
+        near = np.zeros(n, np.int64)
+        reads = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
+    off = np.asarray(offs, np.int64)[None, :]
+    kind = rng.integers(0, 4, size=(n, len(offs)))
+    kind[:, 0] = 3                       # every row has one in-range anchor
+    kind[: n // 10] = 0                  # and a tenth of the rows none at all
+    hi = max(pg_len - L, 0)
+    st = np.clip(near[:, None] + rng.integers(-2, 3, size=kind.shape), 0, hi)
+    pos = np.where(kind == 3, st + off, 0)
+    pos = np.where(kind == 1, rng.integers(0, 1 << 20, size=kind.shape) % np.maximum(off, 1), pos)
+    pos = np.where(kind == 2, pg_len - L + off + 1 + rng.integers(
+        0, (1 << 33) if wide else 1000, size=kind.shape), pos)
+    kind = np.where((kind == 1) & (off == 0), 0, kind)
+    res = np.where(kind == 0, 0, pos + 1)
+    return pg, reads, offs, res, kind
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+@pytest.mark.parametrize("case", ANCHOR_CASES)
+def test_probe_starts_plain_is_the_old_composition(case, wide):
+    """Kernel A's plain path (probe_starts_plain, then the unchanged
+    verify_best_plain) and its CPU wrapper against the probe's old
+    epilogue (matcher.probe before kernel A read the anchors) on anchors
+    with zeros, starts below 0 and past pg_len - L, pg_len < L, S > 64."""
+    pg, reads, offs, res, kind = _anchor_case(case, wide)
+    lanes = uint.np_u32_to_tensor(ref_packed.pack_lanes(reads)[0], "cpu")
+    pg_t = state.pg_lanes_to_device(pg, "cpu")
+    res_t = torch.from_numpy(res)
+    start_all = res_t - 1 - torch.tensor(offs, dtype=torch.int64)[None, :]
+    in_range = (res_t > 0) & (start_all >= 0) & (start_all <= pg.size - L)
+    if not wide:
+        start_all = start_all.to(torch.int32)
+    got_st, got_in = verify.probe_starts_plain(res_t, offs, pg.size, L, wide)
+    assert got_st.dtype == start_all.dtype and torch.equal(got_st, start_all)
+    assert torch.equal(got_in, in_range)
+    np.testing.assert_array_equal(in_range.numpy(), (kind == 3) & (pg.size >= L))
+    for n_verify in (6, 1):
+        want = verify.verify_best_plain(lanes, start_all, in_range, pg_t, max(pg.size - L, 0),
+                                        L, 33, n_verify)
+        got = verify.verify_best(lanes, res_t, offs, pg_t, pg.size, L, 33, n_verify, wide)
+        assert got[1].dtype == (torch.int64 if wide else torch.int32)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert ((want[0] != 255).sum() > 0) == (pg.size >= L)
+
+
+@pytest.mark.parametrize("lead", [1, 2, 3])
+def test_verify_best_refuses_a_pg_off_16_bytes(lead):
+    """Kernel A reads the pg in aligned 16-byte chunks, so verify_best
+    refuses pg lanes that start 4, 8 or 12 bytes past 16 (an offset view),
+    on the CPU as on the card, and takes the same lanes copied to a tensor
+    of their own."""
+    pg, reads, offs, res, _ = _anchor_case("mixed", False)
+    lanes = uint.np_u32_to_tensor(ref_packed.pack_lanes(reads)[0], "cpu")
+    pg_t = state.pg_lanes_to_device(pg, "cpu")
+    buf = torch.zeros(pg_t.numel() + 8, dtype=torch.int32)
+    skip = (-buf.data_ptr() // 4) % 4                 # lanes to the first 16 bytes
+    view = buf[skip + lead: skip + lead + pg_t.numel()]
+    view.copy_(pg_t)
+    assert view.data_ptr() % 16 == 4 * lead
+    args = (torch.from_numpy(res), offs)
+    with pytest.raises(ValueError, match="16 bytes"):
+        verify.verify_best(lanes, *args, view, pg.size, L, 33, 6, False)
+    got = verify.verify_best(lanes, *args, view.clone(), pg.size, L, 33, 6, False)
+    want = verify.verify_best(lanes, *args, pg_t, pg.size, L, 33, 6, False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n_verify", [6, 1])
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+@pytest.mark.parametrize("case", ANCHOR_CASES)
+def test_probe_from_anchors_matches_make_probe(case, wide, n_verify):
+    """The port's probe (C, the join, then A from the anchors) against the
+    reference's `_make_probe` on an index made so that the join hands each
+    probe a chosen anchor: none, a start below 0, a start past pg_len - L,
+    or one in range; pg_len < L and S 69 (more slots than a 64-bit mask)
+    included, int32 and int64 positions."""
+    pg, reads, offs, res, kind = _anchor_case(case, wide)
+    k = 32
+    hashes = np.stack([ref_matcher._window_hashes(r, k)[list(offs)] for r in reads])
+    has = kind != 0
+    ihash = np.concatenate([hashes[has], np.zeros(7, np.uint32)]).astype(np.uint32)
+    ipos = np.concatenate([res[has] - 1, np.full(7, -1)]).astype(np.int64 if wide else np.int32)
+    lanes, _ = ref_packed.pack_lanes(reads)
+    pg_lanes = uint.tensor_to_np_u32(state.pg_lanes_to_device(pg, "cpu"))
+    n = reads.shape[0]
+    fn = jax.jit(ref_matcher._make_probe(n, L, offs, k, ipos.size, pg_lanes.size, 33, wide=wide,
+                                         n_verify=n_verify))
+    mis_r, pos_r = jax.device_get(fn(jnp.asarray(lanes), jnp.asarray(ihash), jnp.asarray(ipos),
+                                     jnp.asarray(pg_lanes), pg.size))
+    ih_t, ip_t = state.index_to_device(ihash, ipos, "cpu", wide=wide)
+    mis, pos = port_matcher.probe(
+        uint.np_u32_to_tensor(lanes, "cpu"), offs, _key_buffer(ih_t, ip_t, n * len(offs)), ip_t,
+        uint.np_u32_to_tensor(pg_lanes, "cpu"), pg.size, L, k, 33, n_verify)
+    assert pos.dtype == (torch.int64 if wide else torch.int32)
+    np.testing.assert_array_equal(mis.numpy(), mis_r)
+    np.testing.assert_array_equal(pos.numpy(), pos_r)
+    if pg.size >= L:   # one verified start in 5 is the read's own at n_verify 1
+        assert (0.3 if n_verify > 1 else 0.1) < (mis_r != 255).mean() < 0.95
+    else:
+        assert (mis_r == 255).all()

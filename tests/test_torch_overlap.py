@@ -116,6 +116,104 @@ def test_init_hashes_and_links_match_reference(with_n):
                                   np.minimum(want[0], np.uint64(2**64 - 2)))
 
 
+TIE_CASES = ("no tie", "all tied", "runs of equal reads")
+
+
+def tie_codes(kind, n=3072):
+    """Reads whose init keys never tie, all tie (each read twice or three
+    times), or tie in runs of 1 to 40 equal reads."""
+    rng = np.random.default_rng(TIE_CASES.index(kind) + 60)
+    if kind == "no tie":
+        return rng.integers(0, 4, size=(n, L), dtype=np.uint8)
+    runs = np.tile([2, 3], n) if kind == "all tied" else rng.integers(1, 41, size=n)
+    src = np.repeat(np.arange(runs.size), runs)[:n]
+    if kind == "all tied":
+        src[-3:] = src[-4]               # no run of one at the end
+    base = rng.integers(0, 4, size=(runs.size, L), dtype=np.uint8)
+    return base[src][rng.permutation(n)]
+
+
+@pytest.mark.parametrize("kind", TIE_CASES)
+def test_init_links_match_init_fn_at_ties(kind):
+    """The init (`_init_links`: G's hashes and key, the stable sort, the
+    rows' unlinked state and G2's links written over it) against the
+    reference's `_build_init_fn` where no key ties, where every key ties
+    and in runs of equal reads."""
+    codes = tie_codes(kind)
+    n = codes.shape[0]
+    lanes, _ = ref_packed.pack_lanes(codes)
+    want = [np.asarray(x) for x in ref._build_init_fn(n, L, False)(
+        lanes, np.zeros((n, 1), np.uint32), np.int32(n))]
+    lt, _ = state.lanes_to_device(lanes, None, "cpu")
+    h0, h0b, succ, ovl, a_s, a_p = port._init_links(lt, None, L)
+    got = [uint.tensor_to_np_u64(h0), uint.tensor_to_np_u64(h0b), a_s.numpy(), a_p.numpy(),
+           succ.numpy(), ovl.numpy()]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    linked = int((want[4] >= 0).sum())
+    assert linked == {"no tie": 0, "all tied": n - len(set(map(bytes, codes)))}.get(
+        kind, linked) and (kind == "no tie" or linked > n // 3)
+
+
+def ref_init_links(ks, sidx, hb_s, L_):
+    """The reference's init linking (greedy_scs.py:448-465) in numpy, from
+    the sorted keys, their rows and the sorted second hashes."""
+    n = ks.size
+    nxt_key_same = np.append(ks[1:] == ks[:-1], False)
+    eq = np.append(hb_s[1:] == hb_s[:-1], False)
+    matched = nxt_key_same & eq
+    nxt = np.clip(np.append(sidx[1:], sidx[:1]), 0, n - 1)
+    succ = np.full(n, -1, np.int32)
+    ovl = np.zeros(n, np.int32)
+    succ[sidx[matched]] = nxt[matched]
+    ovl[sidx[matched]] = L_
+    has_pred = np.zeros(n, bool)
+    has_pred[nxt[matched]] = True
+    return succ, ovl, succ < 0, ~has_pred
+
+
+@pytest.mark.parametrize("pattern", ["h0b changes inside runs", "ties at both ends",
+                                     "one long run"])
+def test_init_links_where_keys_tie_and_h0b_differ(pattern):
+    """G2's plain version (the links written over the unlinked state) where
+    equal keys carry second hashes that differ inside a run (the chain
+    breaks where h0b changes), at the first and last sorted positions, and
+    over one long run, against the reference's linking lines."""
+    rng = np.random.default_rng(len(pattern))
+    runs = {"h0b changes inside runs": [7, 300, 1, 45, 2, 96] * 5,
+            "ties at both ends": [2] + [1] * 500 + [3],
+            "one long run": [2000]}[pattern]
+    run_of = np.repeat(np.arange(len(runs)), runs)
+    n = run_of.size
+    ks = np.sort(rng.choice(1 << 62, len(runs), replace=False))[run_of] - (1 << 61)
+    sidx = rng.permutation(n)
+    pos = np.arange(n)
+    hb_s = run_of * 4 + ((pos // 3) % 2 if pattern != "ties at both ends" else 0)
+    h0b = np.empty(n, np.int64)
+    h0b[sidx] = hb_s
+    args = (torch.from_numpy(ks), torch.from_numpy(sidx), torch.from_numpy(h0b), L)
+    want = ref_init_links(ks, sidx, hb_s, L)
+    for link in (sweep_init.sweep_init_links, sweep_init.sweep_init_links_plain):
+        state = sweep_init.link_defaults(n, "cpu")
+        got = link(*args, state)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+        assert all(g is o for g, o in zip(got, state))     # patched in place
+    assert 0 < (want[0] >= 0).sum() < n - len(runs) + 1
+
+
+@pytest.mark.parametrize("n", [1, 257, 3072])
+def test_link_defaults_are_the_unlinked_state(n):
+    """G2's fill (its plain version, and the wrapper on the CPU): every
+    row's succ -1 and ovl 0 (int32), active_s and active_p true, as the
+    reference's init starts them (greedy_scs.py:457-465)."""
+    for succ, ovl, a_s, a_p in (sweep_init.link_defaults_plain(n, "cpu"),
+                                sweep_init.link_defaults(n, "cpu")):
+        assert succ.shape == ovl.shape == a_s.shape == a_p.shape == (n,)
+        assert succ.dtype == ovl.dtype == torch.int32 and a_s.dtype == a_p.dtype == torch.bool
+        assert (succ == -1).all() and (ovl == 0).all() and a_s.all() and a_p.all()
+
+
 @pytest.mark.parametrize("with_n", [False, True])
 def test_full_hashes_match_hash_fn(with_n):
     """K4 (repair mode's hash-only init): kernel G's plain version against
