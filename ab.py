@@ -6,6 +6,7 @@ that tree's kernels).
     python3 ab.py --what kmer TREE [TREE ...]
     python3 ab.py --what sweep TREE [TREE ...]
     python3 ab.py --what verify TREE [TREE ...]
+    python3 ab.py --what strand TREE [TREE ...]
     python3 ab.py --what encode [--pairs 5] [--reads 2000000] [--encodes 2] TREE_A TREE_B
 
 Each TREE is the root of a checkout. Without a CUDA card it exits 2.
@@ -58,6 +59,17 @@ as the matcher calls it; a tree whose A takes starts and a mask is timed
 with the probe's epilogue before it (matcher.py's anchors-to-starts
 lines, ~8 elementwise launches) and alone. Each against the plain
 composition (the epilogue, then the tree's `verify_best_plain`), bit-equal.
+
+--what strand: the matcher's strand rows the same way, at STRAND_SHAPES:
+SE 2M's strand prep (its 845,073 reads of L 100, without an N mask, as
+the encoder's matcher gets them, and with N in 3% of the symbols) and a
+take of a seeded half of those reads (sorted, as pass 2 takes them), on
+random reads packed on the host and uploaded. A tree with kernel I
+(`kernels/strand_rows.py`) is timed as the matcher calls it, against its
+plain version (bit-equal) and beside one torch.index_select of the same
+2R rows for the take; a tree without it is timed as its matcher ran: the
+prep as `revcomp_lanes` and a `torch.cat`, the take as `torch.index_select`
+from the prep's rows.
 
 --what encode: SE encode walls of two trees in alternating pairs. The input
 is bench.py's SE 2M file (`synth_fastq(src, 2_000_000, 100, 5_000_000,
@@ -114,6 +126,15 @@ VERIFY_SHAPES = (
     ("chip_smoke's synthetic rows, n_verify 1", 5_000_000, 1 << 18, 32, 1, False, 0, 0.7),
     ("chip_smoke's int64 rows", 2_300_000_003, 1 << 18, 40, 6, True, 1 << 31, 0.7),
     ("SE 2M's first probe", 10_781_184, 1_690_146, 32, 6, False, 0, 0.183),
+)
+
+
+# (label, reads, N in this share of the symbols, take this share of the
+# reads) of --what strand: SE 2M's strand prep (chip_smoke.py's capture)
+STRAND_SHAPES = (
+    ("SE 2M's strand prep", 845_073, 0.0, None),
+    ("SE 2M's reads with N in 3%", 845_073, 0.03, None),
+    ("a take of half of SE 2M's reads", 845_073, 0.0, 0.5),
 )
 
 
@@ -347,6 +368,49 @@ def verify_tree(tree: str) -> None:
         torch.cuda.empty_cache()
 
 
+def strand_tree(tree: str) -> None:
+    import_from(tree)
+    import numpy as np
+
+    from pgrc_tpu_torch import kernels, state
+    from pgrc_tpu_torch.core import packed
+
+    cs = load_timer()
+    dev = torch.device("cuda")
+    kernels.build.lib()
+    has_i = importlib.util.find_spec("pgrc_tpu_torch.kernels.strand_rows") is not None
+    rng = np.random.default_rng(13)
+    for label, n, n_frac, take in STRAND_SHAPES:
+        codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
+        if n_frac:
+            codes[rng.random(codes.shape) < n_frac] = 4
+        lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), dev)
+        rows = (None if take is None else torch.from_numpy(
+            np.sort(rng.choice(n, int(n * take), replace=False))).to(dev))
+        note = f"{label}: n={n}, R={n if rows is None else rows.numel()}, N mask {nmask is not None}"
+        nbytes, ops = cs.strand_work(lanes, nmask, L, rows)
+        bound_ms, by = cs.bound(nbytes, ops)
+        fr = torch.cat([lanes, packed.revcomp_lanes(lanes, L, nmask)])
+        idx = None if rows is None else torch.cat([rows, rows + n])
+        runs = []
+        if has_i:
+            from pgrc_tpu_torch.kernels import strand_rows as sr
+
+            cs.check_strand((lanes, nmask, L, rows), f"{tree} {note}", 0, timed=False)
+            runs.append(("I", lambda: sr.strand_rows(lanes, nmask, L, rows)))
+        if rows is None:
+            runs.append(("revcomp_lanes + cat", lambda: torch.cat(
+                [lanes, packed.revcomp_lanes(lanes, L, nmask)])))
+        else:
+            runs.append(("index_select", lambda: torch.index_select(fr, 0, idx)))
+        for name, fn in runs:
+            ms = cs.cuda_ms(fn, REPS)
+            print(f"[ab] {tree} strand rows {name} {note}: {ms:.4f} ms, bound {bound_ms:.4f} "
+                  f"ms ({by}: {nbytes} B), share {bound_ms / ms:.3f}", flush=True)
+        del lanes, nmask, rows, fr, idx, runs
+        torch.cuda.empty_cache()
+
+
 def encode_tree(tree: str, src: str, encodes: int) -> None:
     """One warm-up and `encodes` timed SE compresses of src on the card."""
     import_from(tree)
@@ -413,7 +477,8 @@ def encode_ab(trees: list, pairs: int, reads: int, encodes: int) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
-    ap.add_argument("--what", choices=("kmer", "sweep", "verify", "encode"), required=True)
+    ap.add_argument("--what", choices=("kmer", "sweep", "verify", "strand", "encode"),
+                    required=True)
     ap.add_argument("--pairs", type=int, default=5, help="encode: alternating pairs")
     ap.add_argument("--reads", type=int, default=2_000_000, help="encode: SE reads")
     ap.add_argument("--encodes", type=int, default=2, help="encode: timed encodes a process")
@@ -432,6 +497,8 @@ def main(argv=None) -> int:
             sweep_tree(trees[0])
         elif args.what == "verify":
             verify_tree(trees[0])
+        elif args.what == "strand":
+            strand_tree(trees[0])
         else:
             encode_tree(trees[0], args.src, args.encodes)
         return 0

@@ -38,22 +38,31 @@ Phases, each printed with its times; the first failure exits nonzero:
      tie, every position tied, h0b changing inside runs of equal keys,
      tied pairs across a warp's and a block's edge, ties at the first and
      last positions), and the init (`_init_links`: G, the sort, G2) on the
-     card against its CPU run, each over 10 launches;
+     card against its CPU run, each over 10 launches; kernel I
+     (strand_rows) in its prep and take forms on 34 edge cases (every lane
+     count's ends from L 16 to 255, rows off the block, no N, N in 3%, rows
+     all N, N at a read's first and last position, a take that repeats
+     rows, one row, one row taken 3000 times, random lanes and masks), each
+     over 10 launches; then the port's graft entry
+     (__graft_entry_torch__.entry) on the card against its CPU run;
   4. SE 200k (bench.py's headline input): compress through the port's CLI
      on the card, decode with the port's decoder, require an exact multiset
      round trip, every kernel launched, and bits/base <= 0.1412;
   5. SE 2M (bench.py's scale input): the same, with bits/base <= 0.1384;
-     A, E, F, G, G2 (and its fill), D and H against their plain versions
-     on the inputs of
+     A, E, F, G, G2 (and its fill), D, H and I against their plain
+     versions on the inputs of
      this encode's first probe, first join, first init, first sweep round
-     and first compaction (and its share of tied init positions), the
+     and first compaction (and its share of tied init positions) and its
+     strand prep (I's take form also on a seeded half of those reads), the
      init on the card against its CPU run there; a second encode under
      torch.profiler, without the spies
      that copy those inputs: the peak device memory, the device busy share, the kernels that take the
      device time (B, C, the sweep's kernels, the sorts, any cat or
      elementwise kernel by name), no cummax kernel, the join's sort
      dispatching torch.sort alone (its keys are B's and C's outputs), no
-     op but a view between the join's anchors and kernel A, and
+     op but a view between the join's anchors and kernel A, match_reads
+     building its strand rows with kernel I alone (beside the reads' upload)
+     and running no index_select (StrandOps), and
      the sweep (every find_overlaps call) dispatching no nonzero, cat, any
      or boolean-mask indexing, with its host syncs counted;
   6. large pg: the matcher with the encoder's lazy index where the blocked
@@ -70,17 +79,20 @@ Phases, each printed with its times; the first failure exits nonzero:
   7. modes at 30k reads (bench.py's generator, with a pair file): SE -l 2,
      PE, MIN_PE, SE_ORD, PE_ORD, and SE with the sweep and index caps
      lowered (a partitioned sweep, a blocked index): the card's archive
-     byte-identical to the port's CPU run, an exact decode, kernels launched;
+     byte-identical to the port's CPU run, an exact decode, kernels launched,
+     StrandOps as in phase 5, kernel I's take form launched in SE -l 2 (and
+     in no other mode) and held against its plain version on its pass-2
+     take, timed beside one torch.index_select of the same rows;
   8. PE 2x200k and SE_ORD 200k (bench.py's inputs): exact round trips,
      bits/base, Mbases/s, peak device memory, kernels launched.
 "Kernels launched" is each run's expected set, no more and no fewer among
-the sweep's: the matcher's A, B, C and E; G, D and F wherever a device
+the sweep's: the matcher's A, B, C, E and I; G, D and F wherever a device
 sweep ran (inputs past 3072 reads), G2 and its fill (sweep_link_defaults)
 where one ran its init (not a repair), and H where a device sweep table
 had more than 32,768 rows (the one table size that compacts).
     python3 chip_smoke.py --kernels-only
-runs phases 1-3 alone (a kernel's first build and check) and prints no
-result.
+runs phases 1-3 and the entry alone (a kernel's first build and check)
+and prints no result.
 The last lines are the kernels' JSON record (with each kernel's bound: the
 bytes it must move over 3.35 TB/s or the 32-bit integer operations of the
 function's cheapest exact formulation over 16.7 T/s, whichever is larger),
@@ -133,6 +145,8 @@ REPLACES = {
                          "pgrc_tpu/overlap/greedy_scs.py:442"),
     "sweep_compact": ("pgrc_tpu_torch/kernels/csrc/sweep_compact.cu",
                       "pgrc_tpu/overlap/greedy_scs.py:488"),
+    "strand_rows": ("pgrc_tpu_torch/kernels/csrc/strand_rows.cu",
+                    "pgrc_tpu/align/matcher.py:654, pgrc_tpu/core/packed.py:205"),
 }
 # variants: JSON name -> (kernel, the launch counter of the path that runs it)
 VARIANTS = {
@@ -140,10 +154,14 @@ VARIANTS = {
     "index_kmer_hash.block": ("index_kmer_hash", "index_kmer_hash"),
     "index_kmer_hash.int64": ("index_kmer_hash", "index_kmer_hash.int64"),
     "join_carry.int64": ("join_carry", "join_carry.int64"),
+    "strand_rows.take": ("strand_rows", "strand_rows.take"),
 }
+# a variant that replaces another program than its kernel's main form
+VARIANT_REPLACES = {"strand_rows.take": "pgrc_tpu/align/matcher.py:700"}
 # the main path's int32 kernels: SE 200k and SE 2M launch each of them
 MAIN_KERNELS = tuple(REPLACES)
-MATCH_KERNELS = ("verify_best", "index_kmer_hash", "probe_kmer_hash", "join_carry")
+MATCH_KERNELS = ("verify_best", "index_kmer_hash", "probe_kmer_hash", "join_carry",
+                 "strand_rows")
 SWEEP_KERNELS = ("sweep_full_hashes", "sweep_link_defaults", "sweep_init_links",
                  "sweep_roll_entries", "sweep_pair_claim", "sweep_compact")
 LARGE_PGS = (  # label, pg symbols, seed, lane_off of the kernel B block checked
@@ -192,9 +210,16 @@ INT_OPS_S = 132 * 64 * 1.98e9
 # clamp and flip, 2; A per slot a read needs, the anchor's start (a 64-bit
 # subtract, two) and its range test (three compares, two ands); G2 per sorted
 # position its two key compares, and per tied position its two hash
-# compares and the selects of succ, ovl and the flags
+# compares and the selects of succ, ovl and the flags; I per reverse
+# complement lane (NOT, bit reversal, the pair swap's two shifts, two ands
+# and or, the funnel shift), and with N its mask word's reversal and shift
+# (half a lane each), the 16-bit spread (four shift-or-and steps and the
+# last shift-or) and the and-not
 OPS_A_LANE, OPS_A_SLOT, OPS_HASH_SYM, OPS_HASH_KMER, OPS_SCAN = 8, 7, 4, 2, 8
 OPS_D_ENTRY, OPS_G_BYTE, OPS_G_NIBBLE, OPS_G_ROW, OPS_G2_POS, OPS_G2_TIED = 18, 10, 8, 2, 2, 6
+OPS_I_LANE, OPS_I_N_LANE = 8, 8 + 1 + 14 + 2
+# the read lengths of kernel I's edge cases: every lane count's ends
+STRAND_LENGTHS = (16, 17, 31, 32, 33, 37, 63, 64, 65, 80, 100, 128, 129, 200, 255)
 # launches of E and F held against one plain result on each input: a race
 # in a look-back scan shows only now and then
 CHECK_LAUNCHES = 10
@@ -1073,9 +1098,95 @@ def hash_edge_cases(dev) -> int:
     return len(cases)
 
 
+def strand_work(lanes, nmask, L_, rows):
+    """Bytes and operations of one strand_rows call on these inputs: each
+    row it takes read once (W+1 lanes, the Wn N-mask words where there is a
+    mask; a row taken twice is read once), its row ids, 2R rows of W+1
+    lanes written; the operations of R reverse-complement rows."""
+    W, Wn = (L_ + 15) // 16, (L_ + 31) // 32
+    R = lanes.shape[0] if rows is None else rows.numel()
+    read = R if rows is None else int(torch.unique(rows).numel())
+    nbytes = (read * ((W + 1) + (Wn if nmask is not None else 0)) * 4 + 2 * R * (W + 1) * 4
+              + (8 * R if rows is not None else 0))
+    return nbytes, R * W * (OPS_I_N_LANE if nmask is not None else OPS_I_LANE)
+
+
+def check_strand(args, note, reps, timed=True, library=None):
+    """Kernel I against its plain version on (lanes, nmask, L, rows): every
+    one of CHECK_LAUNCHES launches bit-equal."""
+    from pgrc_tpu_torch.kernels import strand_rows as sr
+
+    run = lambda: (sr.strand_rows(*args),)
+    run_plain = lambda: (sr.strand_rows_plain(*args),)
+    want = run_plain()
+    err = max(max_abs_err(run(), want) for _ in range(CHECK_LAUNCHES))
+    del want
+    require(err == 0, f"strand_rows {note}: kernel differs from its plain version")
+    if not timed:
+        return err
+    return record("strand_rows", run, run_plain, reps, note, *strand_work(*args),
+                  library=library, err=err)
+
+
+def strand_take(lanes, nmask, L_, rows):
+    """The pass-2 take's library yardstick: one torch.index_select of the
+    same 2R rows from pass 1's rows (kernel I's prep form, made once here)."""
+    from pgrc_tpu_torch.kernels import strand_rows as sr
+
+    fr = sr.strand_rows(lanes, nmask, L_)
+    idx = torch.cat([rows, rows + lanes.shape[0]])
+    return lambda: torch.index_select(fr, 0, idx)
+
+
+def strand_edge_cases(dev) -> int:
+    """Kernel I in both forms at every lane count's ends (STRAND_LENGTHS),
+    rows off its block, with no N, N in 3% of the symbols, and rows all N
+    with N at a read's first and last position; a take that is shuffled
+    and repeats rows, one row, one row taken 3000 times, and random lanes
+    and masks (the pad lane and the bits past L set). Each case over
+    CHECK_LAUNCHES launches bit-equal; -> the number of cases."""
+    from pgrc_tpu_torch import state
+    from pgrc_tpu_torch.core import packed
+
+    rng = np.random.default_rng(987)
+    cases = 0
+
+    def both(label, lanes, nmask, L_, rows):
+        nonlocal cases
+        check_strand((lanes, nmask, L_, None), f"{label}, every row", 0, timed=False)
+        check_strand((lanes, nmask, L_, rows), f"{label}, a take of {rows.numel()} rows", 0,
+                     timed=False)
+        cases += 2
+
+    for i, L_ in enumerate(STRAND_LENGTHS):
+        n = 4096 + 37 + i          # n (W + 1) threads, off the 256-thread block
+        codes = rng.integers(0, 4, size=(n, L_), dtype=np.uint8)
+        kind = ("no N", "N in 3%", "rows all N, N first and last")[i % 3]
+        if i % 3 == 1:
+            codes[rng.random(codes.shape) < 0.03] = 4
+        elif i % 3 == 2:
+            codes[::7] = 4
+            codes[1::7, 0] = 4
+            codes[2::7, -1] = 4
+        lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), dev)
+        take = np.concatenate([rng.choice(n, n // 3, replace=False), [5, 5, 5, n - 1]])
+        rows = torch.from_numpy(rng.permutation(take)).to(dev)
+        both(f"L {L_}, {n} reads, {kind}", lanes, nmask, L_, rows)
+    codes = rng.integers(0, 5, size=(1, 100), dtype=np.uint8)
+    codes[0, [0, 99]] = 4
+    lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), dev)
+    both("L 100, one read with N", lanes, nmask, 100, torch.zeros(1, dtype=torch.int64,
+                                                                  device=dev))
+    lanes = torch.randint(-(1 << 31), (1 << 31) - 1, (3001, 8), dtype=torch.int32, device=dev)
+    nmask = torch.randint(-(1 << 31), (1 << 31) - 1, (3001, 5), dtype=torch.int32, device=dev)
+    both("L 100, random lanes and masks", lanes, nmask, 100,
+         torch.full((3000,), 1234, dtype=torch.int64, device=dev))
+    return cases
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version on the card, at the main path's
-    shapes (E, F, G, G2, D and H at theirs in phases 5 and 6), and every
+    shapes (E, F, G, G2, D, H and I at theirs in phases 5-7), and every
     kernel on its edge cases; returns {name: JSON fields}."""
     from pgrc_tpu_torch import state
     from pgrc_tpu_torch.align.matcher import probe_offsets
@@ -1147,6 +1258,9 @@ def phase_kernels(dev) -> dict:
     cases = verify_edge_cases(dev)
     say(f"[kernel] verify_best: {cases} edge cases bit-equal in {time.time() - t0:.1f} s")
     t0 = time.time()
+    cases = strand_edge_cases(dev)
+    say(f"[kernel] strand_rows: {cases} edge cases bit-equal in {time.time() - t0:.1f} s")
+    t0 = time.time()
     cases = sweep_edge_cases(dev)
     say(f"[kernel] sweep_full_hashes, sweep_init_links, sweep_roll_entries, sweep_compact: "
         f"{cases} edge cases bit-equal in {time.time() - t0:.1f} s")
@@ -1163,15 +1277,16 @@ def phase_kernels(dev) -> dict:
 class FirstCall:
     """Spy on a kernel wrapper of the main path: calls through, and keeps
     copies of the inputs of its first call (before a call that writes in
-    place). Tensor arguments at the indices in `hold` are kept as they are
-    (ones the run never writes and keeps alive anyway), those in `host`
-    copied to the host (so the copy adds nothing to the run's peak device
-    memory), the others cloned on the card. The wrapper counts its own
-    launches, so the spy changes none."""
+    place), or of the first for which `when(args)` holds. Tensor arguments
+    at the indices in `hold` are kept as they are (ones the run never
+    writes and keeps alive anyway), those in `host` copied to the host (so
+    the copy adds nothing to the run's peak device memory), the others
+    cloned on the card. The wrapper counts its own launches, so the spy
+    changes none."""
 
-    def __init__(self, module, name, hold=(), host=()):
+    def __init__(self, module, name, hold=(), host=(), when=lambda args: True):
         self.module, self.name, self.hold, self.host = module, name, hold, host
-        self.real, self.args = getattr(module, name), None
+        self.when, self.real, self.args = when, getattr(module, name), None
 
     def __enter__(self):
         def copy(i, a):
@@ -1180,7 +1295,7 @@ class FirstCall:
             return a.cpu() if i in self.host else a.clone()
 
         def spy(*args, **kwargs):
-            if self.args is None:
+            if self.args is None and self.when(args):
                 self.args = tuple(copy(i, a) for i, a in enumerate(args)) + tuple(kwargs.values())
             return self.real(*args, **kwargs)
 
@@ -1309,6 +1424,87 @@ class ProbeGap:
         return False
 
 
+class StrandOps:
+    """Spy on matcher.match_reads: the aten ops each call dispatches outside
+    its passes (matcher.probe_rows) and its index (matcher.device_index),
+    which are the reads' upload, kernel I's strand rows for pass 1 and its
+    row take for pass 2; every op it dispatches anywhere; and kernel I's
+    calls in each form. Outside the passes and the index only the upload's
+    copies and kernel I's output allocation may run (the wrapper dispatches
+    nothing else on the card), and no index_select may run at all."""
+
+    ALLOWED = {"aten._to_copy", "aten.copy_", "aten.empty", "aten.lift_fresh", "aten.alias",
+               "aten.view", "aten.detach"}
+    NAMES = ("match_reads", "probe_rows", "device_index", "strand_rows")
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        from pgrc_tpu_torch.align import matcher
+
+        self.outside, self.anywhere = set(), set()
+        self.calls = self.prep = self.takes = 0
+        inner = [0]
+        real = self.real = {n: getattr(matcher, n) for n in self.NAMES}
+        spy = self
+
+        class Log(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = str(func.overloadpacket)
+                spy.anywhere.add(name)
+                if not inner[0]:
+                    spy.outside.add(name)
+                return func(*args, **(kwargs or {}))
+
+        def match_reads(*args, **kwargs):
+            self.calls += 1
+            with Log():
+                return real["match_reads"](*args, **kwargs)
+
+        def within(name):
+            def call(*args, **kwargs):
+                inner[0] += 1
+                try:
+                    return real[name](*args, **kwargs)
+                finally:
+                    inner[0] -= 1
+            return call
+
+        def strand_rows(lanes, nmask, L_, rows=None):
+            if rows is None:
+                self.prep += 1
+            else:
+                self.takes += 1
+            return real["strand_rows"](lanes, nmask, L_, rows)
+
+        for name, fn in zip(self.NAMES, (match_reads, within("probe_rows"),
+                                         within("device_index"), strand_rows)):
+            setattr(matcher, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        from pgrc_tpu_torch.align import matcher
+
+        for name, fn in self.real.items():
+            setattr(matcher, name, fn)
+        return False
+
+    def require(self, label, takes):
+        """Every match_reads built its rows with kernel I and dispatched
+        nothing else outside its passes and index, none an index_select;
+        `takes`: whether pass 2 ran (a take each call) or not (none)."""
+        extra = sorted(self.outside - self.ALLOWED)
+        say(f"[{label}] match_reads: {self.calls} calls, kernel I {self.prep} strand preps and "
+            f"{self.takes} pass-2 takes; ops outside the passes and the index: "
+            f"{sorted(self.outside)}")
+        require(self.calls > 0 and self.prep == self.calls and not extra,
+                f"{label}: the strand prep ran {extra} beside kernel I")
+        require("aten.index_select" not in self.anywhere,
+                f"{label}: match_reads ran index_select")
+        require(self.takes == (self.calls if takes else 0),
+                f"{label}: {self.takes} pass-2 takes in {self.calls} match_reads calls")
+
+
 class SweepSpy:
     """Spy on greedy_scs.find_overlaps: records each device sweep table (its
     rows, and whether it ran the init or a repair) — not the numpy mirror
@@ -1415,7 +1611,7 @@ def require_launched(label, launches, spy, matcher=True):
 # sweep's sorts, the scans' scratch memsets, and what a concatenation or an
 # elementwise key pass would launch
 TRACED_GROUPS = (("A", "verify_best"), ("B", "index_kmer_hash"), ("C", "probe_kmer_hash"),
-                 ("E", "join_carry"),
+                 ("E", "join_carry"), ("I", "strand_rows"),
                  ("G", "sweep_full_hashes"), ("G2 fill", "sweep_link_defaults"),
                  ("G2", "sweep_init_links"),
                  ("D", "sweep_roll_entries"), ("F", "sweep_pair_claim"),
@@ -1431,7 +1627,9 @@ def profiled(fn, label, banned=(), sweep=False):
     named in `banned` or an aten::cummax op ran, or if the join's sort
     (matcher.join_sort) dispatched any op but torch.sort and its slice of
     the key buffer, or any op but a view ran between the join's anchors and
-    kernel A (ProbeGap). With `sweep`, also fail if the sweep dispatched an op
+    kernel A (ProbeGap), or match_reads built its strand rows with anything
+    but kernel I and the reads' upload or ran index_select (StrandOps). With
+    `sweep`, also fail if the sweep dispatched an op
     of SweepSpy.BANNED or indexed by a boolean mask, or read the card more
     often than once a round (D's count), once a segment end (H's counts)
     and twice a sweep (its links); print those host syncs. -> fn's
@@ -1448,6 +1646,7 @@ def profiled(fn, label, banned=(), sweep=False):
     was, trace._ON = trace._ON, True
     try:
         with JoinOps() as join_ops, ProbeGap() as gap, SweepSpy(dispatch=sweep) as sweep_spy, \
+                StrandOps() as strand, \
                 profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             res = fn()
             torch.cuda.synchronize()
@@ -1477,6 +1676,7 @@ def profiled(fn, label, banned=(), sweep=False):
         f"A: {sorted(gap.ops) or 'none'}")
     require(gap.calls > 0 and not between,
             f"{label}: ops ran between the join and kernel A: {between}")
+    strand.require(label, takes=False)
     ran = sorted({e.key for e in events if e.key in banned or "cummax" in e.key})
     require(not ran, f"{label}: the traced run launched cummax: {ran}")
     require(busy > 0, f"{label}: the profiler saw no device time")
@@ -1512,7 +1712,8 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
     archives must be byte-identical) and bench.py's pair file is written
     beside the input for phase 8; on the others, E, F, G, G2, D and H are
     held against their plain versions on the encode's first join, first
-    init, first sweep round and first compaction, and a second encode runs
+    init, first sweep round and first compaction, I on its strand prep, and
+    a second encode runs
     under torch.profiler with the sweep's dispatch spy. -> (launches, src,
     pair, codes)."""
     from contextlib import ExitStack
@@ -1540,6 +1741,7 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
         if not first:
             join = stack.enter_context(FirstCall(matcher, "join_carry"))
             probe = stack.enter_context(FirstCall(matcher, "verify_best", **VERIFY_SPY))
+            prep = stack.enter_context(FirstCall(matcher, "strand_rows", hold=(0, 1)))
             firsts = {name: stack.enter_context(FirstCall(greedy_scs, name)) for name in (
                 "sweep_full_hashes", "sweep_init_links", "sweep_roll_entries",
                 "sweep_pair_claim", "sweep_compact")}
@@ -1602,6 +1804,18 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
             f"m={args[0].numel()} entries of {args[2].numel()} rows", 20)
         timings["verify_best"] = check_verify_call(probe.args, dev, f"{label}'s first probe")
         probe.args = None
+        lanes, nmask, L_ = prep.args
+        timings["strand_rows"] = check_strand(
+            (lanes, nmask, L_, None), f"{label}'s strand prep: n={lanes.shape[0]} reads, "
+            f"L {L_}, N mask {nmask is not None}", 20)
+        # the take form at this prep's scale (pass 2 runs only with -l N;
+        # its main-path row is phase 7's SE -l 2): a seeded half of the reads
+        rows = torch.from_numpy(np.sort(np.random.default_rng(17).choice(
+            lanes.shape[0], lanes.shape[0] // 2, replace=False))).to(dev)
+        check_strand((lanes, nmask, L_, rows), f"{label}'s reads, a take of half of them: "
+                     f"R={rows.numel()}", 20, library=strand_take(lanes, nmask, L_, rows))
+        prep.args = None
+        del lanes, nmask, rows
         args = firsts["sweep_full_hashes"].args
         timings["sweep_full_hashes"] = check_hashes(
             args, f"{label}'s first init: n={args[0].shape[0]} N={args[1] is not None}", 20)
@@ -1808,6 +2022,8 @@ def phase_large_pg(dev, label, pg_len, seed, lane_off, banned):
     require(launches[a_key] > 0 and launches["probe_kmer_hash"] > 0
             and launches[e_key] >= blocks and not any(launches[o] for o in other),
             f"{label}: the probe did not run on its {'int64' if wide else 'int32'} kernels")
+    require(launches["strand_rows"] == 1 and launches["strand_rows.take"] == 0,
+            f"{label}: {launches['strand_rows']} strand preps by kernel I, not one")
     del res
     t0 = time.time()
     skey, perm, ipos, P = join.args
@@ -1829,8 +2045,12 @@ def phase_large_pg(dev, label, pg_len, seed, lane_off, banned):
     return out, launches
 
 
-def phase_modes(work: str) -> None:
-    """Every archive mode on the card against the port's own CPU run."""
+def phase_modes(work: str, timings: dict) -> int:
+    """Every archive mode on the card against the port's own CPU run; kernel
+    I's take form held against its plain version on SE -l 2's pass-2 take.
+    -> that run's launches of the take form."""
+    from contextlib import ExitStack
+
     from pgrc_tpu_torch import cli, kernels, synth
     from pgrc_tpu_torch.align import matcher
     from pgrc_tpu_torch.overlap import greedy_scs
@@ -1838,7 +2058,7 @@ def phase_modes(work: str) -> None:
     src, pair = (os.path.join(work, f"modes{i}.fastq") for i in (1, 2))
     codes = {"{s}": synth.synth_fastq(src, MODE_READS, L, MODE_GENOME, seed=5, pair=pair),
              "{p}": fastq_codes(pair)}
-    parts = []
+    parts, take_launches = [], 0
     real_partitioned = greedy_scs._find_overlaps_partitioned
 
     def partitioned(codes_, coef, *, device):
@@ -1855,12 +2075,19 @@ def phase_modes(work: str) -> None:
         try:
             name = label.replace(" ", "_")
             card, cpu = (os.path.join(work, f"{name}.{d}.pgtc") for d in ("card", "cpu"))
+            two_pass = "-l" in argv
             kernels.reset_launches()
             t0 = time.time()
-            with SweepSpy() as spy:
+            with ExitStack() as stack:
+                spy = stack.enter_context(SweepSpy())
+                strand = stack.enter_context(StrandOps())
+                # held, not cloned: a clone would dispatch inside StrandOps's
+                # view of the take (the matcher writes none of these)
+                take = stack.enter_context(FirstCall(matcher, "strand_rows", hold=(0, 1, 3),
+                                                     when=lambda args: len(args) > 3))
                 require(cli.main(["--device", "cuda", *argv, card]) == 0,
                         f"{label}: compress on the card failed")
-            torch.cuda.synchronize()
+                torch.cuda.synchronize()
             card_s = time.time() - t0
             launches = dict(kernels.launches)
             t0 = time.time()
@@ -1880,9 +2107,22 @@ def phase_modes(work: str) -> None:
         require(same, f"{label}: the card's archive differs from the CPU's")
         require(exact, f"{label}: the decoded reads differ from the input")
         require_launched(f"modes {label}", launches, spy)
+        strand.require(f"modes {label}", takes=two_pass)
+        require((launches["strand_rows.take"] > 0) == two_pass,
+                f"{label}: {launches['strand_rows.take']} launches of kernel I's take form")
         if capped:
             require(parts and launches["index_kmer_hash"] >= 2,
                     f"{label}: no partitioned sweep or no blocked index")
+        if two_pass:
+            take_launches = launches["strand_rows.take"]
+            lanes, nmask, L_, rows = take.args
+            timings["strand_rows.take"] = check_strand(
+                take.args, f"{label}'s pass-2 take: R={rows.numel()} of {lanes.shape[0]} "
+                f"reads, L {L_}, N mask {nmask is not None}", 20,
+                library=strand_take(lanes, nmask, L_, rows))
+            take.args = None
+            del lanes, nmask, rows
+    return take_launches
 
 
 def phase_bench_200k(src: str, pair: str, codes) -> None:
@@ -1917,6 +2157,23 @@ def phase_bench_200k(src: str, pair: str, codes) -> None:
         require_launched(label, launches, spy)
 
 
+def phase_entry() -> None:
+    """The port's graft entry (__graft_entry_torch__.py) on the card: its
+    probe's (mis, pos) equal to its own CPU run's, and most reads matched."""
+    import __graft_entry_torch__ as ge
+
+    t0 = time.time()
+    fn, args = ge.entry(device="cuda")
+    mis, pos = (o.cpu() for o in fn(*args))
+    fn, args = ge.entry(device="cpu")
+    want = fn(*args)
+    same = torch.equal(mis, want[0]) and torch.equal(pos, want[1])
+    matched = float((mis != 255).float().mean())
+    say(f"[entry] __graft_entry_torch__.entry(): mis and pos {tuple(mis.shape)} equal to the "
+        f"CPU run's: {same}, {matched:.4f} matched, {time.time() - t0:.1f} s")
+    require(same and matched > 0.9, "the graft entry's probe differs from its CPU run")
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if args not in ([], ["--kernels-only"]):
@@ -1935,6 +2192,7 @@ def main(argv=None) -> int:
     phase_build()
     timings = phase_kernels(dev)
     banned = cummax_kernel_names(dev)
+    phase_entry()
     say(f"[time] phases 1-3 {time.time() - t_all:.1f} s")
     if args:
         return 0
@@ -1955,7 +2213,7 @@ def main(argv=None) -> int:
                 variant_launches[name] = path_launches[VARIANTS[name][1]]
             say(f"[time] phase 6 {label} {time.time() - t0:.1f} s")
         t0 = time.time()
-        phase_modes(work)
+        variant_launches["strand_rows.take"] = phase_modes(work, timings)
         say(f"[time] phase 7 {time.time() - t0:.1f} s")
         t0 = time.time()
         phase_bench_200k(src, pair, codes)
@@ -1967,7 +2225,8 @@ def main(argv=None) -> int:
     rows += [(name, VARIANTS[name][0], variant_launches[name]) for name in VARIANTS]
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[kernel][0],
-         "replaces": REPLACES[kernel][1], "launches": n, **timings[name]}
+         "replaces": VARIANT_REPLACES.get(name, REPLACES[kernel][1]), "launches": n,
+         **timings[name]}
         for name, kernel, n in rows]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,8 @@ early and only the others fan out (:625-724). Reads both strands missed go
 to the reference's host rescue. Pgs past 2^31 symbols carry int64
 positions (the wide probe). Results are bit-identical to the reference's;
 the host pieces (offsets, batch cap, rescue) are the port's copy of its
-own, in `host.py`.
+own, in `host.py`. Kernel I writes each pass's rows: every read on both
+strands for pass 1, the reads pass 1 did not accept for pass 2.
 """
 from __future__ import annotations
 
@@ -25,9 +26,9 @@ import torch
 
 from .. import state
 from ..core import packed
-from ..core.packed import revcomp_lanes
 from ..kernels.join_carry import JOIN_MAX, join_carry
 from ..kernels.kmer_hash import index_keys, index_kmer_hash, probe_kmer_hash
+from ..kernels.strand_rows import strand_rows
 from ..kernels.verify import verify_best
 from ..utils.trace import span
 from .host import (  # noqa: F401  (re-exported host layer)
@@ -210,25 +211,27 @@ def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
     with span(f"match pack n={n}"):
         lanes, nmask = state.lanes_to_device(*packed.pack_lanes(read_codes),
                                              pg_lanes.device)
-        # rows [0, n) forward, [n, 2n) reverse complement
-        lanes_fr = torch.cat([lanes, revcomp_lanes(lanes, L, nmask)])
+        # rows [0, n) forward, [n, 2n) reverse complement (kernel I)
+        lanes_fr = strand_rows(lanes, nmask, L)
     args = (index, blocks, pg_lanes, wide, L, max_mismatches)
     with span(f"match pass1 rows=2x{n} offs={len(offs_p1)} blocks={len(blocks)}"):
         bm, bp = probe_rows(lanes_fr, offs_p1, *args,
                             n_verify2 if single_pass else 1,
                             _batch_cap(i_pad, len(offs_p1)))
+    del lanes_fr   # pass 2 takes its rows from the upload
     fm, rm = bm[:n].copy(), bm[n:].copy()
     fp, rp = bp[:n].copy(), bp[n:].copy()
 
     # pass 2: the full fan-out on both strands of the reads pass 1 did not
-    # accept (matcher.py:696-724); the row take is the reference's p2gather
+    # accept (matcher.py:696-724); kernel I's take form is the reference's
+    # p2gather: [rows forward; rows reverse complement]
     rows = (np.zeros(0, dtype=np.int64) if single_pass
             else np.nonzero(np.minimum(fm, rm) > accept_mis)[0])
     if rows.size:
         k = rows.size
-        take = torch.from_numpy(np.concatenate([rows, n + rows])).to(pg_lanes.device)
+        take = torch.from_numpy(rows).to(pg_lanes.device)
         with span(f"match pass2 rows={2 * k}"):
-            mis_t, pos_t = probe_rows(torch.index_select(lanes_fr, 0, take), offs_full,
+            mis_t, pos_t = probe_rows(strand_rows(lanes, nmask, L, take), offs_full,
                                       *args, n_verify2, _batch_cap(i_pad, len(offs_full)))
         better_f = mis_t[:k] < fm[rows]
         fm[rows] = np.where(better_f, mis_t[:k], fm[rows])

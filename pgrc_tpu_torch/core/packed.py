@@ -78,7 +78,8 @@ def revcomp_lanes(lanes: torch.Tensor, read_len: int,
 
     `lanes` [n, W+1] int32 -> [n, W+1] int32 in the same layout, with the
     groups landing on (reversed) N positions cleared to A: N probes as A on
-    both strands."""
+    both strands. The plain half of kernel I (`kernels.strand_rows`), which
+    writes the matcher's strand rows on the card."""
     L = read_len
     W = (L + SYMS_PER_LANE - 1) // SYMS_PER_LANE
     n = lanes.shape[0]

@@ -3,9 +3,10 @@
 Every wrapper dispatches on where its tensors live: CPU tensors run the
 plain version (the CPU tests and the kernels' reference), CUDA tensors
 launch the kernel — with no try and no fallback: a build or launch failure
-raises. `launches` counts kernel launches per kernel, and per position type
+raises. `launches` counts kernel launches per kernel, per position type
 where a kernel has an int64 form (`<name>.int64`, the wide probe of pgs past
-2^31 symbols), so a run can show that its path went through the kernels.
+2^31 symbols) and per form where a kernel has a row take (`<name>.take`), so
+a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ launches = {"verify_best": 0, "verify_best.int64": 0, "index_kmer_hash": 0,
             "index_kmer_hash.int64": 0, "probe_kmer_hash": 0, "sweep_roll_entries": 0,
             "join_carry": 0, "join_carry.int64": 0, "sweep_pair_claim": 0,
             "sweep_full_hashes": 0, "sweep_link_defaults": 0, "sweep_init_links": 0,
-            "sweep_compact": 0}
+            "sweep_compact": 0, "strand_rows": 0, "strand_rows.take": 0}
 # scratch word of a compacting scan's first total (csrc/seg_scan.cuh
 # kTotalsWord): kernel D's entry count, kernel H's three counts
 TOTALS_WORD = 1

@@ -46,6 +46,7 @@ SIGNATURES = {
     "pgrc_join_carry": [_I, _P, _I64, _P, _P, _P, _I, _P, _P, _I64],
     "pgrc_sweep_pair_claim": [_I, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P,
                               _P, _P, _I, _P, _I64],
+    "pgrc_strand_rows": [_I, _P, _P, _P, _I, _P, _I64, _I, _P],
 }
 # geometry queries (no launch): entry point -> (argtypes, restype)
 QUERIES = {

@@ -11,6 +11,7 @@ A STORE record is emitted whenever compression does not shrink the payload.
 """
 from __future__ import annotations
 
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
@@ -23,9 +24,13 @@ _MAX_WORKERS = 8
 
 # -T stream-dump mode: when set, every compressed stream's RAW bytes are
 # also written to this directory as NNN_label.bin for external diffing
-# (the dump_after_decompression debugging role, coders/CodersLib.cpp:12-15)
+# (the dump_after_decompression debugging role, coders/CodersLib.cpp:12-15).
+# Stage 7's writer thread dumps beside the main thread, so NNN is taken
+# under a lock (the reference's counter is not: two dumps can share a
+# number there); the interleaving of the two threads' numbers is timing's
 _DUMP_DIR: str | None = None
 _DUMP_SEQ = 0
+_DUMP_LOCK = threading.Lock()
 
 
 def set_threads(n: int) -> None:
@@ -55,9 +60,11 @@ def _dump_stream(label: str, data: bytes) -> None:
     import re
 
     name = re.sub(r"[^A-Za-z0-9_.-]+", "_", label)
-    with open(os.path.join(_DUMP_DIR, f"{_DUMP_SEQ:03d}_{name}.bin"), "wb") as f:
+    with _DUMP_LOCK:
+        seq = _DUMP_SEQ
+        _DUMP_SEQ += 1
+    with open(os.path.join(_DUMP_DIR, f"{seq:03d}_{name}.bin"), "wb") as f:
         f.write(data)
-    _DUMP_SEQ += 1
 
 
 @dataclass

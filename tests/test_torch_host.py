@@ -96,6 +96,44 @@ def test_container_writes_reference_bytes_and_reads_back():
         assert container.StreamReader(outs[0]).read_many(len(payloads)) == payloads
 
 
+def test_stream_dump_numbers_are_unique_under_threads(tmp_path):
+    """-T's dump counter under 16 threads (more than the cores, a 10 us
+    switch interval) dumping at once, as stage 7's writer thread and the
+    main thread do: every dump gets its own number 000..N-1, none is lost
+    or shared, and each file holds its stream's bytes."""
+    import sys
+    import threading
+
+    n_threads, per = 16, 40
+    d = str(tmp_path / "streams")
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        port_container.set_stream_dump_dir(d)
+        start = threading.Barrier(n_threads)
+
+        def dump(t):
+            start.wait(timeout=30)
+            for i in range(per):
+                port_container._dump_stream(f"t{t} s{i}", b"%d:%d" % (t, i))
+
+        threads = [threading.Thread(target=dump, args=(t,)) for t in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(old)
+        port_container.set_stream_dump_dir(None)
+    names = sorted(os.listdir(d))
+    assert [int(n[:3]) for n in names] == list(range(n_threads * per))
+    for name in names:
+        t, i = name[5:-4].split("_s")
+        with open(os.path.join(d, name), "rb") as f:
+            assert f.read() == b"%s:%s" % (t.encode(), i.encode())
+
+
 def test_varints_match_reference():
     rng = np.random.default_rng(3)
     values = np.concatenate([np.arange(300), rng.integers(0, 1 << 62, 2000),

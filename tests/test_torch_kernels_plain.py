@@ -12,7 +12,7 @@ from pgrc_tpu.overlap import greedy_scs as ref_scs
 from pgrc_tpu_torch import state
 from pgrc_tpu_torch.align import matcher as port_matcher
 from pgrc_tpu_torch.core import packed as port_packed
-from pgrc_tpu_torch.kernels import kmer_hash, sweep, verify
+from pgrc_tpu_torch.kernels import kmer_hash, strand_rows, sweep, verify
 from pgrc_tpu_torch.utils import uint
 
 L = 100
@@ -297,6 +297,113 @@ def test_revcomp_lanes_matches_reference(L_rc, with_n):
     lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
     got = uint.tensor_to_np_u32(port_packed.revcomp_lanes(lt, L_rc, nt))
     np.testing.assert_array_equal(got, want)
+
+
+STRAND_LENGTHS = [16, 17, 31, 32, 33, 37, 63, 64, 65, 80, 100, 128, 129, 200, 255]
+STRAND_N = ["no nmask", "N in 3%", "rows all N", "N first and last"]
+STRAND_ROWS = ["every row", "shuffled with repeats", "one row"]
+
+
+def _strand_case(L_, n_case, rows_case):
+    """Reads of length L_ (pack_lanes layout, reference packer) with N as
+    `n_case` says, and the rows a take asks for (None = every row)."""
+    rng = np.random.default_rng(1000 * L_ + 10 * STRAND_N.index(n_case)
+                                + STRAND_ROWS.index(rows_case))
+    n = 97
+    codes = rng.integers(0, 4, size=(n, L_), dtype=np.uint8)
+    if n_case == "N in 3%":
+        codes[rng.random(codes.shape) < 0.03] = 4
+    elif n_case == "rows all N":
+        codes[::5] = 4
+    elif n_case == "N first and last":
+        codes[::3, 0] = 4
+        codes[1::3, -1] = 4
+    lanes, nmask = ref_packed.pack_lanes(codes)
+    assert (nmask is None) == (n_case == "no nmask")
+    rows = {"every row": None, "one row": np.array([n - 2]),
+            "shuffled with repeats": rng.permutation(
+                np.concatenate([rng.choice(n, 40, replace=False), [5, 5, 17]]))}[rows_case]
+    return lanes, nmask, rows
+
+
+@pytest.mark.parametrize("rows_case", STRAND_ROWS)
+@pytest.mark.parametrize("n_case", STRAND_N)
+@pytest.mark.parametrize("L_", STRAND_LENGTHS)
+def test_strand_rows_plain_matches_revcomp_and_take(L_, n_case, rows_case):
+    """Kernel I's plain version (K8's strand prep, K9's row take) against
+    the reference's packed.revcomp_lanes plus np.take: [rows; their reverse
+    complements], N groups cleared to A, at every lane count and tail, and
+    its CPU wrapper the same."""
+    lanes, nmask, rows = _strand_case(L_, n_case, rows_case)
+    take = np.arange(lanes.shape[0]) if rows is None else rows
+    rc = ref_packed.revcomp_lanes(lanes, L_, nmask)
+    want = np.concatenate([np.take(lanes, take, axis=0), np.take(rc, take, axis=0)])
+    lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
+    rows_t = None if rows is None else torch.from_numpy(rows.astype(np.int64))
+    got = strand_rows.strand_rows_plain(lt, nt, L_, rows_t)
+    np.testing.assert_array_equal(uint.tensor_to_np_u32(got), want)
+    assert torch.equal(strand_rows.strand_rows(lt, nt, L_, rows_t), got)
+
+
+def test_strand_rows_checks_its_inputs():
+    """The wrapper refuses what kernel I does not take, on the CPU as on the
+    card: a lane count that is not L's, an N mask of another width, int32
+    row ids, rows that are not contiguous, a read longer than 16 lanes."""
+    lanes, nmask, _ = _strand_case(100, "N in 3%", "every row")
+    lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
+    with pytest.raises(ValueError, match="shape"):
+        strand_rows.strand_rows(lt, nt, 80)
+    with pytest.raises(ValueError, match="shape"):
+        strand_rows.strand_rows(lt, nt[:, :4].contiguous(), 100)
+    with pytest.raises(TypeError):
+        strand_rows.strand_rows(lt, nt, 100, torch.arange(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        strand_rows.strand_rows(lt, nt, 100, torch.arange(6)[::2])
+    with pytest.raises(ValueError, match="lanes per read"):
+        strand_rows.strand_rows(torch.zeros((4, 18), dtype=torch.int32), None, 257)
+
+
+def test_two_pass_takes_its_rows_through_kernel_i(monkeypatch):
+    """-l 2 on reads of both strands with N: pass 1's rows and pass 2's take
+    both come from strand_rows (the prep form, then the take form with the
+    reads pass 1 did not accept), each bit-equal to the reference's
+    revcomp_lanes rows, and the match equals the reference's on both
+    strands."""
+    rng = np.random.default_rng(21)
+    pg = rng.integers(0, 4, size=30_011, dtype=np.uint8)
+    n = 600
+    starts = rng.integers(0, pg.size - L, n)
+    reads = pg[starts[:, None] + np.arange(L)[None, :]].copy()
+    err = rng.random(reads.shape) < 0.03
+    reads[err] = (reads[err] + 1) % 4
+    flip = rng.random(n) < 0.5
+    reads[flip] = ref_packed.revcomp_codes_matrix(reads[flip])
+    reads[::13, 40] = 4
+    calls = []
+    real = port_matcher.strand_rows
+
+    def spy(lanes, nmask, L_, rows=None):
+        out = real(lanes, nmask, L_, rows)
+        calls.append((None if rows is None else rows.numpy().copy(), out.clone()))
+        return out
+
+    monkeypatch.setattr(port_matcher, "strand_rows", spy)
+    index = ref_matcher.build_index(pg, k=32, device_sort=True)
+    a = ref_matcher.match_reads(reads, index, pg, max_mismatches=33, accept_mis=2)
+    b = port_matcher.match_reads(reads, index, pg, max_mismatches=33, accept_mis=2,
+                                 device="cpu")
+    for field in ("pos", "rc", "mis"):
+        np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+    assert a.rc.any() and (~a.rc & (a.pos >= 0)).any()
+    assert [c[0] is None for c in calls] == [True, False]
+    lanes, nmask = ref_packed.pack_lanes(reads)
+    rc = ref_packed.revcomp_lanes(lanes, L, nmask)
+    take = calls[1][0]
+    assert 0 < take.size < n
+    np.testing.assert_array_equal(uint.tensor_to_np_u32(calls[0][1]),
+                                  np.concatenate([lanes, rc]))
+    np.testing.assert_array_equal(uint.tensor_to_np_u32(calls[1][1]),
+                                  np.concatenate([lanes[take], rc[take]]))
 
 
 def test_join_keys_sort_as_hash_then_key2():

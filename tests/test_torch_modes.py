@@ -1,5 +1,6 @@
 """Every archive mode and flag through the port's CLI on the CPU: the
-reference's archive bytes, and an exact decode.
+reference's archive bytes, the reference's dump files (-V, -T) and an exact
+decode.
 
 One input pair (genome-sampled mates with errors, N bases and low-quality
 tails) goes through `pgrc_tpu.cli` and `pgrc_tpu_torch.cli --device cpu`
@@ -19,8 +20,10 @@ import pytest
 
 from pgrc_tpu import cli as ref_cli
 from pgrc_tpu.archive import decoder
+from pgrc_tpu.streams import container as ref_container
 from pgrc_tpu.utils import dna
 from pgrc_tpu_torch import cli as port_cli
+from pgrc_tpu_torch.streams import container as port_container
 from test_roundtrip import read_lines_file
 
 N_PAIRS, L = 1200, 80
@@ -73,7 +76,13 @@ CASES = {
     "q-g-M-p-I": (["-q", "60", "-g", "80", "-M", "4", "-p", "40", "-I", "-i", "{1}", "{2}"],
                   "unordered pairs"),
     "E4-B5": (["-E", "4", "|", "-B", "5", "-i", "{1}"], "reads"),
+    "c1": (["-c", "1", "-i", "{1}"], "reads"),
+    "c3": (["-c", "3", "-i", "{1}", "{2}"], "pairs"),
+    "V": (["-V", "-i", "{1}"], "reads"),
+    "V-T": (["-V", "-T", "-o", "-i", "{1}", "{2}"], "order"),
 }
+# the dumps beside an archive: -V's per-stage files, -T's raw streams
+DUMPS = {"-V": ".validation", "-T": ".streams"}
 
 
 def compress(main, argv, out, head=()):
@@ -113,16 +122,38 @@ def decoded_equals_input(archive, prefix, kind, codes, n_inputs):
     return decoder._multiset_equal(np.concatenate(got), np.concatenate(want))
 
 
+def read_dump(path, numbered):
+    """A dump directory's files as sorted (name, bytes) pairs. -T numbers
+    its files in the order streams are written, and stage 7 writes its
+    streams in a thread beside the main thread's, in both packages, so
+    where `numbered` the NNN_ prefix is dropped: the same streams with the
+    same bytes, in an order set by timing."""
+    out = []
+    for name in os.listdir(path):
+        with open(os.path.join(path, name), "rb") as f:
+            out.append((name.split("_", 1)[1] if numbered else name, f.read()))
+    return sorted(out)
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_mode_archive_equals_reference(pair_input, case):
     d, paths, codes = pair_input
     argv_t, kind = CASES[case]
     argv = [a.format(None, *paths) for a in argv_t]
     ref, port = (os.path.join(d, f"{case}.{who}.pgtc") for who in ("ref", "port"))
-    compress(ref_cli.main, argv, ref)
-    compress(port_cli.main, argv, port, head=("--device", "cpu"))
+    try:
+        compress(ref_cli.main, argv, ref)
+        compress(port_cli.main, argv, port, head=("--device", "cpu"))
+    finally:   # -T leaves each package's stream dump on until it is reset
+        ref_container.set_stream_dump_dir(None)
+        port_container.set_stream_dump_dir(None)
     with open(ref, "rb") as a, open(port, "rb") as b:
         assert b.read() == a.read()
+    for flag, suffix in DUMPS.items():
+        assert os.path.isdir(port + suffix) == (flag in argv) == os.path.isdir(ref + suffix)
+        if flag in argv:
+            want = read_dump(ref + suffix, flag == "-T")
+            assert want and read_dump(port + suffix, flag == "-T") == want
     n_inputs = sum(a in paths for a in argv)
     assert decoded_equals_input(port, os.path.join(d, f"{case}.dec"), kind, codes,
                                 n_inputs)

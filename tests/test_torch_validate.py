@@ -84,6 +84,32 @@ def test_rematched_pairs_fail_validate(archives, mode):
     assert decoder.validate(path, files[0], bad)["errors"] > 0
 
 
+@pytest.mark.parametrize("source", ["its own", "one base changed"])
+@pytest.mark.parametrize("mode", ["SE", "PE"])
+def test_cli_validate(archives, capsys, mode, source):
+    """`-d -i` through the port's CLI: a good archive against its own
+    source passes (exit 0, "OK"); against a source with one base of one
+    read changed it fails (exit 1, "ERRORS")."""
+    d, _, out = archives
+    path, files = out[mode]
+    files = list(files)
+    if source != "its own":
+        lines = seq_lines(files[0])
+        seq = bytearray(lines[1])
+        seq[3] = ord("A") if seq[3] != ord("A") else ord("C")
+        lines[1] = bytes(seq)
+        files[0] = os.path.join(d, f"changed_{mode}.fastq")
+        write_lines(files[0], lines)
+    capsys.readouterr()
+    rc = cli.main(["-d", "-i", *files, path])
+    said = capsys.readouterr().out
+    assert f"Validated {400 * len(files)} reads" in said
+    if source == "its own":
+        assert rc == 0 and said.rstrip().endswith(": OK")
+    else:
+        assert rc == 1 and "ERRORS" in said
+
+
 def test_end_stage_6_is_refused_before_any_write(archives, tmp_path):
     """-E 6 would write an archive without its pg streams: it is refused,
     and nothing appears at the output path or beside it."""
