@@ -84,12 +84,27 @@ Phases, each printed with its times; the first failure exits nonzero:
      in no other mode) and held against its plain version on its pass-2
      take, timed beside one torch.index_select of the same rows;
   8. PE 2x200k and SE_ORD 200k (bench.py's inputs): exact round trips,
-     bits/base, Mbases/s, peak device memory, kernels launched.
+     bits/base, Mbases/s, peak device memory, kernels launched;
+  9. mesh: MESH_RANKS ranks sharing the card (gloo, which takes the
+     ranks' CUDA tensors; parallel.mesh.launch, after the kernels were
+     built in phase 2): a rank that raises must fail the launch; gloo's
+     all_gather and all_reduce on CUDA tensors, values checked; SE 200k's HQ reads
+     swept on one device and over the ranks (each rank's links equal to
+     one device's, its host syncs counted, no banned op), the SE 200k
+     encode over the ranks (each rank's archive equal to phase 4's, its
+     launches, wall, time in collectives, and a second encode's device
+     time under torch.profiler), and D's and F's sharded forms held to
+     their plain versions and timed on rank 0's first sharded round.
+     Phase 3 holds the sharded forms on 5 edge cases (simulated shards:
+     a rank with no rows, n not divisible by the ranks, an equal-hash run
+     across ranks, every entry on one rank, one run over 80 tiles).
 "Kernels launched" is each run's expected set, no more and no fewer among
 the sweep's: the matcher's A, B, C, E and I; G, D and F wherever a device
-sweep ran (inputs past 3072 reads), G2 and its fill (sweep_link_defaults)
+sweep ran (inputs past 3072 reads; any input under a mesh, where D and F
+run their sharded forms), G2 and its fill (sweep_link_defaults)
 where one ran its init (not a repair), and H where a device sweep table
-had more than 32,768 rows (the one table size that compacts).
+had more than 32,768 rows (the one table size that compacts; a rank's
+rows under a mesh).
     python3 chip_smoke.py --kernels-only
 runs phases 1-3 and the entry alone (a kernel's first build and check)
 and prints no result.
@@ -117,6 +132,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 L = 100
+# ranks of phase 9, all on the one card
+MESH_RANKS = 4
 SE_RUNS = (  # label, reads, genome, seed, bits/base gate, pgrc_tpu's archive
     # bytes with zstd, the port's archive without zstd: bytes and sha256 (the
     # card's archive since the port's first card run; PERF.md section 2)
@@ -155,15 +172,20 @@ VARIANTS = {
     "index_kmer_hash.int64": ("index_kmer_hash", "index_kmer_hash.int64"),
     "join_carry.int64": ("join_carry", "join_carry.int64"),
     "strand_rows.take": ("strand_rows", "strand_rows.take"),
+    "sweep_roll_entries.sharded": ("sweep_roll_entries", "sweep_roll_entries.sharded"),
+    "sweep_pair_claim.sharded": ("sweep_pair_claim", "sweep_pair_claim.sharded"),
 }
 # a variant that replaces another program than its kernel's main form
-VARIANT_REPLACES = {"strand_rows.take": "pgrc_tpu/align/matcher.py:700"}
+VARIANT_REPLACES = {"strand_rows.take": "pgrc_tpu/align/matcher.py:700",
+                    "sweep_roll_entries.sharded": "pgrc_tpu/overlap/greedy_scs.py:243",
+                    "sweep_pair_claim.sharded": "pgrc_tpu/overlap/greedy_scs.py:323"}
 # the main path's int32 kernels: SE 200k and SE 2M launch each of them
 MAIN_KERNELS = tuple(REPLACES)
 MATCH_KERNELS = ("verify_best", "index_kmer_hash", "probe_kmer_hash", "join_carry",
                  "strand_rows")
 SWEEP_KERNELS = ("sweep_full_hashes", "sweep_link_defaults", "sweep_init_links",
-                 "sweep_roll_entries", "sweep_pair_claim", "sweep_compact")
+                 "sweep_roll_entries", "sweep_pair_claim", "sweep_compact",
+                 "sweep_roll_entries.sharded", "sweep_pair_claim.sharded")
 LARGE_PGS = (  # label, pg symbols, seed, lane_off of the kernel B block checked
     ("pg 300M", 300_000_007, 21, 1 << 24),
     ("pg 2.3G", 2_300_000_003, 22, 1 << 27),
@@ -485,11 +507,16 @@ def pair_cummaxes(args):
     """The two torch.cummax calls F replaces (the round's seg_start and first
     suffix), on these inputs, as the library yardstick."""
     ks, ent, ids = args[0], args[1], args[2]
+    return cummaxes(ks, ent >= ids.numel())
+
+
+def cummaxes(ks, is_suf):
+    """The two torch.cummax calls of a round's pairing on sorted keys ks
+    with their sides is_suf."""
     m = ks.numel()
     idx = torch.arange(m, dtype=torch.int64, device=ks.device)
     boundary = torch.ones((m,), dtype=torch.bool, device=ks.device)
     boundary[1:] = ks[1:] != ks[:-1]
-    is_suf = ent >= ids.numel()
     prev_is_suf = torch.zeros_like(is_suf)
     prev_is_suf[1:] = is_suf[:-1]
     seg_in = torch.where(boundary, idx, 0)
@@ -1184,6 +1211,193 @@ def strand_edge_cases(dev) -> int:
     return cases
 
 
+def records_outputs(fn, args):
+    """A callable that runs kernel D's sharded form (or its plain version)
+    on its own copies of the round's hashes, records and scratch -> (the
+    counts (m, prefixes), recs[:m], h, p, h2, p2)."""
+    head, hashes, ids, bufs = args[:6], args[6:10], args[10], args[11:13]
+
+    def run():
+        mine = tuple(t.clone() for t in hashes)
+        recs, scratch = (t.clone() for t in bufs)
+        counts = fn(*head, *mine, ids, recs, scratch)
+        return (counts, recs[:int(counts[0])], *mine)
+    return run
+
+
+def check_roll_records(args, note, reps, timed=True):
+    """Kernel D's sharded form against its plain version on one round's
+    inputs (lanes, nmask, a_s, a_p, i, L, h, p, h2, p2, ids, recs, scratch),
+    each launch on its own copies of what it writes: every one of
+    CHECK_LAUNCHES launches bit-equal. Bytes: as D, and an active entry
+    reads its row's id and writes a 24-byte record."""
+    from pgrc_tpu_torch.kernels import sweep
+
+    want = records_outputs(sweep.sweep_roll_records_plain, args)()
+    err = max(max_abs_err(records_outputs(sweep.sweep_roll_records, args)(), want)
+              for _ in range(CHECK_LAUNCHES))
+    m = int(want[0][0])
+    del want
+    require(err == 0, f"sweep_roll_entries.sharded {note}: kernel differs from its plain "
+            f"version")
+    if not timed:
+        return err
+    n, with_n = args[0].shape[0], args[1] is not None
+    mine = tuple(t.clone() for t in args[6:10]) + (args[10],) + tuple(
+        t.clone() for t in args[11:13])
+    return record("sweep_roll_entries.sharded",
+                  lambda: sweep.sweep_roll_records(*args[:6], *mine),
+                  lambda: sweep.sweep_roll_records_plain(*args[:6], *mine), reps, note,
+                  2 * n * (32 + 4 + (4 if with_n else 0) + 1) + 28 * m + 16,
+                  2 * n * OPS_D_ENTRY, err=err)
+
+
+def pair_records_work(args):
+    """Bytes and operations of kernel F's sharded form on these inputs: keys
+    and records read once; a pair reads its partner's record and both
+    confirm hashes, and clears the partner's a_p where the rank owns it; a
+    link writes succ and ovl, and a_s where the rank owns the suffix."""
+    from pgrc_tpu_torch.kernels import sweep_pair_claim as kp
+    from pgrc_tpu_torch.kernels.sweep import GID_SHIFT, MASK31, SIDE_BIT
+
+    ks, recs, conf, lo, hi = args[0], args[1], args[2], args[7], args[8]
+    sp, pp = kp.pairs_plain(ks, (recs & SIDE_BIT) != 0)
+    gid_s, gid_p = ((recs[x] >> GID_SHIFT) & MASK31 for x in (sp, pp))
+    ok = (gid_p != gid_s) & (conf[pp] == conf[sp])
+    own = lambda g: (g >= lo) & (g < hi)
+    m = ks.numel()
+    return (16 * m + 24 * sp.numel() + int(own(gid_p).sum()) + 8 * int(ok.sum())
+            + int((ok & own(gid_s)).sum())), OPS_SCAN * m
+
+
+def check_pair_records(args, note, reps, timed=True):
+    """Kernel F's sharded form against its plain version on one rank's round
+    (ks, recs, conf, succ_g, ovl_g, a_s, a_p, gid_lo, gid_hi, i, L): every
+    one of CHECK_LAUNCHES launches, each on its own copies of the four
+    arrays it updates in place, bit-equal."""
+    from pgrc_tpu_torch.kernels import sweep_pair_claim as kp
+    from pgrc_tpu_torch.kernels.sweep import SIDE_BIT
+
+    head, outs, tail = args[:3], args[3:7], args[7:]
+
+    def on_copies(fn):
+        def run():
+            mine = tuple(t.clone() for t in outs)
+            fn(*head, *mine, *tail)
+            return mine
+        return run
+
+    want = on_copies(kp.sweep_pair_records_plain)()
+    err = max(max_abs_err(on_copies(kp.sweep_pair_records)(), want)
+              for _ in range(CHECK_LAUNCHES))
+    require(err == 0, f"sweep_pair_claim.sharded {note}: kernel differs from its plain version")
+    if not timed:
+        return err
+    mine = tuple(t.clone() for t in outs)
+    return record("sweep_pair_claim.sharded", lambda: kp.sweep_pair_records(*head, *mine, *tail),
+                  lambda: kp.sweep_pair_records_plain(*head, *mine, *tail), reps, note,
+                  *pair_records_work(args),
+                  library=cummaxes(args[0], (args[1] & SIDE_BIT) != 0), err=err)
+
+
+def sharded_rounds(dev, label, codes, a_s, a_p, ranks, rounds) -> None:
+    """Rounds 1..rounds of a sweep table over `ranks` simulated shards on
+    the card, as greedy_scs._round_sharded runs them (each shard a
+    contiguous block of rows with its own flags and its own replica of the
+    links; the gather: every shard's prefixes, then every shard's suffixes,
+    in shard order; one stable sort): kernel D's and F's sharded forms held
+    to their plain versions on every shard's inputs in every round, each
+    over two launches on copies, before the kernels advance the state; and
+    every replica's links equal after each round."""
+    from pgrc_tpu_torch import state
+    from pgrc_tpu_torch.core import packed
+    from pgrc_tpu_torch.kernels import sweep, sweep_init
+    from pgrc_tpu_torch.kernels import sweep_pair_claim as kp
+
+    n, L_ = codes.shape
+    lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), dev)
+    h0, h0b = sweep_init.sweep_full_hashes_plain(lanes, nmask, L_)
+    base, extra = divmod(n, ranks)
+    shards, lo = [], 0
+    for r in range(ranks):
+        hi = lo + base + (r < extra)
+        on = lambda a: torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(dev)
+        shards.append(dict(
+            gids=(lo, hi), lanes=lanes[lo:hi].clone(),
+            nmask=None if nmask is None else nmask[lo:hi].clone(),
+            ids=torch.arange(lo, hi, dtype=torch.int32, device=dev),
+            h=h0[lo:hi].clone(), p=h0[lo:hi].clone(), h2=h0b[lo:hi].clone(),
+            p2=h0b[lo:hi].clone(), a_s=on(a_s), a_p=on(a_p),
+            succ=torch.full((n,), -1, dtype=torch.int32, device=dev),
+            ovl=torch.zeros((n,), dtype=torch.int32, device=dev),
+            bufs=sweep.record_buffers(hi - lo, dev)))
+        lo = hi
+    for i in range(1, rounds + 1):
+        pref, suf = [], []
+        for s in shards:
+            args = (s["lanes"], s["nmask"], s["a_s"], s["a_p"], i, L_, s["h"], s["p"],
+                    s["h2"], s["p2"], s["ids"], *s["bufs"])
+            want = records_outputs(sweep.sweep_roll_records_plain, args)()
+            err = max(max_abs_err(records_outputs(sweep.sweep_roll_records, args)(), want)
+                      for _ in range(2))
+            require(err == 0, f"sweep_roll_entries.sharded {label}, round {i}, shard "
+                    f"{s['gids']}: kernel differs from its plain version")
+            m, mp = sweep.sweep_roll_records(*args).tolist()
+            recs = s["bufs"][0]
+            pref.append(recs[:mp])
+            suf.append(recs[mp:m])
+        g = torch.cat(pref + suf)
+        ks, perm = torch.sort(g[:, 0], stable=True)
+        recs, conf = g[:, 1].index_select(0, perm), g[:, 2].index_select(0, perm)
+        for s in shards:
+            args = (ks, recs, conf, s["succ"], s["ovl"], s["a_s"], s["a_p"], *s["gids"], i, L_)
+            check_pair_records(args, f"{label}, round {i}, shard {s['gids']}", 0, timed=False)
+            kp.sweep_pair_records(*args)
+        for s in shards[1:]:
+            require(torch.equal(s["succ"], shards[0]["succ"])
+                    and torch.equal(s["ovl"], shards[0]["ovl"]),
+                    f"{label}, round {i}: the shards' link replicas differ")
+    links = int((shards[0]["succ"] >= 0).sum())
+    say(f"[kernel] sweep_roll_entries.sharded, sweep_pair_claim.sharded {label}: n={n} over "
+        f"{ranks} shards {[s['gids'] for s in shards]}, {rounds} rounds bit-equal, {links} links")
+    require(links > 0, f"{label}: no link formed")
+
+
+def sharded_edge_cases(dev) -> int:
+    """Kernels D's and F's sharded forms on the shapes a sharded round gets
+    wrong: a rank with no rows (n < ranks), n not divisible by the ranks, a
+    run of equal hashes across ranks, every entry on one rank, and one run
+    over every entry of 80 scan tiles (past one 32-tile look-back window).
+    -> the number of cases."""
+    from pgrc_tpu_torch import kernels
+
+    rng = np.random.default_rng(31)
+    genome = rng.integers(0, 4, size=2000, dtype=np.uint8)
+    L_ = 40
+    ones = lambda n: np.ones(n, dtype=bool)
+    sharded_rounds(dev, "a rank with no rows", np.stack([genome[s:s + L_] for s in (20, 0, 10)]),
+                   ones(3), ones(3), 4, L_ - 1)
+    st = rng.integers(0, genome.size - L_, size=1001)
+    sharded_rounds(dev, "n not divisible by the ranks", genome[st[:, None] + np.arange(L_)],
+                   ones(1001), ones(1001), 4, L_ - 1)
+    base = np.stack([genome[s:s + L_] for s in range(6)])
+    sharded_rounds(dev, "an equal-hash run across ranks",
+                   base[rng.permutation(np.repeat(np.arange(6), 40))], ones(240), ones(240), 4,
+                   L_ - 1)
+    st = rng.integers(0, 200, size=400)
+    act = np.zeros(400, dtype=bool)
+    act[200:300] = True
+    sharded_rounds(dev, "every entry on one rank", genome[st[:, None] + np.arange(L_)], act,
+                   act.copy(), 4, L_ - 1)
+    # rows all A: every suffix equals every prefix, one run of all entries;
+    # suffixes of the even rows, prefixes of the odd rows, so pairs link
+    n = 40 * kernels.scan_tile()
+    even = np.arange(n) % 2 == 0
+    sharded_rounds(dev, "one run over all entries (80 tiles)", np.zeros((n, L_), np.uint8),
+                   even, ~even, 3, 2)
+    return 5
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version on the card, at the main path's
     shapes (E, F, G, G2, D, H and I at theirs in phases 5-7), and every
@@ -1271,6 +1485,10 @@ def phase_kernels(dev) -> dict:
     cases = scan_edge_cases(dev)
     say(f"[kernel] join_carry, sweep_pair_claim: {cases} edge cases bit-equal in "
         f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    cases = sharded_edge_cases(dev)
+    say(f"[kernel] sweep_roll_entries.sharded, sweep_pair_claim.sharded: {cases} edge cases "
+        f"bit-equal in {time.time() - t0:.1f} s")
     return out
 
 
@@ -1551,20 +1769,24 @@ class SweepSpy:
 
     def __enter__(self):
         from pgrc_tpu_torch.overlap import greedy_scs as g
+        from pgrc_tpu_torch.parallel.mesh import active
 
         self.real = real = g.find_overlaps
         depth = [0]
 
-        def spy(codes, coef=1.0, init_active=None, *, device):
-            n = codes.shape[0]
-            if n > g._HOST_SWEEP_MAX and not (n > g._SWEEP_MAX_ROWS and init_active is None):
-                self.tables.append((n, init_active is None))
+        def spy(codes, coef=1.0, init_active=None, *, device, mesh=None):
+            n, sharded = codes.shape[0], active(mesh) is not None
+            if (n > g._HOST_SWEEP_MAX or (sharded and n > 1)) and not (
+                    n > g._SWEEP_MAX_ROWS and init_active is None):
+                # (a rank's rows: the largest table of any rank, init, sharded)
+                self.tables.append((max(mesh.splits(n)) if sharded else n,
+                                    init_active is None, sharded))
             depth[0] += 1
             try:
                 if self.dispatch and depth[0] == 1:
                     with self._log():
-                        return real(codes, coef, init_active, device=device)
-                return real(codes, coef, init_active, device=device)
+                        return real(codes, coef, init_active, device=device, mesh=mesh)
+                return real(codes, coef, init_active, device=device, mesh=mesh)
             finally:
                 depth[0] -= 1
 
@@ -1579,17 +1801,18 @@ class SweepSpy:
 
     def expected(self) -> set:
         """The sweep kernels these tables launch: G, D and F in every device
-        sweep, G2 and its fill in one that ran its init, H in a table that
-        compacts."""
+        sweep (D's and F's sharded forms in a sharded one), G2 and its fill
+        in one that ran its init, H in a table that compacts."""
         from pgrc_tpu_torch.overlap import greedy_scs as g
 
         exp = set()
-        if self.tables:
-            exp |= {"sweep_full_hashes", "sweep_roll_entries", "sweep_pair_claim"}
-        if any(init for _, init in self.tables):
-            exp |= {"sweep_link_defaults", "sweep_init_links"}
-        if any(n > g._ONE_SEGMENT_MAX_ROWS for n, _ in self.tables):
-            exp.add("sweep_compact")
+        for rows, init, sharded in self.tables:
+            exp |= {"sweep_full_hashes", *(f"{k}.sharded" if sharded else k for k in (
+                "sweep_roll_entries", "sweep_pair_claim"))}
+            if init:
+                exp |= {"sweep_link_defaults", "sweep_init_links"}
+            if rows > g._ONE_SEGMENT_MAX_ROWS:
+                exp.add("sweep_compact")
         return exp
 
 
@@ -1600,7 +1823,7 @@ def require_launched(label, launches, spy, matcher=True):
     exp = spy.expected() | (set(MATCH_KERNELS) if matcher else set())
     idle = sorted(k for k in exp if launches[k] == 0)
     extra = sorted(k for k in SWEEP_KERNELS if launches[k] and k not in exp)
-    say(f"[{label}] device sweep tables (rows, init): {spy.tables}; expected kernels "
+    say(f"[{label}] device sweep tables (rows, init, sharded): {spy.tables}; expected kernels "
         f"{sorted(exp)}")
     require(not idle and not extra, f"{label}: kernels never launched: {idle}; launched "
             f"where no table calls for them: {extra}")
@@ -1804,7 +2027,7 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
             f"m={args[0].numel()} entries of {args[2].numel()} rows", 20)
         timings["verify_best"] = check_verify_call(probe.args, dev, f"{label}'s first probe")
         probe.args = None
-        lanes, nmask, L_ = prep.args
+        lanes, nmask, L_ = prep.args[:3]   # (pass 1 passes rows=None)
         timings["strand_rows"] = check_strand(
             (lanes, nmask, L_, None), f"{label}'s strand prep: n={lanes.shape[0]} reads, "
             f"L {L_}, N mask {nmask is not None}", 20)
@@ -2061,9 +2284,9 @@ def phase_modes(work: str, timings: dict) -> int:
     parts, take_launches = [], 0
     real_partitioned = greedy_scs._find_overlaps_partitioned
 
-    def partitioned(codes_, coef, *, device):
+    def partitioned(codes_, coef, *, device, mesh=None):
         parts.append(codes_.shape[0])
-        return real_partitioned(codes_, coef, device=device)
+        return real_partitioned(codes_, coef, device=device, mesh=mesh)
 
     for label, argv_t, kind, capped in MODE_CASES:
         argv = [{"{s}": src, "{p}": pair}.get(a, a) for a in argv_t]
@@ -2084,7 +2307,8 @@ def phase_modes(work: str, timings: dict) -> int:
                 # held, not cloned: a clone would dispatch inside StrandOps's
                 # view of the take (the matcher writes none of these)
                 take = stack.enter_context(FirstCall(matcher, "strand_rows", hold=(0, 1, 3),
-                                                     when=lambda args: len(args) > 3))
+                                                     when=lambda args: len(args) > 3
+                                                     and args[3] is not None))
                 require(cli.main(["--device", "cuda", *argv, card]) == 0,
                         f"{label}: compress on the card failed")
                 torch.cuda.synchronize()
@@ -2157,6 +2381,291 @@ def phase_bench_200k(src: str, pair: str, codes) -> None:
         require_launched(label, launches, spy)
 
 
+class CollectiveClock:
+    """Host seconds a rank spends in its mesh's collectives (gloo's copies
+    of CUDA tensors through host memory included, and so the wait for the
+    device work queued before them, and the wait for the other ranks), by
+    wrapping the collectives on the mesh instance."""
+
+    def __init__(self, mesh):
+        self.seconds, self.calls = 0.0, 0
+        for name in ("gather_counts", "all_gather_parts", "all_reduce"):
+            setattr(mesh, name, self._timed(getattr(mesh, name)))
+
+    def _timed(self, fn):
+        def call(*args, **kwargs):
+            t0 = time.time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds += time.time() - t0
+                self.calls += 1
+        return call
+
+    def take(self) -> tuple:
+        out = (self.seconds, self.calls)
+        self.seconds, self.calls = 0.0, 0
+        return out
+
+
+def gloo_cuda_support(mesh) -> dict:
+    """Which gloo collectives of the installed torch take CUDA tensors and
+    give the right values (the mesh hands gloo its CUDA tensors as they
+    are): {collective: "yes", "wrong values" or the error's first line}."""
+    import torch.distributed as dist
+
+    t = torch.full((4,), mesh.rank + 1, dtype=torch.int64, device=mesh.device)
+
+    def gather():
+        outs = [torch.empty_like(t) for _ in range(mesh.size)]
+        dist.all_gather(outs, t)
+        return [int(o[0]) for o in outs] == list(range(1, mesh.size + 1))
+
+    def reduce():
+        x = t.clone()
+        dist.all_reduce(x)
+        return int(x[0]) == mesh.size * (mesh.size + 1) // 2
+
+    def broadcast():
+        x = t.clone()
+        dist.broadcast(x, 0)
+        return int(x[0]) == 1
+
+    out = {}
+    for name, call in (("all_gather", gather), ("all_reduce", reduce), ("broadcast", broadcast)):
+        try:
+            out[name] = "yes" if call() else "wrong values"
+        except (RuntimeError, ValueError) as e:
+            out[name] = str(e).splitlines()[0][:120]
+    return out
+
+
+def fail_on_rank1(mesh):
+    """A rank function that fails on rank 1: `launch` must raise."""
+    if mesh.rank == 1:
+        raise RuntimeError("a deliberate failure on rank 1")
+    return mesh.rank
+
+
+def mesh_rank(mesh, hq_path: str, src: str, work: str) -> dict:
+    """One rank of phase 9, in its own process (parallel.mesh.launch): the
+    sweep of SE 200k's HQ reads under SweepSpy's dispatch log, rank 0 saving
+    the inputs of the first calls of D's and F's sharded forms; the SE 200k
+    encode with its launch counts (set to 0 just before it, read just
+    after), timed; the same encode again under torch.profiler for the
+    rank's device time. -> what the parent checks and prints."""
+    from contextlib import ExitStack
+
+    from pgrc_tpu_torch import kernels
+    from pgrc_tpu_torch.archive import encoder
+    from pgrc_tpu_torch.config import PgRCParams
+    from pgrc_tpu_torch.overlap import greedy_scs
+
+    clock = CollectiveClock(mesh)
+    out = {"mesh": mesh.describe()}
+    codes = np.load(hq_path)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with ExitStack() as stack:
+        spy = stack.enter_context(SweepSpy(dispatch=True))
+        firsts = ({name: stack.enter_context(FirstCall(greedy_scs, name))
+                   for name in ("sweep_roll_records", "sweep_pair_records")}
+                  if mesh.rank == 0 else {})
+        t0 = time.time()
+        res = greedy_scs.find_overlaps(codes, device=mesh.device, mesh=mesh)
+        torch.cuda.synchronize()
+        out["sweep_s"] = time.time() - t0
+    out.update(succ=res.succ, ovl=res.overlap, sweep_launches=dict(kernels.launches),
+               syncs=dict(spy.syncs), banned=sorted(spy.banned), tables=spy.tables,
+               sweep_collectives=clock.take())
+    require_launched(f"mesh rank {mesh.rank} sweep", kernels.launches, spy, matcher=False)
+    if firsts:
+        torch.save({name: tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                                for a in fc.args) for name, fc in firsts.items()},
+                   os.path.join(work, "mesh_first_round.pt"))
+    del firsts, res
+    # the same sweep again: warm, and without the dispatch log
+    t0 = time.time()
+    greedy_scs.find_overlaps(codes, device=mesh.device, mesh=mesh)
+    torch.cuda.synchronize()
+    out["warm_sweep_s"], out["warm_sweep_collectives"] = time.time() - t0, clock.take()
+    archive = os.path.join(work, f"mesh_rank{mesh.rank}.pgtc")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with SweepSpy() as spy:
+        t0 = time.time()
+        encoder.encode(PgRCParams(src_fastq=src, output=archive), device=mesh.device, mesh=mesh)
+        torch.cuda.synchronize()
+        out["encode_s"] = time.time() - t0
+    out.update(encode_launches=dict(kernels.launches), archive=archive,
+               peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+               encode_collectives=clock.take())
+    require_launched(f"mesh rank {mesh.rank} encode", kernels.launches, spy)
+    out["traced_s"], out["device_s"] = traced_encode(src, archive + ".traced", mesh.device, mesh)
+    out["traced_collectives"] = clock.take()
+    return out
+
+
+def traced_encode(src: str, out: str, device, mesh=None) -> tuple:
+    """The SE encode of src under torch.profiler (CUDA activity only) ->
+    (wall s, device s: the kernels' and copies' self time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pgrc_tpu_torch.archive import encoder
+    from pgrc_tpu_torch.config import PgRCParams
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        encoder.encode(PgRCParams(src_fastq=src, output=out), device=device, mesh=mesh)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    return wall, sum(getattr(e, "self_device_time_total", 0) or getattr(
+        e, "self_cuda_time_total", 0) for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA) / 1e6
+
+
+def one_device_roll_ms(args) -> float:
+    """Kernel D's one-device form timed on the rows of a sharded round's
+    inputs (the sharded form's args), its own buffers."""
+    from pgrc_tpu_torch.kernels import sweep
+
+    mine = tuple(t.clone() for t in args[6:10])
+    bufs = sweep.round_buffers(args[0].shape[0], args[0].device)
+    return cuda_ms(lambda: sweep.sweep_roll_entries(*args[:6], *mine, *bufs), 20)
+
+
+def one_device_pair_ms(args, n: int) -> float:
+    """Kernel F's one-device form timed on a sharded round's gathered
+    entries (the sharded form's args) recast as one table of n rows: an
+    entry is its gid (a prefix) or n + gid (a suffix), the confirm hashes
+    scattered to p2 / h2 by gid."""
+    from pgrc_tpu_torch.kernels import sweep_pair_claim as kp
+    from pgrc_tpu_torch.kernels.sweep import GID_SHIFT, MASK31, SIDE_BIT
+
+    ks, recs, conf, i, L_ = args[0], args[1], args[2], args[9], args[10]
+    dev = ks.device
+    suf = (recs & SIDE_BIT) != 0
+    gid = (recs >> GID_SHIFT) & MASK31
+    ent = torch.where(suf, gid + n, gid)
+    p2, h2 = (torch.zeros(n, dtype=torch.int64, device=dev) for _ in range(2))
+    p2[gid[~suf]] = conf[~suf]
+    h2[gid[suf]] = conf[suf]
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    outs = (torch.full((n,), -1, dtype=torch.int32, device=dev),
+            torch.zeros(n, dtype=torch.int32, device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev), torch.ones(n, dtype=torch.bool, device=dev))
+    return cuda_ms(lambda: kp.sweep_pair_claim(ks, ent, ids, p2, h2, *outs, i, L_), 20)
+
+
+def phase_mesh(dev, work: str, src: str, timings: dict) -> dict:
+    """Phase 9: the sharded path over MESH_RANKS ranks sharing the card
+    (gloo): a deliberately failing rank must fail `launch`; SE 200k's HQ
+    reads swept on one device and over the ranks (every rank's links the
+    one-device links); the SE 200k encode over the ranks (every rank's
+    archive the one-device archive of phase 4); D's and F's sharded forms
+    held to their plain versions, and timed, on rank 0's first sharded
+    round. The kernels were built in phase 2, so the ranks load the library
+    and run no nvcc. -> the launches of D's and F's sharded forms in the
+    ranks' encodes, summed."""
+    from pgrc_tpu_torch.config import PgRCParams
+    from pgrc_tpu_torch.core import fastq
+    from pgrc_tpu_torch.overlap import greedy_scs
+    from pgrc_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.time()
+    try:
+        pmesh.launch(fail_on_rank1, 2, device="cpu", timeout_s=300)
+        caught = ""
+    except pmesh.RankError as e:
+        caught = str(e)
+    say(f"[mesh] a rank that raises fails launch: {'a deliberate failure' in caught} "
+        f"({time.time() - t0:.1f} s)")
+    require("a deliberate failure on rank 1" in caught, "a failing rank did not fail launch")
+    t0 = time.time()
+    support = pmesh.launch(gloo_cuda_support, 2, device="cuda", timeout_s=300)[0]
+    say(f"[mesh] gloo with CUDA tensors in torch {torch.__version__}: {support} "
+        f"({time.time() - t0:.1f} s)")
+    require(support["all_gather"] == support["all_reduce"] == "yes",
+            "gloo does not take the mesh's CUDA tensors")
+    # SE 200k's HQ reads: the encoder's stage 1 division
+    params = PgRCParams(src_fastq=src, output=os.path.join(work, "mesh_unused.pgtc"))
+    params.resolve()
+    reads = fastq.read_divided(src, None, params.revcomp_pair_file,
+                               params.error_limit_promils / 1000.0,
+                               params.simplified_suffix_mode)
+    hq = reads.codes[~reads.n_mask & reads.hq_mask]
+    hq_path = os.path.join(work, "mesh_hq.npy")
+    np.save(hq_path, hq)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    one = greedy_scs.find_overlaps(hq, device=dev)
+    torch.cuda.synchronize()
+    one_s = time.time() - t0
+    one_traced = traced_encode(src, os.path.join(work, "mesh_one_traced.pgtc"), dev)
+    say(f"[mesh] one device: SE 200k encode under torch.profiler {one_traced[0]:.3f} s, "
+        f"device time {one_traced[1]:.4f} s")
+    free_card()
+    t0 = time.time()
+    try:
+        outs = pmesh.launch(mesh_rank, MESH_RANKS, hq_path, src, work, device="cuda",
+                            timeout_s=900)
+    except pmesh.RankError as e:
+        raise SmokeFailure(f"mesh: {e}") from None
+    say(f"[mesh] {MESH_RANKS} ranks launched and joined in {time.time() - t0:.1f} s")
+    with open(os.path.join(work, "se_200000.pgtc"), "rb") as f:
+        want = f.read()
+    nonzero = lambda d: {k: v for k, v in d.items() if v}
+    for r, o in enumerate(outs):
+        d_sh = o["sweep_launches"]["sweep_roll_entries.sharded"]
+        ends = o["sweep_launches"]["sweep_compact"]
+        syncs = sum(o["syncs"].values())
+        # a round reads its counts, a segment end H's counts and their max,
+        # a table its links (gloo's own copies are no aten op: not seen)
+        allowed = d_sh + 2 * ends + 2 * len(o["tables"])
+        same = np.array_equal(o["succ"], one.succ) and np.array_equal(o["ovl"], one.overlap)
+        say(f"[mesh] rank {r}: {o['mesh']}; sweep of SE 200k's {hq.shape[0]} HQ reads "
+            f"{o['sweep_s']:.3f} s, again warm without the dispatch log {o['warm_sweep_s']:.3f} "
+            f"s ({o['warm_sweep_collectives'][0]:.3f} s in collectives; one device "
+            f"{one_s:.3f} s), tables {o['tables']}, links "
+            f"equal to the one device's: {same}; host syncs {syncs} {o['syncs']} (at most "
+            f"{allowed}); banned ops {o['banned'] or 'none'}; in collectives "
+            f"{o['sweep_collectives'][0]:.3f} s over {o['sweep_collectives'][1]} calls; "
+            f"launches {nonzero(o['sweep_launches'])}")
+        require(same, f"mesh rank {r}: the sharded sweep's links differ from one device's")
+        require(not o["banned"] and syncs <= allowed,
+                f"mesh rank {r}: the sweep dispatched {o['banned']} or read the card {syncs} "
+                f"times (at most {allowed})")
+        with open(o["archive"], "rb") as f:
+            blob = f.read()
+        say(f"[mesh] rank {r}: SE 200k encode {o['encode_s']:.3f} s, archive {len(blob)} B "
+            f"sha256 {hashlib.sha256(blob).hexdigest()}, equal to the one-device archive "
+            f"({len(want)} B): {blob == want}; peak device memory {o['peak_mib']:.0f} MiB; in "
+            f"collectives {o['encode_collectives'][0]:.3f} s over "
+            f"{o['encode_collectives'][1]} calls; traced encode {o['traced_s']:.3f} s, device "
+            f"time {o['device_s']:.4f} s, in collectives {o['traced_collectives'][0]:.3f} s; "
+            f"launches {nonzero(o['encode_launches'])}")
+        require(blob == want, f"mesh rank {r}: the archive differs from the one-device archive")
+    first = torch.load(os.path.join(work, "mesh_first_round.pt"))
+    on = lambda args: tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
+    args = on(first["sweep_roll_records"])
+    timings["sweep_roll_entries.sharded"] = check_roll_records(
+        args, f"SE 200k's first sharded round on rank 0 of {MESH_RANKS}: n={args[0].shape[0]} "
+        f"rows, {int(args[2].sum()) + int(args[3].sum())} active entries", 20)
+    say(f"[kernel] sweep_roll_entries (the one-device form) on the same rows: "
+        f"{one_device_roll_ms(args):.4f} ms")
+    args = on(first["sweep_pair_records"])
+    timings["sweep_pair_claim.sharded"] = check_pair_records(
+        args, f"SE 200k's first sharded round on rank 0 of {MESH_RANKS}: m={args[0].numel()} "
+        f"gathered entries, rank 0's {args[5].numel()} rows", 20)
+    say(f"[kernel] sweep_pair_claim (the one-device form) on the same entries as one table "
+        f"of {hq.shape[0]} rows: {one_device_pair_ms(args, hq.shape[0]):.4f} ms")
+    return {name: sum(o["encode_launches"][name] for o in outs)
+            for name in ("sweep_roll_entries.sharded", "sweep_pair_claim.sharded")}
+
+
 def phase_entry() -> None:
     """The port's graft entry (__graft_entry_torch__.py) on the card: its
     probe's (mis, pos) equal to its own CPU run's, and most reads matched."""
@@ -2218,6 +2727,9 @@ def main(argv=None) -> int:
         t0 = time.time()
         phase_bench_200k(src, pair, codes)
         say(f"[time] phase 8 {time.time() - t0:.1f} s")
+        t0 = time.time()
+        variant_launches.update(phase_mesh(dev, work, src, timings))
+        say(f"[time] phase 9 {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     say(f"[total] {time.time() - t_all:.1f} s")

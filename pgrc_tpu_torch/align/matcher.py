@@ -15,6 +15,14 @@ positions (the wide probe). Results are bit-identical to the reference's;
 the host pieces (offsets, batch cap, rescue) are the port's copy of its
 own, in `host.py`. Kernel I writes each pass's rows: every read on both
 strands for pass 1, the reads pass 1 did not accept for pass 2.
+
+With a `mesh` of more than one rank (the reference's shard_map probe,
+matcher.py:313-348) every rank builds the index and uploads the reads
+itself, probes both strands of one contiguous block of each pass's reads
+against the whole index, and the ranks' (mis, pos) are gathered in rank
+order; the host rescue and merge then run on every rank on the same data.
+A read's result does not depend on the rows probed beside it, so the
+matches are the one-device matches.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from ..kernels.join_carry import JOIN_MAX, join_carry
 from ..kernels.kmer_hash import index_keys, index_kmer_hash, probe_kmer_hash
 from ..kernels.strand_rows import strand_rows
 from ..kernels.verify import verify_best
+from ..parallel.mesh import active
 from ..utils.trace import span
 from .host import (  # noqa: F401  (re-exported host layer)
     DEFAULT_CAP, DEFAULT_K2, KmerIndex, MatchResult, _batch_cap,
@@ -148,7 +157,7 @@ def probe_rows(lanes, offs, index: KmerIndex, blocks, pg_lanes, wide: bool, L: i
     (matcher.py:447-458): fewer mismatches win, and on equal mismatches a
     valid position below the current one. One key buffer (the largest
     block, then a batch's probes) and one ipos buffer serve every join of
-    the pass. -> host (mis uint8, pos int64)."""
+    the pass. -> (mis uint8, pos int64) on the device."""
     dev = pg_lanes.device
     m_max = max(b.m for b in blocks)
     keys = torch.empty((m_max + min(batch, lanes.shape[0]) * len(offs),),
@@ -173,13 +182,45 @@ def probe_rows(lanes, offs, index: KmerIndex, blocks, pg_lanes, wide: bool, L: i
             best_p = torch.where(better, pos, best_p)
         mis_parts.append(best_m)
         pos_parts.append(best_p)
-    return state.match_from_device(torch.cat(mis_parts), torch.cat(pos_parts))
+    return torch.cat(mis_parts), torch.cat(pos_parts)
+
+
+def probe_pass(lanes, nmask, L: int, take, offs, args: tuple, n_verify: int, batch: int,
+               mesh=None):
+    """One pass over both strands of its reads: the n uploaded reads (take
+    None) or those of `take` ([k] int64 on the device), with kernel I's
+    rows -> host (mis uint8 [2k], pos int64 [2k]), rows r < k forward, k + r
+    reverse complement. Under a mesh each rank probes both strands of its
+    block of the pass's reads and the ranks' results are gathered."""
+    k = lanes.shape[0] if take is None else take.numel()
+    lo, hi = (0, k) if mesh is None else mesh.block(k)
+    if hi - lo < k:     # this rank's block of the pass's reads
+        if take is None:
+            lanes, nmask = lanes[lo:hi], None if nmask is None else nmask[lo:hi]
+        else:
+            take = take[lo:hi]
+    if hi > lo:
+        rows = strand_rows(lanes, nmask, L, take)
+        mis, pos = probe_rows(rows, offs, *args, n_verify, batch)
+        del rows
+    else:               # a rank with no reads
+        mis, pos = (torch.empty((0,), dtype=d, device=lanes.device)
+                    for d in (torch.uint8, torch.int64))
+    if mesh is None:
+        return state.match_from_device(mis, pos)
+    # rank order [fwd_0; rc_0; fwd_1; rc_1; ..] -> [fwd; rc]
+    sizes = mesh.splits(k)
+    counts = [2 * c for c in sizes]
+    got = [mesh.all_gather_parts(a, counts) for a in (mis, pos)]
+    return state.match_from_device(*(torch.cat([p[:c] for p, c in zip(parts, sizes)]
+                                               + [p[c:] for p, c in zip(parts, sizes)])
+                                     for parts in got))
 
 
 def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
                 max_mismatches: int, cap: int = DEFAULT_CAP, k2: int = DEFAULT_K2,
                 accept_mis: int = 0, *, force_wide: bool = False,
-                index_block: int | None = None, device) -> MatchResult:
+                index_block: int | None = None, device, mesh=None) -> MatchResult:
     """Match every read against the indexed pg, both strands.
 
     With accept_mis <= 0 (the NORMAL level's default) one full-fan-out pass
@@ -190,7 +231,12 @@ def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
     strictly fewer mismatches. N symbols probe as A; the encoder re-verifies
     N rows exactly. pgs past 2^31 symbols take the wide (int64 position)
     probe, which `force_wide` selects on any input; `index_block` overrides
-    the entries per index block."""
+    the entries per index block. With a `mesh` of more than one rank every
+    rank calls this on the same input, probes on `mesh.device`, and returns
+    the one-device result (the module docstring)."""
+    mesh = active(mesh)
+    if mesh is not None:
+        device = mesh.device
     n, L = read_codes.shape
     out_pos = np.full(n, -1, dtype=np.int64)
     out_rc = np.zeros(n, dtype=bool)
@@ -211,14 +257,12 @@ def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
     with span(f"match pack n={n}"):
         lanes, nmask = state.lanes_to_device(*packed.pack_lanes(read_codes),
                                              pg_lanes.device)
-        # rows [0, n) forward, [n, 2n) reverse complement (kernel I)
-        lanes_fr = strand_rows(lanes, nmask, L)
     args = (index, blocks, pg_lanes, wide, L, max_mismatches)
+    # rows [0, n) forward, [n, 2n) reverse complement (kernel I)
     with span(f"match pass1 rows=2x{n} offs={len(offs_p1)} blocks={len(blocks)}"):
-        bm, bp = probe_rows(lanes_fr, offs_p1, *args,
+        bm, bp = probe_pass(lanes, nmask, L, None, offs_p1, args,
                             n_verify2 if single_pass else 1,
-                            _batch_cap(i_pad, len(offs_p1)))
-    del lanes_fr   # pass 2 takes its rows from the upload
+                            _batch_cap(i_pad, len(offs_p1)), mesh)
     fm, rm = bm[:n].copy(), bm[n:].copy()
     fp, rp = bp[:n].copy(), bp[n:].copy()
 
@@ -231,8 +275,8 @@ def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
         k = rows.size
         take = torch.from_numpy(rows).to(pg_lanes.device)
         with span(f"match pass2 rows={2 * k}"):
-            mis_t, pos_t = probe_rows(strand_rows(lanes, nmask, L, take), offs_full,
-                                      *args, n_verify2, _batch_cap(i_pad, len(offs_full)))
+            mis_t, pos_t = probe_pass(lanes, nmask, L, take, offs_full, args, n_verify2,
+                                      _batch_cap(i_pad, len(offs_full)), mesh)
         better_f = mis_t[:k] < fm[rows]
         fm[rows] = np.where(better_f, mis_t[:k], fm[rows])
         fp[rows] = np.where(better_f, pos_t[:k], fp[rows])

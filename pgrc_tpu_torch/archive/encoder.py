@@ -2,8 +2,8 @@
 pgrc_tpu/archive/encoder.py (`encode` + `_encode_tail`, :102-506).
 
 The chain is repeated here, calling the port's sweep and matcher
-(`overlap.greedy_scs`, `align.matcher`) on an explicit `device`, without
-`mesh`. The helpers around it — `EncodeStats`, the validation dumps, the
+(`overlap.greedy_scs`, `align.matcher`) on an explicit `device`, and with
+`mesh=` over a group of ranks, as the reference's `encode(mesh=)` does. The helpers around it — `EncodeStats`, the validation dumps, the
 checkpoints, the stage-7 self-match, the report row and the hq and plain
 reads-list writers (:40-101, :380-394, :509-613) — are a copy of the
 reference's with only the imports changed, and the stream writers,
@@ -112,8 +112,15 @@ def _submit_self_match(params, hq_pg):
     return fut
 
 
-def encode(params: PgRCParams, out_path: str | None = None, *, device) -> EncodeStats:
-    """Run the 7-stage encoder chain with the device stages on `device`."""
+def encode(params: PgRCParams, out_path: str | None = None, *, device,
+           mesh=None) -> EncodeStats:
+    """Run the 7-stage encoder chain with the device stages on `device`.
+
+    With `mesh` (`parallel.mesh.Mesh`) every rank runs the chain on the same
+    input: the sweeps (stages 2, 3 and 5) and the matcher (stage 4) run
+    sharded over the ranks, the host stages run on every rank, and every
+    rank writes the archive it is given, byte-identical to the one-device
+    archive (pgrc_tpu/archive/encoder.py:102-107)."""
     if params.end_stage == 6:
         # the chain has no stage-6 checkpoint, and an archive cut after
         # stage 6 lacks the stage-7 pg streams and cannot be decoded (the
@@ -181,11 +188,12 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device) -> Encode
         if params.gen_quality_coef > 0 and hq_idx.size > 1:
             if E >= 3:
                 keep, f_pg, f_order, f_pos = greedy_scs.divide_and_generate(
-                    codes[hq_idx], params.gen_quality_coef, device=device)
+                    codes[hq_idx], params.gen_quality_coef, device=device, mesh=mesh)
                 fused = (f_pg, f_order, f_pos)
             else:
                 res = greedy_scs.find_overlaps(
-                    codes[hq_idx], coef=params.gen_quality_coef, device=device)
+                    codes[hq_idx], coef=params.gen_quality_coef, device=device,
+                    mesh=mesh)
                 keep = greedy_scs.both_sides_overlapped(res)
             lq_idx = np.concatenate([lq_idx, hq_idx[~keep]])
             lq_idx.sort()
@@ -204,7 +212,7 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device) -> Encode
         hq_org = hq_idx[hq_order] if hq_idx.size else np.zeros(0, dtype=np.int64)
     elif B <= 3:
         hq_pg, hq_order, hq_pos = greedy_scs.generate_pseudogenome(
-            codes[hq_idx], device=device)
+            codes[hq_idx], device=device, mesh=mesh)
         hq_org = hq_idx[hq_order] if hq_idx.size else np.zeros(0, dtype=np.int64)
     else:
         hq_pg = ck["hq_pg"]
@@ -238,7 +246,7 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device) -> Encode
         del codes
         return _encode_tail(params, stats, t, lq_codes, n_codes, hq_pg,
                             hq_entries, lq_un_ck, n_un_ck,
-                            out_path, stage5, device=device, s7_fut=s7_fut)
+                            out_path, stage5, device=device, mesh=mesh, s7_fut=s7_fut)
 
     cand_idx = np.concatenate([lq_idx, n_idx]) if params.separate_n_reads else lq_idx
     n_begin = lq_idx.size
@@ -258,6 +266,7 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device) -> Encode
             cap=params.match_cap,
             accept_mis=params.prematch_accept_mis,
             device=device,
+            mesh=mesh,
         )
         if has_n.any():
             rows = np.nonzero(has_n & (mres.pos >= 0))[0]
@@ -370,12 +379,12 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device) -> Encode
     reads.codes = None
     del codes
     return _encode_tail(params, stats, t, lq_codes, n_codes, hq_pg,
-                        hq_entries, lq_un, n_un, out_path, device=device,
+                        hq_entries, lq_un, n_un, out_path, device=device, mesh=mesh,
                         s7_fut=s7_fut)
 
 
 def _encode_tail(params, stats, t, lq_codes, n_codes, hq_pg, hq_entries,
-                 lq_un, n_un, out_path, stage5=None, *, device, s7_fut=None):
+                 lq_un, n_un, out_path, stage5=None, *, device, mesh=None, s7_fut=None):
     """Stage 5 (LQ/N pgs) + archive write (stages 6-7). Receives only the
     unmatched-read code subsets — the full matrix is freed by the caller."""
     L = stats.read_len
@@ -386,9 +395,11 @@ def _encode_tail(params, stats, t, lq_codes, n_codes, hq_pg, hq_entries,
     if stage5 is not None:
         lq_pg, lq_org, lq_pos, n_pg, n_org, n_pos = stage5
     else:
-        lq_pg, lq_order, lq_pos = greedy_scs.generate_pseudogenome(lq_codes, device=device)
+        lq_pg, lq_order, lq_pos = greedy_scs.generate_pseudogenome(lq_codes, device=device,
+                                                                   mesh=mesh)
         lq_org = lq_un[lq_order] if lq_un.size else np.zeros(0, dtype=np.int64)
-        n_pg, n_order, n_pos = greedy_scs.generate_pseudogenome(n_codes, device=device)
+        n_pg, n_order, n_pos = greedy_scs.generate_pseudogenome(n_codes, device=device,
+                                                                mesh=mesh)
         n_org = n_un[n_order] if n_un.size else np.zeros(0, dtype=np.int64)
     stats.lq_count, stats.n_count = lq_org.size, n_org.size
     stats.hq_pg_len, stats.lq_pg_len, stats.n_pg_len = len(hq_pg), len(lq_pg), len(n_pg)

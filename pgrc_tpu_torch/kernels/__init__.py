@@ -6,7 +6,8 @@ launch the kernel — with no try and no fallback: a build or launch failure
 raises. `launches` counts kernel launches per kernel, per position type
 where a kernel has an int64 form (`<name>.int64`, the wide probe of pgs past
 2^31 symbols) and per form where a kernel has a row take (`<name>.take`), so
-a run can show that its path went through the kernels.
+a run can show that its path went through the kernels, and per form where
+a kernel has a sharded form (`<name>.sharded`, a mesh round).
 """
 from __future__ import annotations
 
@@ -20,9 +21,11 @@ launches = {"verify_best": 0, "verify_best.int64": 0, "index_kmer_hash": 0,
             "index_kmer_hash.int64": 0, "probe_kmer_hash": 0, "sweep_roll_entries": 0,
             "join_carry": 0, "join_carry.int64": 0, "sweep_pair_claim": 0,
             "sweep_full_hashes": 0, "sweep_link_defaults": 0, "sweep_init_links": 0,
-            "sweep_compact": 0, "strand_rows": 0, "strand_rows.take": 0}
+            "sweep_compact": 0, "strand_rows": 0, "strand_rows.take": 0,
+            "sweep_roll_entries.sharded": 0, "sweep_pair_claim.sharded": 0}
 # scratch word of a compacting scan's first total (csrc/seg_scan.cuh
-# kTotalsWord): kernel D's entry count, kernel H's three counts
+# kTotalsWord): kernel D's entry count (its sharded form's active prefixes
+# in the next word), kernel H's three counts
 TOTALS_WORD = 1
 
 

@@ -39,6 +39,8 @@ SIGNATURES = {
     "pgrc_probe_kmer_hash": [_I, _P, _P, _I64, _I, _P, _I, _I, _I, _U32, _P],
     "pgrc_sweep_roll_entries": [_I, _P, _I64, _P, _I, _P, _I, _P, _P, _I, _I,
                                 _U64, _U64, _U64, _U64, _P, _P, _P, _P, _P, _P, _P, _I64],
+    "pgrc_sweep_roll_records": [_I, _P, _I64, _P, _I, _P, _I, _P, _P, _I, _I,
+                                _U64, _U64, _U64, _U64, _P, _P, _P, _P, _P, _P, _P, _I64],
     "pgrc_sweep_full_hashes": [_I, _P, _I64, _P, _I, _P, _I, _I, _U64, _U64, _P, _P, _P, _P],
     "pgrc_sweep_link_defaults": [_I, _P, _I64, _P, _P, _P, _P],
     "pgrc_sweep_init_links": [_I, _P, _I64, _P, _P, _P, _I, _P, _P, _P, _P],
@@ -46,6 +48,8 @@ SIGNATURES = {
     "pgrc_join_carry": [_I, _P, _I64, _P, _P, _P, _I, _P, _P, _I64],
     "pgrc_sweep_pair_claim": [_I, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P,
                               _P, _P, _I, _P, _I64],
+    "pgrc_sweep_pair_records": [_I, _P, _I64, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _I,
+                                _P, _I64],
     "pgrc_strand_rows": [_I, _P, _P, _P, _I, _P, _I64, _I, _P],
 }
 # geometry queries (no launch): entry point -> (argtypes, restype)

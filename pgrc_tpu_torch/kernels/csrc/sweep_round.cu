@@ -37,11 +37,23 @@
 // write of the outputs. A thread rolls only its side's pair of hashes; the
 // price is that each side reads its row's lane sector, so the lanes come
 // from memory twice where both sides' columns share a sector.
+//
+// The sharded form (`kRecords`, kernel D of a mesh round; pgrc_tpu's
+// `round_fn` under shard_map, :243-263) rolls the same way but writes each
+// active entry's whole record (sweep_record.cuh: key, side | gid | row,
+// confirm hash) to out[3d .. 3d+2], since after the ranks' gather its row
+// lives on another rank, and counts the active prefixes beside all active
+// entries (scratch word kTotalsWord + 1): the prefixes come first, so that
+// count splits the output into the two halves the gather keeps apart. An
+// entry's gid is ids[row]; its confirm hash is the rolled p2 or h2, which
+// the thread that rolled it reads back. Bytes: 4 more a row (ids) and 8
+// more an active entry than the one-device form.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "packed_cols.cuh"
 #include "seg_scan.cuh"
+#include "sweep_record.cuh"
 
 namespace {
 
@@ -52,6 +64,7 @@ using seg_scan::State;
 // consecutive ones both touch distinct banks.
 __device__ __forceinline__ int padded(int k) { return k + (k >> 3); }
 
+template <bool kRecords>
 __global__ void __launch_bounds__(seg_scan::kThreads, seg_scan::kMinBlocks)
 sweep_roll_entries_kernel(int64_t n, const uint32_t* __restrict__ lanes, int ld_lanes,
                           const uint32_t* __restrict__ nmask, int ld_nmask,
@@ -59,8 +72,8 @@ sweep_roll_entries_kernel(int64_t n, const uint32_t* __restrict__ lanes, int ld_
                           int i, int L, uint64_t pow_a, uint64_t pow_b, uint64_t inv_a,
                           uint64_t inv_b, uint64_t* __restrict__ h, uint64_t* __restrict__ p,
                           uint64_t* __restrict__ h2, uint64_t* __restrict__ p2,
-                          long long* __restrict__ keys, long long* __restrict__ ent,
-                          long long* scratch) {
+                          const int32_t* __restrict__ ids, long long* __restrict__ keys,
+                          long long* __restrict__ ent, long long* scratch) {
   using namespace seg_scan;
   constexpr uint64_t kFlip = 1ull << 63;
   __shared__ long long s_key[kTile + kTile / 8];
@@ -101,17 +114,22 @@ sweep_roll_entries_kernel(int64_t n, const uint32_t* __restrict__ lanes, int ld_
 
   // the count scan, blocked: thread t holds entries t * kItems ..
   const int mine = threadIdx.x * kItems;
-  long long cnt = 0;
+  long long cnt = 0, cnt_pref = 0;
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) cnt += s_slot[mine + j];
-  const State pre = thread_prefix<CountOp>({cnt, 0}, scratch, tile);
+  for (int j = 0; j < kItems; ++j) {
+    cnt += s_slot[mine + j];
+    if (kRecords && first + mine + j < n) cnt_pref += s_slot[mine + j];
+  }
+  const State pre = thread_prefix<CountOp>({cnt, cnt_pref}, scratch, tile);
   if (threadIdx.x == 0) s_base = pre.a;
   __syncthreads();
   short slot = (short)(pre.a - s_base);
 #pragma unroll
   for (int j = 0; j < kItems; ++j) s_slot[mine + j] = s_slot[mine + j] ? slot++ : (short)-1;
-  if (threadIdx.x == kThreads - 1 && tile == tiles_for(m) - 1)
+  if (threadIdx.x == kThreads - 1 && tile == tiles_for(m) - 1) {
     scratch[kTotalsWord] = pre.a + cnt;   // m: the last tile's inclusive count
+    if (kRecords) scratch[kTotalsWord + 1] = pre.b + cnt_pref;   // the active prefixes
+  }
   __syncthreads();
 
   // the active entries, striped
@@ -119,11 +137,46 @@ sweep_roll_entries_kernel(int64_t n, const uint32_t* __restrict__ lanes, int ld_
   for (int k = 0; k < kItems; ++k) {
     const int idx = k * kThreads + threadIdx.x;
     const short d = s_slot[idx];
-    if (d >= 0) {
-      keys[s_base + d] = s_key[padded(idx)];
-      ent[s_base + d] = first + idx;
+    if (d < 0) continue;
+    const int64_t o = s_base + d, e = first + idx;
+    if constexpr (kRecords) {
+      const bool suf = e >= n;
+      const int64_t r = suf ? e - n : e;
+      long long* rec = keys + sweep_record::kWords * o;
+      rec[0] = s_key[padded(idx)];
+      rec[1] = sweep_record::pack(suf, ids[r], r);
+      rec[2] = (long long)(suf ? h2[r] : p2[r]);
+    } else {
+      keys[o] = s_key[padded(idx)];
+      ent[o] = e;
     }
   }
+}
+
+}  // namespace
+
+namespace {
+
+template <bool kRecords>
+int roll_entries(int device, void* stream, int64_t n, const void* lanes, int ld_lanes,
+                 const void* nmask, int ld_nmask, const void* active_s, const void* active_p,
+                 int i, int L, uint64_t pow_a, uint64_t pow_b, uint64_t inv_a, uint64_t inv_b,
+                 void* h, void* p, void* h2, void* p2, const void* ids, void* keys, void* ent,
+                 void* scratch, int64_t scratch_words) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t m = 2 * n;
+  if (scratch_words < seg_scan::scratch_words(m)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  err = seg_scan::zero_scratch(scratch, m, s);
+  if (err != cudaSuccess || n == 0) return (int)err;
+  sweep_roll_entries_kernel<kRecords>
+      <<<(unsigned)seg_scan::tiles_for(m), seg_scan::kThreads, 0, s>>>(
+          n, (const uint32_t*)lanes, ld_lanes, (const uint32_t*)nmask, ld_nmask,
+          (const bool*)active_s, (const bool*)active_p, i, L, pow_a, pow_b, inv_a, inv_b,
+          (uint64_t*)h, (uint64_t*)p, (uint64_t*)h2, (uint64_t*)p2, (const int32_t*)ids,
+          (long long*)keys, (long long*)ent, (long long*)scratch);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -136,17 +189,21 @@ extern "C" int pgrc_sweep_roll_entries(
     int i, int L, uint64_t pow_a, uint64_t pow_b, uint64_t inv_a, uint64_t inv_b,
     void* h, void* p, void* h2, void* p2, void* keys, void* ent, void* scratch,
     int64_t scratch_words) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t m = 2 * n;
-  if (scratch_words < seg_scan::scratch_words(m)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  err = seg_scan::zero_scratch(scratch, m, s);
-  if (err != cudaSuccess || n == 0) return (int)err;
-  sweep_roll_entries_kernel<<<(unsigned)seg_scan::tiles_for(m), seg_scan::kThreads, 0, s>>>(
-      n, (const uint32_t*)lanes, ld_lanes, (const uint32_t*)nmask, ld_nmask,
-      (const bool*)active_s, (const bool*)active_p, i, L, pow_a, pow_b, inv_a, inv_b,
-      (uint64_t*)h, (uint64_t*)p, (uint64_t*)h2, (uint64_t*)p2, (long long*)keys,
-      (long long*)ent, (long long*)scratch);
-  return (int)cudaGetLastError();
+  return roll_entries<false>(device, stream, n, lanes, ld_lanes, nmask, ld_nmask, active_s,
+                             active_p, i, L, pow_a, pow_b, inv_a, inv_b, h, p, h2, p2,
+                             nullptr, keys, ent, scratch, scratch_words);
+}
+
+// The sharded form: ids [n] int32 (the rows' global ids), recs [2n, 3]
+// int64 (capacity); m lands in scratch[kTotalsWord], the active prefixes,
+// which come first, in scratch[kTotalsWord + 1].
+extern "C" int pgrc_sweep_roll_records(
+    int device, void* stream, int64_t n, const void* lanes, int ld_lanes,
+    const void* nmask, int ld_nmask, const void* active_s, const void* active_p,
+    int i, int L, uint64_t pow_a, uint64_t pow_b, uint64_t inv_a, uint64_t inv_b,
+    void* h, void* p, void* h2, void* p2, const void* ids, void* recs, void* scratch,
+    int64_t scratch_words) {
+  return roll_entries<true>(device, stream, n, lanes, ld_lanes, nmask, ld_nmask, active_s,
+                            active_p, i, L, pow_a, pow_b, inv_a, inv_b, h, p, h2, p2, ids,
+                            recs, nullptr, scratch, scratch_words);
 }

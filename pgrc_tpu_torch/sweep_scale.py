@@ -66,11 +66,11 @@ def main(argv=None) -> int:
     tables = []
     real = greedy_scs.find_overlaps
 
-    def timed(sub_codes, coef=1.0, init_active=None, *, device):
+    def timed(sub_codes, coef=1.0, init_active=None, *, device, mesh=None):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t = time.time()
-        res = real(sub_codes, coef, init_active, device=device)
+        res = real(sub_codes, coef, init_active, device=device, mesh=mesh)
         torch.cuda.synchronize()
         tables.append({"kind": "repair" if init_active is not None else "part",
                        "rows": int(sub_codes.shape[0]), "s": time.time() - t,

@@ -34,6 +34,8 @@ import pgrc_tpu_torch.kernels.join_carry, pgrc_tpu_torch.kernels.sweep_pair_clai
 import pgrc_tpu_torch.kernels.strand_rows, __graft_entry_torch__
 import pgrc_tpu_torch.archive.decoder, pgrc_tpu_torch.core.analyzer
 import pgrc_tpu_torch.sweep_scale, pgrc_tpu_torch.synth
+import pgrc_tpu_torch.parallel, pgrc_tpu_torch.parallel.mesh
+from __graft_entry_torch__ import dryrun_multichip, dryrun_multihost, entry
 from pgrc_tpu_torch.kernels import build
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
@@ -41,6 +43,8 @@ ref_mods = sorted(m for m in sys.modules if m == "pgrc_tpu" or m.startswith("pgr
 assert not ref_mods, ref_mods
 assert not any("nvcc" in str(c) for c in calls), calls
 assert build._lib is None
+import torch.distributed
+assert not torch.distributed.is_initialized()
 print("ok")
 """
 

@@ -592,3 +592,130 @@ def test_probe_from_anchors_matches_make_probe(case, wide, n_verify):
         assert (0.3 if n_verify > 1 else 0.1) < (mis_r != 255).mean() < 0.95
     else:
         assert (mis_r == 255).all()
+
+
+def sharded_rounds(codes, a_s, a_p, ranks, rounds):
+    """Rounds 1..rounds of a sweep table over `ranks` simulated shards with
+    the plain sharded forms of kernels D and F (each shard a contiguous
+    block of rows with its own flags and its own replica of the links; the
+    gather as greedy_scs._round_sharded does it: all shards' prefixes, then
+    all their suffixes, in shard order), against the one-device plain D and
+    F on the whole table: after every round each replica's links equal the
+    one-device links, and the shards' flags and hashes, in shard order, the
+    one-device ones. -> the total entries per round."""
+    from pgrc_tpu_torch.kernels import sweep_init, sweep_pair_claim
+    from pgrc_tpu_torch.overlap import greedy_scs as port_scs
+
+    n, L_ = codes.shape
+    lanes, nmask = state.lanes_to_device(*ref_packed.pack_lanes(codes), "cpu")
+    h0, h0b = sweep_init.sweep_full_hashes(lanes, nmask, L_)
+    one = dict(h=h0.clone(), p=h0.clone(), h2=h0b.clone(), p2=h0b.clone(),
+               a_s=torch.from_numpy(a_s.copy()), a_p=torch.from_numpy(a_p.copy()),
+               succ=torch.full((n,), -1, dtype=torch.int32), ovl=torch.zeros(n, dtype=torch.int32))
+    base, extra = divmod(n, ranks)
+    sizes = [base + (r < extra) for r in range(ranks)]
+    shards = []
+    for r in range(ranks):
+        lo = sum(sizes[:r])
+        hi = lo + sizes[r]
+        shards.append(dict(
+            lo=lo, hi=hi, lanes=lanes[lo:hi].clone(),
+            nmask=None if nmask is None else nmask[lo:hi].clone(),
+            ids=torch.arange(lo, hi, dtype=torch.int32),
+            **{k: one[k][lo:hi].clone() for k in ("h", "p", "h2", "p2", "a_s", "a_p")},
+            succ=one["succ"].clone(), ovl=one["ovl"].clone(),
+            bufs=sweep.record_buffers(hi - lo, "cpu")))
+    keys, ent, scratch = sweep.round_buffers(n, "cpu")
+    totals = []
+    for i in range(1, rounds + 1):
+        count = sweep.sweep_roll_entries(lanes, nmask, one["a_s"], one["a_p"], i, L_, one["h"],
+                                         one["p"], one["h2"], one["p2"], keys, ent, scratch)
+        order = port_scs.round_order(keys, ent, count)
+        if order is not None:
+            sweep_pair_claim.sweep_pair_claim(*order, torch.arange(n, dtype=torch.int32),
+                                              one["p2"], one["h2"], one["succ"], one["ovl"],
+                                              one["a_s"], one["a_p"], i, L_)
+        pref, suf = [], []
+        for s in shards:
+            recs, sc = s["bufs"]
+            m, mp = sweep.sweep_roll_records(
+                s["lanes"], s["nmask"], s["a_s"], s["a_p"], i, L_, s["h"], s["p"], s["h2"],
+                s["p2"], s["ids"], recs, sc).tolist()
+            pref.append(recs[:mp].clone())
+            suf.append(recs[mp:m].clone())
+        g = torch.cat(pref + suf)
+        totals.append(g.shape[0])
+        ks, perm = torch.sort(g[:, 0], stable=True)
+        for s in shards:
+            sweep_pair_claim.sweep_pair_records(ks, g[perm, 1], g[perm, 2], s["succ"],
+                                                s["ovl"], s["a_s"], s["a_p"], s["lo"],
+                                                s["hi"], i, L_)
+        for s in shards:
+            assert torch.equal(s["succ"], one["succ"]) and torch.equal(s["ovl"], one["ovl"])
+        for k in ("h", "p", "h2", "p2", "a_s", "a_p"):
+            assert torch.equal(torch.cat([s[k] for s in shards]), one[k]), (i, k)
+    assert (one["succ"] >= 0).any()
+    return totals
+
+
+def _sharded_case(case):
+    """(codes, a_s, a_p, ranks) of the sharded round's edge cases: the ones
+    chip_smoke's mesh phase runs on the card."""
+    rng = np.random.default_rng(31)
+    genome = rng.integers(0, 4, size=2000, dtype=np.uint8)
+    L_ = 40
+    if case == "a rank with no rows":
+        codes, ranks = np.stack([genome[s:s + L_] for s in (20, 0, 10)]), 4
+    elif case == "n not divisible by the ranks":
+        st = rng.integers(0, genome.size - L_, size=1001)
+        codes, ranks = genome[st[:, None] + np.arange(L_)], 4
+    elif case == "an equal-hash run across ranks":
+        base = np.stack([genome[s:s + L_] for s in range(6)])
+        codes, ranks = base[rng.permutation(np.repeat(np.arange(6), 40))], 4
+    else:  # every entry on one rank: only the rows of rank 2's block active
+        st = rng.integers(0, 200, size=400)
+        codes, ranks = genome[st[:, None] + np.arange(L_)], 4
+    n = codes.shape[0]
+    a_s, a_p = np.ones(n, dtype=bool), np.ones(n, dtype=bool)
+    if case == "every entry on one rank":
+        a_s[:] = a_p[:] = False
+        a_s[200:300] = a_p[200:300] = True
+    return codes, a_s, a_p, ranks
+
+
+SHARDED_CASES = ("a rank with no rows", "n not divisible by the ranks",
+                 "an equal-hash run across ranks", "every entry on one rank")
+
+
+@pytest.mark.parametrize("case", SHARDED_CASES)
+def test_sharded_d_and_f_plain_match_one_device(case):
+    """Kernels D's and F's sharded forms (plain versions) over simulated
+    shards give the one-device plain D + F's links, flags and hashes, round
+    after round (39 rounds at L 40)."""
+    codes, a_s, a_p, ranks = _sharded_case(case)
+    totals = sharded_rounds(codes, a_s, a_p, ranks, codes.shape[1] - 1)
+    assert totals[0] > 0
+
+
+def test_sharded_records_pack_side_gid_row():
+    """Kernel D's sharded form writes [key, side | gid | row, confirm hash],
+    prefixes (in row order) before suffixes, and counts both."""
+    n = 6
+    codes = np.random.default_rng(3).integers(0, 4, size=(n, L), dtype=np.uint8)
+    lanes, nmask = state.lanes_to_device(*ref_packed.pack_lanes(codes), "cpu")
+    hs = [torch.arange(n, dtype=torch.int64) * (k + 1) for k in range(4)]
+    a_s = torch.tensor([1, 0, 1, 0, 0, 1], dtype=torch.bool)
+    a_p = torch.tensor([0, 1, 1, 0, 1, 0], dtype=torch.bool)
+    ids = torch.arange(100, 100 + n, dtype=torch.int32)
+    recs, scratch = sweep.record_buffers(n, "cpu")
+    counts = sweep.sweep_roll_records(lanes, nmask, a_s, a_p, 1, L, *hs, ids, recs, scratch)
+    assert counts.tolist() == [6, 3]
+    rows = [1, 2, 4, 0, 2, 5]
+    side = [0, 0, 0, 1, 1, 1]
+    want = [(s << 62) | ((100 + r) << 31) | r for s, r in zip(side, rows)]
+    assert recs[:6, 1].tolist() == want
+    h, p, h2, p2 = hs
+    assert recs[:3, 0].tolist() == (p[[1, 2, 4]] ^ uint.SIGN64).tolist()
+    assert recs[3:6, 0].tolist() == (h[[0, 2, 5]] ^ uint.SIGN64).tolist()
+    assert recs[:3, 2].tolist() == p2[[1, 2, 4]].tolist()
+    assert recs[3:6, 2].tolist() == h2[[0, 2, 5]].tolist()

@@ -407,9 +407,9 @@ def small_sweep_cap(monkeypatch):
     calls = []
     real = port._find_overlaps_partitioned
 
-    def spy(codes, coef, *, device):
+    def spy(codes, coef, *, device, mesh=None):
         calls.append(codes.shape[0])
-        return real(codes, coef, device=device)
+        return real(codes, coef, device=device, mesh=mesh)
 
     monkeypatch.setattr(port, "_find_overlaps_partitioned", spy)
     return calls
