@@ -7,6 +7,7 @@ that tree's kernels).
     python3 ab.py --what sweep TREE [TREE ...]
     python3 ab.py --what verify TREE [TREE ...]
     python3 ab.py --what strand TREE [TREE ...]
+    python3 ab.py --what sharded TREE [TREE ...]
     python3 ab.py --what encode [--pairs 5] [--reads 2000000] [--encodes 2] TREE_A TREE_B
 
 Each TREE is the root of a checkout. Without a CUDA card it exits 2.
@@ -70,6 +71,24 @@ plain version (bit-equal) and beside one torch.index_select of the same
 2R rows for the take; a tree without it is timed as its matcher ran: the
 prep as `revcomp_lanes` and a `torch.cat`, the take as `torch.index_select`
 from the prep's rows.
+
+--what sharded: the sharded overlap round, one process per TREE, at the
+first round of SHARDED_SHAPES' HQ reads (bench.py's SE 200k and SE 2M
+inputs, made with the tree's generator and divided by its stage 1: 175,908
+and 1,759,988 rows), after the tree's init on the card, cut into
+chip_smoke.py's MESH_RANKS simulated shards on the one card: its SimRound runs
+the tree's own greedy_scs._round_sharded for every shard, with the
+collectives answered from what every shard sent (no transfer, but each
+send side's own device work: a tree whose gather pads copies its rows
+first), checks every shard against the tree's one-device round (links of
+every replica, all flags), and times rank 0's round from kernel D's launch
+to kernel F's end (chip_smoke's `cuda_ms`, each call restoring the two
+flag arrays F clears; the restores are timed alone too), the host time
+that queuing a round takes, and, under torch.profiler, the device time of
+each kernel and copy a round. A tree whose round gathers 24-byte record
+rows runs its round as it was: the pad copy, the copy loop, the strided
+sort and two takes; this tree's: the chunked send buffer, the key layout,
+the sort and F through the permutation.
 
 --what encode: SE encode walls of two trees in alternating pairs. The input
 is bench.py's SE 2M file (`synth_fastq(src, 2_000_000, 100, 5_000_000,
@@ -135,6 +154,14 @@ STRAND_SHAPES = (
     ("SE 2M's strand prep", 845_073, 0.0, None),
     ("SE 2M's reads with N in 3%", 845_073, 0.03, None),
     ("a take of half of SE 2M's reads", 845_073, 0.0, 0.5),
+)
+
+
+# (label, reads, genome, seed) of --what sharded: bench.py's SE 200k and
+# SE 2M inputs (bench.py:119-128, :216-221)
+SHARDED_SHAPES = (
+    ("SE 200k's first sharded round", 200_000, 500_000, 7),
+    ("SE 2M's first sharded round", 2_000_000, 5_000_000, 9),
 )
 
 
@@ -411,6 +438,48 @@ def strand_tree(tree: str) -> None:
         torch.cuda.empty_cache()
 
 
+def sharded_tree(tree: str) -> None:
+    import_from(tree)
+    from pgrc_tpu_torch import kernels, synth
+    from pgrc_tpu_torch.config import PgRCParams
+    from pgrc_tpu_torch.core import fastq
+    from pgrc_tpu_torch.kernels import sweep
+
+    cs = load_timer()
+    dev = torch.device("cuda")
+    kernels.build.lib()
+    form = ("chunked send buffers, key layout, F through the permutation"
+            if hasattr(sweep, "CHUNK") else "record rows, pad copy, copy loop, two takes")
+    work = tempfile.mkdtemp(prefix="chip_smoke_ab_", dir=tree)
+    try:
+        for label, reads, genome, seed in SHARDED_SHAPES:
+            src = os.path.join(work, "se.fastq")
+            synth.synth_fastq(src, reads, L, genome, seed=seed)
+            params = PgRCParams(src_fastq=src, output=os.path.join(work, "unused.pgtc"))
+            params.resolve()
+            div = fastq.read_divided(src, None, params.revcomp_pair_file,
+                                     params.error_limit_promils / 1000.0,
+                                     params.simplified_suffix_mode)
+            hq = div.codes[~div.n_mask & div.hq_mask]
+            del div
+            sim = cs.SimRound(cs.round_state(hq, dev), cs.MESH_RANKS, 1, L)
+            links = sim.check()
+            span, restore, host = sim.span_ms(REPS)
+            busy, rows = sim.breakdown(10)
+            print(f"[ab] {tree} ({form}) {label}: {hq.shape[0]} rows over {cs.MESH_RANKS} "
+                  f"simulated shards, m={sim.m} gathered entries, every shard equal to one "
+                  f"device ({links} links); rank 0's round from D to F {span[0]:.4f} and "
+                  f"{span[1]:.4f} ms (timed twice), of which "
+                  f"the flag restores {restore:.4f} ms alone; the host queues a round in "
+                  f"{host:.4f} ms; under torch.profiler "
+                  f"{busy:.4f} ms of kernels and copies a round: "
+                  + "; ".join(f"{n} {ms:.4f} ms x{c:g}" for n, ms, c in rows), flush=True)
+            del sim, hq
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def encode_tree(tree: str, src: str, encodes: int) -> None:
     """One warm-up and `encodes` timed SE compresses of src on the card."""
     import_from(tree)
@@ -477,7 +546,7 @@ def encode_ab(trees: list, pairs: int, reads: int, encodes: int) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
-    ap.add_argument("--what", choices=("kmer", "sweep", "verify", "strand", "encode"),
+    ap.add_argument("--what", choices=("kmer", "sweep", "verify", "strand", "sharded", "encode"),
                     required=True)
     ap.add_argument("--pairs", type=int, default=5, help="encode: alternating pairs")
     ap.add_argument("--reads", type=int, default=2_000_000, help="encode: SE reads")
@@ -499,6 +568,8 @@ def main(argv=None) -> int:
             verify_tree(trees[0])
         elif args.what == "strand":
             strand_tree(trees[0])
+        elif args.what == "sharded":
+            sharded_tree(trees[0])
         else:
             encode_tree(trees[0], args.src, args.encodes)
         return 0

@@ -54,7 +54,13 @@ Phases, each printed with its times; the first failure exits nonzero:
      this encode's first probe, first join, first init, first sweep round
      and first compaction (and its share of tied init positions) and its
      strand prep (I's take form also on a seeded half of those reads), the
-     init on the card against its CPU run there; a second encode under
+     init on the card against its CPU run there; the same first sweep round
+     cut into MESH_RANKS simulated shards (SimRound: the port's own
+     greedy_scs._round_sharded on every shard, its collectives answered
+     from what every shard sent): every shard's round equal to the
+     one-device round, D's and F's sharded forms and the key layout held to
+     their plain versions on every shard, rank 0's timed, and rank 0's
+     round from D's launch to F's end timed; a second encode under
      torch.profiler, without the spies
      that copy those inputs: the peak device memory, the device busy share, the kernels that take the
      device time (B, C, the sweep's kernels, the sorts, any cat or
@@ -93,15 +99,21 @@ Phases, each printed with its times; the first failure exits nonzero:
      one device's, its host syncs counted, no banned op), the SE 200k
      encode over the ranks (each rank's archive equal to phase 4's, its
      launches, wall, time in collectives, and a second encode's device
-     time under torch.profiler), and D's and F's sharded forms held to
-     their plain versions and timed on rank 0's first sharded round.
-     Phase 3 holds the sharded forms on 5 edge cases (simulated shards:
-     a rank with no rows, n not divisible by the ranks, an equal-hash run
-     across ranks, every entry on one rank, one run over 80 tiles).
+     time under torch.profiler), D's and F's sharded forms and the key
+     layout held to their plain versions and timed on rank 0's first
+     sharded round, and the sweep's rounds under a dispatch spy
+     (RoundGap): between the records gather and F's sharded form only
+     views, allocations and the sort may run; then the same round over
+     simulated shards on this process's card, as SE 2M's in phase 5.
+     Phase 3 holds the sharded forms and the key layout on 8 edge cases
+     (simulated shards: a rank with no rows, n not divisible by the ranks,
+     a rank with no active prefix, one with no active suffix, an equal-hash
+     run across ranks, every entry on one rank, send buffers filled to
+     their last word, one run over 80 tiles), each over 10 launches.
 "Kernels launched" is each run's expected set, no more and no fewer among
 the sweep's: the matcher's A, B, C, E and I; G, D and F wherever a device
 sweep ran (inputs past 3072 reads; any input under a mesh, where D and F
-run their sharded forms), G2 and its fill (sweep_link_defaults)
+run their sharded forms, and the key layout), G2 and its fill (sweep_link_defaults)
 where one ran its init (not a repair), and H where a device sweep table
 had more than 32,768 rows (the one table size that compacts; a rank's
 rows under a mesh).
@@ -174,18 +186,20 @@ VARIANTS = {
     "strand_rows.take": ("strand_rows", "strand_rows.take"),
     "sweep_roll_entries.sharded": ("sweep_roll_entries", "sweep_roll_entries.sharded"),
     "sweep_pair_claim.sharded": ("sweep_pair_claim", "sweep_pair_claim.sharded"),
+    "sweep_pair_claim.keys": ("sweep_pair_claim", "sweep_pair_claim.keys"),
 }
 # a variant that replaces another program than its kernel's main form
 VARIANT_REPLACES = {"strand_rows.take": "pgrc_tpu/align/matcher.py:700",
                     "sweep_roll_entries.sharded": "pgrc_tpu/overlap/greedy_scs.py:243",
-                    "sweep_pair_claim.sharded": "pgrc_tpu/overlap/greedy_scs.py:323"}
+                    "sweep_pair_claim.sharded": "pgrc_tpu/overlap/greedy_scs.py:323",
+                    "sweep_pair_claim.keys": "pgrc_tpu/overlap/greedy_scs.py:259"}
 # the main path's int32 kernels: SE 200k and SE 2M launch each of them
 MAIN_KERNELS = tuple(REPLACES)
 MATCH_KERNELS = ("verify_best", "index_kmer_hash", "probe_kmer_hash", "join_carry",
                  "strand_rows")
 SWEEP_KERNELS = ("sweep_full_hashes", "sweep_link_defaults", "sweep_init_links",
                  "sweep_roll_entries", "sweep_pair_claim", "sweep_compact",
-                 "sweep_roll_entries.sharded", "sweep_pair_claim.sharded")
+                 "sweep_roll_entries.sharded", "sweep_pair_claim.sharded", "sweep_pair_claim.keys")
 LARGE_PGS = (  # label, pg symbols, seed, lane_off of the kernel B block checked
     ("pg 300M", 300_000_007, 21, 1 << 24),
     ("pg 2.3G", 2_300_000_003, 22, 1 << 27),
@@ -246,8 +260,11 @@ STRAND_LENGTHS = (16, 17, 31, 32, 33, 37, 63, 64, 65, 80, 100, 128, 129, 200, 25
 # in a look-back scan shows only now and then
 CHECK_LAUNCHES = 10
 # the card's spin before a timed window, ~40 ms at 1.98 GHz: longer than the
-# host takes to queue the timed calls of one cuda_ms
+# host takes to queue the timed calls of one cuda_ms; a sharded round, whose
+# host side takes longer than its device side at SE 200k, spins 16 times as
+# long
 QUEUE_CYCLES = 80_000_000
+ROUND_QUEUE_CYCLES = 16 * QUEUE_CYCLES
 # bytes read between two timed calls: twice the H100's 50 MB L2 cache, so
 # no call finds in L2 the inputs or outputs that the one before left there
 L2_EVICT_BYTES = 100 * 2**20
@@ -268,12 +285,12 @@ def require(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, spin: int = QUEUE_CYCLES) -> float:
     """Mean milliseconds per call of fn() on the card, after one warm-up
     call: each call between its own pair of CUDA events, after a read of
     L2_EVICT_BYTES that evicts the L2 cache (a read, so the lines it leaves
     are clean and the timed call writes none of them back). The card first
-    spins QUEUE_CYCLES, so the host has queued the timed calls before the
+    spins `spin` cycles, so the host has queued the timed calls before the
     first of them runs: the events time the device, not the Python launch
     path between short kernels (a fn that waits on the card is still timed
     with its waits). The buffer read is freed on return, so it adds nothing
@@ -283,7 +300,7 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(reps)]
-    torch.cuda._sleep(QUEUE_CYCLES)
+    torch.cuda._sleep(spin)
     for start, end in events:
         evict.max()
         start.record()
@@ -335,8 +352,11 @@ def phase_device() -> str:
 def phase_build() -> None:
     from pgrc_tpu_torch.kernels import build
 
+    from pgrc_tpu_torch.kernels import sweep
+
     b = build.build()
-    build.lib()
+    require(build.lib().pgrc_sweep_record_chunk() == sweep.CHUNK,
+            "csrc/sweep_record.cuh's chunk differs from kernels/sweep.py's CHUNK")
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", b.log)]
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", b.log))
     say(f"[build] {os.path.relpath(b.path, HERE)} in {b.seconds:.1f} s: "
@@ -1213,15 +1233,16 @@ def strand_edge_cases(dev) -> int:
 
 def records_outputs(fn, args):
     """A callable that runs kernel D's sharded form (or its plain version)
-    on its own copies of the round's hashes, records and scratch -> (the
-    counts (m, prefixes), recs[:m], h, p, h2, p2)."""
+    on its own copies of the round's hashes, send buffer and scratch -> (the
+    counts (m, prefixes), the send buffer, h, p, h2, p2). Both start from
+    the same buffer, so the words past the entries compare too."""
     head, hashes, ids, bufs = args[:6], args[6:10], args[10], args[11:13]
 
     def run():
         mine = tuple(t.clone() for t in hashes)
         recs, scratch = (t.clone() for t in bufs)
         counts = fn(*head, *mine, ids, recs, scratch)
-        return (counts, recs[:int(counts[0])], *mine)
+        return (counts, recs, *mine)
     return run
 
 
@@ -1230,7 +1251,7 @@ def check_roll_records(args, note, reps, timed=True):
     inputs (lanes, nmask, a_s, a_p, i, L, h, p, h2, p2, ids, recs, scratch),
     each launch on its own copies of what it writes: every one of
     CHECK_LAUNCHES launches bit-equal. Bytes: as D, and an active entry
-    reads its row's id and writes a 24-byte record."""
+    reads its row's id and writes its 8-byte key and 16-byte payload."""
     from pgrc_tpu_torch.kernels import sweep
 
     want = records_outputs(sweep.sweep_roll_records_plain, args)()
@@ -1252,33 +1273,62 @@ def check_roll_records(args, note, reps, timed=True):
                   2 * n * OPS_D_ENTRY, err=err)
 
 
-def pair_records_work(args):
-    """Bytes and operations of kernel F's sharded form on these inputs: keys
-    and records read once; a pair reads its partner's record and both
-    confirm hashes, and clears the partner's a_p where the rank owns it; a
-    link writes succ and ovl, and a_s where the rank owns the suffix."""
+def check_keys(args, note, reps, timed=True):
+    """The sharded round's key layout against its plain version on
+    (gathered, counts, m): every one of CHECK_LAUNCHES launches bit-equal.
+    Bytes: each entry's key read once and written once, and the counts;
+    no one library call lays the keys out from the gathered buffer."""
     from pgrc_tpu_torch.kernels import sweep_pair_claim as kp
-    from pgrc_tpu_torch.kernels.sweep import GID_SHIFT, MASK31, SIDE_BIT
 
-    ks, recs, conf, lo, hi = args[0], args[1], args[2], args[7], args[8]
-    sp, pp = kp.pairs_plain(ks, (recs & SIDE_BIT) != 0)
-    gid_s, gid_p = ((recs[x] >> GID_SHIFT) & MASK31 for x in (sp, pp))
-    ok = (gid_p != gid_s) & (conf[pp] == conf[sp])
+    want = (kp.sharded_keys_plain(*args),)
+    err = max(max_abs_err((kp.sharded_keys(*args),), want) for _ in range(CHECK_LAUNCHES))
+    del want
+    require(err == 0, f"sweep_pair_claim.keys {note}: kernel differs from its plain version")
+    if not timed:
+        return err
+    m = args[2]
+    return record("sweep_pair_claim.keys", lambda: (kp.sharded_keys(*args),),
+                  lambda: (kp.sharded_keys_plain(*args),), reps, note,
+                  16 * m + 8 * args[1].numel(), 0, err=err)
+
+
+def pair_records_work(args):
+    """Bytes and operations of kernel F's sharded form on these inputs
+    (ks, perm, gathered, counts, succ_g, ovl_g, a_s, a_p, gid_lo, gid_hi, i,
+    L): keys and positions read once, and the counts; a pair reads its
+    partner's position and two 16-byte payloads, and clears the partner's
+    a_p where the rank owns it; a link writes succ and ovl, and a_s where
+    the rank owns the suffix."""
+    from pgrc_tpu_torch.kernels import sweep_pair_claim as kp
+    from pgrc_tpu_torch.kernels.sweep import GID_SHIFT, MASK31, payload_words
+
+    ks, perm, gathered, counts, lo, hi = args[:4] + args[8:10]
+    ranks = gathered.shape[0]
+    sp, pp = kp.pairs_plain(ks, perm >= counts[:, 1].sum())
+    flat = gathered.view(ranks, -1)
+
+    def payload(at):
+        r, d = kp.gathered_rows(counts, perm[at])
+        w = payload_words(d)
+        return flat[r, w], flat[r, w + 1]
+
+    (rs, cs), (rp, cp) = payload(sp), payload(pp)
+    gid_s, gid_p = (rs >> GID_SHIFT) & MASK31, (rp >> GID_SHIFT) & MASK31
+    ok = (gid_p != gid_s) & (cp == cs)
     own = lambda g: (g >= lo) & (g < hi)
     m = ks.numel()
-    return (16 * m + 24 * sp.numel() + int(own(gid_p).sum()) + 8 * int(ok.sum())
-            + int((ok & own(gid_s)).sum())), OPS_SCAN * m
+    return (16 * m + 8 * counts.numel() + 40 * sp.numel() + int(own(gid_p).sum())
+            + 8 * int(ok.sum()) + int((ok & own(gid_s)).sum())), OPS_SCAN * m
 
 
 def check_pair_records(args, note, reps, timed=True):
     """Kernel F's sharded form against its plain version on one rank's round
-    (ks, recs, conf, succ_g, ovl_g, a_s, a_p, gid_lo, gid_hi, i, L): every
-    one of CHECK_LAUNCHES launches, each on its own copies of the four
-    arrays it updates in place, bit-equal."""
+    (ks, perm, gathered, counts, succ_g, ovl_g, a_s, a_p, gid_lo, gid_hi, i,
+    L): every one of CHECK_LAUNCHES launches, each on its own copies of the
+    four arrays it updates in place, bit-equal."""
     from pgrc_tpu_torch.kernels import sweep_pair_claim as kp
-    from pgrc_tpu_torch.kernels.sweep import SIDE_BIT
 
-    head, outs, tail = args[:3], args[3:7], args[7:]
+    head, outs, tail = args[:4], args[4:8], args[8:]
 
     def on_copies(fn):
         def run():
@@ -1294,21 +1344,25 @@ def check_pair_records(args, note, reps, timed=True):
     if not timed:
         return err
     mine = tuple(t.clone() for t in outs)
+    ks, perm, _, counts = head
     return record("sweep_pair_claim.sharded", lambda: kp.sweep_pair_records(*head, *mine, *tail),
                   lambda: kp.sweep_pair_records_plain(*head, *mine, *tail), reps, note,
-                  *pair_records_work(args),
-                  library=cummaxes(args[0], (args[1] & SIDE_BIT) != 0), err=err)
+                  *pair_records_work(args), library=cummaxes(ks, perm >= counts[:, 1].sum()),
+                  err=err)
 
 
 def sharded_rounds(dev, label, codes, a_s, a_p, ranks, rounds) -> None:
     """Rounds 1..rounds of a sweep table over `ranks` simulated shards on
     the card, as greedy_scs._round_sharded runs them (each shard a
-    contiguous block of rows with its own flags and its own replica of the
-    links; the gather: every shard's prefixes, then every shard's suffixes,
-    in shard order; one stable sort): kernel D's and F's sharded forms held
-    to their plain versions on every shard's inputs in every round, each
-    over two launches on copies, before the kernels advance the state; and
-    every replica's links equal after each round."""
+    contiguous block of rows with its own flags, its own replica of the
+    links and its own send buffer, sized from the largest shard; the gather:
+    every shard's buffer head, as many chunks as the largest count needs;
+    the key layout, its stable sort, F through the permutation): kernel D's
+    and F's sharded forms and the key layout held to their plain versions
+    on every shard's inputs in every round, each over CHECK_LAUNCHES
+    launches on copies, before the kernels advance the state; every
+    replica's links equal after each round. -> the rounds in which a
+    shard's whole send buffer was gathered."""
     from pgrc_tpu_torch import state
     from pgrc_tpu_torch.core import packed
     from pgrc_tpu_torch.kernels import sweep, sweep_init
@@ -1318,9 +1372,10 @@ def sharded_rounds(dev, label, codes, a_s, a_p, ranks, rounds) -> None:
     lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), dev)
     h0, h0b = sweep_init.sweep_full_hashes_plain(lanes, nmask, L_)
     base, extra = divmod(n, ranks)
-    shards, lo = [], 0
+    sizes = [base + (r < extra) for r in range(ranks)]
+    shards, lo, whole = [], 0, 0
     for r in range(ranks):
-        hi = lo + base + (r < extra)
+        hi = lo + sizes[r]
         on = lambda a: torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(dev)
         shards.append(dict(
             gids=(lo, hi), lanes=lanes[lo:hi].clone(),
@@ -1330,27 +1385,27 @@ def sharded_rounds(dev, label, codes, a_s, a_p, ranks, rounds) -> None:
             p2=h0b[lo:hi].clone(), a_s=on(a_s), a_p=on(a_p),
             succ=torch.full((n,), -1, dtype=torch.int32, device=dev),
             ovl=torch.zeros((n,), dtype=torch.int32, device=dev),
-            bufs=sweep.record_buffers(hi - lo, dev)))
+            bufs=sweep.record_buffers(max(sizes), dev)))
         lo = hi
     for i in range(1, rounds + 1):
-        pref, suf = [], []
+        counts = []
         for s in shards:
             args = (s["lanes"], s["nmask"], s["a_s"], s["a_p"], i, L_, s["h"], s["p"],
                     s["h2"], s["p2"], s["ids"], *s["bufs"])
-            want = records_outputs(sweep.sweep_roll_records_plain, args)()
-            err = max(max_abs_err(records_outputs(sweep.sweep_roll_records, args)(), want)
-                      for _ in range(2))
-            require(err == 0, f"sweep_roll_entries.sharded {label}, round {i}, shard "
-                    f"{s['gids']}: kernel differs from its plain version")
-            m, mp = sweep.sweep_roll_records(*args).tolist()
-            recs = s["bufs"][0]
-            pref.append(recs[:mp])
-            suf.append(recs[mp:m])
-        g = torch.cat(pref + suf)
-        ks, perm = torch.sort(g[:, 0], stable=True)
-        recs, conf = g[:, 1].index_select(0, perm), g[:, 2].index_select(0, perm)
+            check_roll_records(args, f"{label}, round {i}, shard {s['gids']}", 0, timed=False)
+            counts.append(sweep.sweep_roll_records(*args).tolist())
+        m, n_pref = (sum(c[k] for c in counts) for k in (0, 1))
+        if n_pref in (0, m):
+            continue
+        chunks = sweep.record_chunks(max(c[0] for c in counts))
+        whole += chunks == shards[0]["bufs"][0].shape[0]
+        gathered = torch.stack([s["bufs"][0][:chunks] for s in shards])
+        counts = torch.tensor(counts, dtype=torch.int64, device=dev)
+        check_keys((gathered, counts, m), f"{label}, round {i}", 0, timed=False)
+        ks, perm = torch.sort(kp.sharded_keys(gathered, counts, m), stable=True)
         for s in shards:
-            args = (ks, recs, conf, s["succ"], s["ovl"], s["a_s"], s["a_p"], *s["gids"], i, L_)
+            args = (ks, perm, gathered, counts, s["succ"], s["ovl"], s["a_s"], s["a_p"],
+                    *s["gids"], i, L_)
             check_pair_records(args, f"{label}, round {i}, shard {s['gids']}", 0, timed=False)
             kp.sweep_pair_records(*args)
         for s in shards[1:]:
@@ -1358,18 +1413,24 @@ def sharded_rounds(dev, label, codes, a_s, a_p, ranks, rounds) -> None:
                     and torch.equal(s["ovl"], shards[0]["ovl"]),
                     f"{label}, round {i}: the shards' link replicas differ")
     links = int((shards[0]["succ"] >= 0).sum())
-    say(f"[kernel] sweep_roll_entries.sharded, sweep_pair_claim.sharded {label}: n={n} over "
-        f"{ranks} shards {[s['gids'] for s in shards]}, {rounds} rounds bit-equal, {links} links")
+    say(f"[kernel] sweep_roll_entries.sharded, sweep_pair_claim.keys, sweep_pair_claim.sharded "
+        f"{label}: n={n} over {ranks} shards {[s['gids'] for s in shards]}, {rounds} rounds "
+        f"bit-equal, {links} links, a shard's whole send buffer gathered in {whole} rounds")
     require(links > 0, f"{label}: no link formed")
+    return whole
 
 
 def sharded_edge_cases(dev) -> int:
-    """Kernels D's and F's sharded forms on the shapes a sharded round gets
-    wrong: a rank with no rows (n < ranks), n not divisible by the ranks, a
-    run of equal hashes across ranks, every entry on one rank, and one run
-    over every entry of 80 scan tiles (past one 32-tile look-back window).
-    -> the number of cases."""
+    """Kernels D's and F's sharded forms and the key layout on the shapes a
+    sharded round gets wrong: a rank with no rows (n < ranks), n not
+    divisible by the ranks, a run of equal hashes across ranks, every entry
+    on one rank, a rank with active suffixes and no active prefix, one with
+    active prefixes and no active suffix, send buffers filled to their last
+    word (the largest count exactly the buffer: the gather sends it whole),
+    and one run over every entry of 80 scan tiles (past one 32-tile
+    look-back window). -> the number of cases."""
     from pgrc_tpu_torch import kernels
+    from pgrc_tpu_torch.kernels import sweep
 
     rng = np.random.default_rng(31)
     genome = rng.integers(0, 4, size=2000, dtype=np.uint8)
@@ -1378,8 +1439,13 @@ def sharded_edge_cases(dev) -> int:
     sharded_rounds(dev, "a rank with no rows", np.stack([genome[s:s + L_] for s in (20, 0, 10)]),
                    ones(3), ones(3), 4, L_ - 1)
     st = rng.integers(0, genome.size - L_, size=1001)
-    sharded_rounds(dev, "n not divisible by the ranks", genome[st[:, None] + np.arange(L_)],
-                   ones(1001), ones(1001), 4, L_ - 1)
+    codes = genome[st[:, None] + np.arange(L_)]
+    sharded_rounds(dev, "n not divisible by the ranks", codes, ones(1001), ones(1001), 4, L_ - 1)
+    no_pref, no_suf = ones(1001), ones(1001)
+    no_pref[251:501] = False    # rank 1's rows: suffixes only
+    no_suf[501:751] = False     # rank 2's rows: prefixes only
+    sharded_rounds(dev, "a rank with no active prefix", codes, ones(1001), no_pref, 4, L_ - 1)
+    sharded_rounds(dev, "a rank with no active suffix", codes, no_suf, ones(1001), 4, L_ - 1)
     base = np.stack([genome[s:s + L_] for s in range(6)])
     sharded_rounds(dev, "an equal-hash run across ranks",
                    base[rng.permutation(np.repeat(np.arange(6), 40))], ones(240), ones(240), 4,
@@ -1389,13 +1455,254 @@ def sharded_edge_cases(dev) -> int:
     act[200:300] = True
     sharded_rounds(dev, "every entry on one rank", genome[st[:, None] + np.arange(L_)], act,
                    act.copy(), 4, L_ - 1)
+    # 4 ranks of 4 chunks' rows, all active: round 1 fills every buffer
+    n = 2 * sweep.CHUNK * 4
+    st = rng.integers(0, genome.size - L_, size=n)
+    whole = sharded_rounds(dev, "send buffers filled to their last word",
+                           genome[st[:, None] + np.arange(L_)], ones(n), ones(n), 4, L_ - 1)
+    require(whole > 0, "no round gathered a whole send buffer")
     # rows all A: every suffix equals every prefix, one run of all entries;
     # suffixes of the even rows, prefixes of the odd rows, so pairs link
     n = 40 * kernels.scan_tile()
     even = np.arange(n) % 2 == 0
     sharded_rounds(dev, "one run over all entries (80 tiles)", np.zeros((n, L_), np.uint8),
                    even, ~even, 3, 2)
-    return 5
+    return 8
+
+
+class _Stop(Exception):
+    """Ends a simulated round at a collective whose result is not known yet."""
+
+
+class SimMesh:
+    """Rank `rank` of `size` shards simulated on one card, as the mesh a
+    tree's greedy_scs._round_sharded is given: its collectives hand back
+    what every shard sent (`counts` [size, (m, prefixes)], `sent` the
+    gathered buffer), moving nothing, after the send side's own device work
+    (this tree's all_gather_rows sends its buffer's head as it is; the
+    parent tree's all_gather_parts copied its rows into a padded buffer
+    first). Without `counts`, or `sent`, the round stops at that collective
+    and keeps what this rank sends there (`send`)."""
+
+    def __init__(self, rank, size, device, counts=None, sent=None):
+        from pgrc_tpu_torch.kernels import sweep
+
+        self.rank, self.size, self.device = rank, size, device
+        self.counts, self.sent, self.send = counts, sent, None
+        # this tree's count gather also hands back the counts on the card;
+        # the parent tree's gave the host array alone
+        self.on_card = (None if counts is None or not hasattr(sweep, "CHUNK")
+                        else torch.from_numpy(counts).to(device))
+
+    def gather_counts(self, t):
+        if self.counts is None:
+            self.send = t.tolist()
+            raise _Stop
+        return self.counts if self.on_card is None else (self.counts, self.on_card)
+
+    def _gathered(self, send):
+        if self.sent is None:
+            self.send = send.clone()
+            raise _Stop
+        return self.sent
+
+    def all_gather_rows(self, t, rows):
+        send = t[:rows]
+        if send.shape[0] < rows:
+            send = torch.empty((rows, *t.shape[1:]), dtype=t.dtype, device=t.device)
+            send[:t.shape[0]].copy_(t)
+        return self._gathered(send)
+
+    def all_gather_parts(self, t, counts):
+        counts = [int(c) for c in counts]
+        pad = torch.empty((max(counts), *t.shape[1:]), dtype=t.dtype, device=t.device)
+        pad[:counts[self.rank]].copy_(t[:counts[self.rank]])
+        return [buf[:c] for buf, c in zip(self._gathered(pad).unbind(0), counts)]
+
+
+def round_state(codes, dev) -> dict:
+    """A sweep table's state before its first round: the init (G, the
+    sort, G2) of `codes` on the card."""
+    from pgrc_tpu_torch import state
+    from pgrc_tpu_torch.core import packed
+    from pgrc_tpu_torch.overlap import greedy_scs as g
+
+    lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), dev)
+    h0, h0b, _, _, a_s, a_p = g._init_links(lanes, nmask, codes.shape[1])
+    return dict(lanes=lanes, nmask=nmask, h=h0, p=h0.clone(), h2=h0b, p2=h0b.clone(),
+                a_s=a_s, a_p=a_p)
+
+
+class SimRound:
+    """Round i of a sweep table cut into `ranks` simulated shards on one
+    card, run by the greedy_scs._round_sharded of the tree on the path (so
+    that ab.py runs a parent tree's round the same way): `state` the whole
+    table before the round (lanes, nmask, h, p, h2, p2, a_s, a_p, on the
+    card). Building it runs every shard's round twice up to a collective,
+    for the counts and for what each shard sends."""
+
+    def __init__(self, state, ranks, i, L_):
+        self.state, self.ranks, self.i, self.L = state, ranks, i, L_
+        self.dev = state["h"].device
+        base, extra = divmod(state["h"].numel(), ranks)
+        self.sizes = [base + (r < extra) for r in range(ranks)]
+        self.counts = self.sent = None
+        counts = np.array([self.run(r)[2].send for r in range(ranks)], dtype=np.int64)
+        self.counts = counts
+        sends = [self.run(r)[2].send for r in range(ranks)]
+        self.sent = None if sends[0] is None else torch.stack(sends)
+        self.m = int(counts[:, 0].sum())
+
+    def table(self, r) -> dict:
+        """Rank r's table, as the tree's find_overlaps builds it."""
+        from pgrc_tpu_torch.kernels import sweep
+        from pgrc_tpu_torch.overlap import greedy_scs as g
+
+        lo = sum(self.sizes[:r])
+        hi = lo + self.sizes[r]
+        st = self.state
+        t = {k: st[k][lo:hi].clone() for k in ("lanes", "h", "p", "h2", "p2", "a_s", "a_p")}
+        t["nmask"] = None if st["nmask"] is None else st["nmask"][lo:hi].clone()
+        # this tree sizes every rank's send buffer from the largest shard,
+        # the parent tree from the rank's own rows
+        rows = max(self.sizes) if hasattr(sweep, "CHUNK") else hi - lo
+        t.update(ids=torch.arange(lo, hi, dtype=torch.int32, device=self.dev), gids=(lo, hi),
+                 entries=g._entry_buffers(rows, self.dev, self))
+        return t
+
+    def links(self):
+        n = self.state["h"].numel()
+        return (torch.full((n,), -1, dtype=torch.int32, device=self.dev),
+                torch.zeros((n,), dtype=torch.int32, device=self.dev))
+
+    def run(self, r):
+        """Rank r's round on a fresh table -> (table, (succ, ovl), mesh)."""
+        from pgrc_tpu_torch.overlap import greedy_scs as g
+
+        t, links = self.table(r), self.links()
+        mesh = SimMesh(r, self.ranks, self.dev, self.counts, self.sent)
+        try:
+            g._round_sharded(self.i, self.L, t, *links, mesh)
+        except _Stop:
+            pass
+        return t, links, mesh
+
+    def check(self) -> int:
+        """Every shard's round against the one-device round on the whole
+        table: every replica's links, and all shards' flags in shard order.
+        -> the links the round made."""
+        from pgrc_tpu_torch.kernels import sweep
+        from pgrc_tpu_torch.overlap import greedy_scs as g
+
+        n = self.state["h"].numel()
+        one = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+               for k, v in self.state.items()}
+        one.update(ids=torch.arange(n, dtype=torch.int32, device=self.dev),
+                   entries=sweep.round_buffers(n, self.dev))
+        succ, ovl = self.links()
+        g._round(self.i, self.L, one, succ, ovl)
+        runs = [self.run(r) for r in range(self.ranks)]
+        require(all(torch.equal(s, succ) and torch.equal(o, ovl) for _, (s, o), _ in runs)
+                and all(torch.equal(torch.cat([t[k] for t, _, _ in runs]), one[k])
+                        for k in ("a_s", "a_p")),
+                "the simulated shards' round differs from the one-device round")
+        return int((succ >= 0).sum())
+
+    def rank0(self):
+        """Rank 0's round, repeatable: -> (round, restore), the round first
+        restoring the two flag arrays F clears (the restore alone)."""
+        from pgrc_tpu_torch.overlap import greedy_scs as g
+
+        t, (succ, ovl) = self.table(0), self.links()
+        mesh = SimMesh(0, self.ranks, self.dev, self.counts, self.sent)
+        a_s, a_p = t["a_s"].clone(), t["a_p"].clone()
+        restore = lambda: (t["a_s"].copy_(a_s), t["a_p"].copy_(a_p))
+
+        def round_():
+            restore()
+            g._round_sharded(self.i, self.L, t, succ, ovl, mesh)
+        return round_, restore
+
+    def span_ms(self, reps) -> tuple:
+        """Device ms of rank 0's round from D's launch to F's end, without
+        the collectives (`rank0`), timed twice, of its two flag restores
+        alone, and the host ms a round takes to queue (the round's Python
+        and launches, timed on the host's clock while the card spins)."""
+        round_, restore = self.rank0()
+        span = [cuda_ms(round_, reps, spin=ROUND_QUEUE_CYCLES) for _ in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(ROUND_QUEUE_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            round_()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        return span, cuda_ms(restore, reps), host
+
+    def breakdown(self, reps) -> tuple:
+        """Rank 0's round under torch.profiler (CUDA activity), `reps`
+        times after one warm-up: -> (device ms a round, [(kernel or copy
+        name cut to 60 characters, ms a round, launches a round)] by time)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        round_, _ = self.rank0()
+        round_()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                round_()
+            torch.cuda.synchronize()
+        rows = [(e.key[:60], (getattr(e, "self_device_time_total", 0) or getattr(
+            e, "self_cuda_time_total", 0)) / 1e3 / reps, e.count / reps)
+                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        rows.sort(key=lambda r: -r[1])
+        return sum(r[1] for r in rows), rows
+
+
+def sharded_round_phase(label, state, i, L_, ranks) -> dict:
+    """Round i of `state` over `ranks` simulated shards (SimRound): every
+    shard's round equal to the one-device round; on every shard kernel D's
+    and F's sharded forms, and the key layout, held to their plain versions
+    over CHECK_LAUNCHES launches on the inputs the round gave them, rank
+    0's timed beside their bounds; rank 0's round from D to F timed. ->
+    rank 0's kernels' JSON fields, by name."""
+    from pgrc_tpu_torch.kernels import sweep
+    from pgrc_tpu_torch.overlap import greedy_scs as g
+
+    t0 = time.time()
+    sim = SimRound(state, ranks, i, L_)
+    require(sim.sent is not None, f"{label}: no pair can form over the shards")
+    links = sim.check()
+    out = {}
+    for r in range(ranks):
+        with FirstCall(g, "sweep_roll_records") as d, FirstCall(g, "sweep_pair_records") as f:
+            sim.run(r)
+        reps = 20 if r == 0 else 0
+        note = (f"{label} over {ranks} simulated shards, shard {r}: n={sim.sizes[r]} rows, "
+                f"m={sim.m} gathered entries")
+        got = check_roll_records(d.args, note, reps, timed=r == 0)
+        if r == 0:
+            out["sweep_roll_entries.sharded"] = got
+            out["sweep_pair_claim.keys"] = check_keys(f.args[2:4] + (sim.m,), note, reps)
+        got = check_pair_records(f.args, note, reps, timed=r == 0)
+        if r == 0:
+            out["sweep_pair_claim.sharded"] = got
+        d.args = f.args = None
+    span, restore, host = sim.span_ms(20)
+    busy, rows = sim.breakdown(10)
+    big = int(sim.counts[:, 0].max())
+    sent = sweep.record_chunks(big) * sweep.CHUNK_WORDS * 8
+    say(f"[round] {label} over {ranks} simulated shards: counts (m, prefixes) "
+        f"{sim.counts.tolist()}, a rank's gather sends {sent} B (24 B an entry of the largest "
+        f"count, {big}, in whole chunks); every shard's round equal to the one-device round "
+        f"({links} links); rank 0's round from D's launch to F's end, no collective, timed "
+        f"twice: {span[0]:.4f} and {span[1]:.4f} ms device time, of which the two flag "
+        f"restores of each timed call take {restore:.4f} ms alone; the host queues a round in "
+        f"{host:.4f} ms; under torch.profiler {busy:.4f} ms of kernels and copies a round: "
+        + "; ".join(f"{n} {ms:.4f} ms x{c:g}" for n, ms, c in rows)
+        + f" ({time.time() - t0:.1f} s)")
+    return out
 
 
 def phase_kernels(dev) -> dict:
@@ -1487,8 +1794,8 @@ def phase_kernels(dev) -> dict:
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
     cases = sharded_edge_cases(dev)
-    say(f"[kernel] sweep_roll_entries.sharded, sweep_pair_claim.sharded: {cases} edge cases "
-        f"bit-equal in {time.time() - t0:.1f} s")
+    say(f"[kernel] sweep_roll_entries.sharded, sweep_pair_claim.keys, sweep_pair_claim.sharded: "
+        f"{cases} edge cases bit-equal in {time.time() - t0:.1f} s")
     return out
 
 
@@ -1639,6 +1946,63 @@ class ProbeGap:
 
         for name, fn in self.real.items():
             setattr(matcher, name, fn)
+        return False
+
+
+class RoundGap:
+    """Spy on a rank's sharded overlap rounds (greedy_scs._round_sharded):
+    the aten ops each round dispatches between the records gather
+    (mesh.all_gather_rows returning) and kernel F's sharded form
+    (greedy_scs.sweep_pair_records), and the number of such gaps. Only
+    views, allocations and the library's sort may run there: the key
+    layout is a kernel, and nothing copies, permutes or uploads."""
+
+    ALLOWED = {"aten.view", "aten._unsafe_view", "aten.alias", "aten.select", "aten.slice",
+               "aten.empty", "aten.sort"}
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        from pgrc_tpu_torch.overlap import greedy_scs as g
+
+        ops = self.ops = set()
+        self.gaps = 0
+        gap = [False]
+        self.real = real = (self.mesh.all_gather_rows, g.sweep_pair_records, g._round_sharded)
+
+        class Log(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if gap[0]:
+                    ops.add(str(func.overloadpacket))
+                return func(*args, **(kwargs or {}))
+
+        def gather(*args, **kwargs):
+            out = real[0](*args, **kwargs)
+            gap[0] = True
+            self.gaps += 1
+            return out
+
+        def pair(*args, **kwargs):
+            gap[0] = False
+            return real[1](*args, **kwargs)
+
+        def round_(*args, **kwargs):
+            with Log():
+                return real[2](*args, **kwargs)
+
+        self.mesh.all_gather_rows = gather
+        g.sweep_pair_records, g._round_sharded = pair, round_
+        return self
+
+    def __exit__(self, *exc):
+        from pgrc_tpu_torch.overlap import greedy_scs as g
+
+        self.mesh.all_gather_rows = self.real[0]
+        g.sweep_pair_records, g._round_sharded = self.real[1:]
+        del self.real   # the wrapped functions may be other spies, holding their copies
         return False
 
 
@@ -1801,14 +2165,17 @@ class SweepSpy:
 
     def expected(self) -> set:
         """The sweep kernels these tables launch: G, D and F in every device
-        sweep (D's and F's sharded forms in a sharded one), G2 and its fill
-        in one that ran its init, H in a table that compacts."""
+        sweep (D's and F's sharded forms and the key layout in a sharded
+        one), G2 and its fill in one that ran its init, H in a table that
+        compacts."""
         from pgrc_tpu_torch.overlap import greedy_scs as g
 
         exp = set()
         for rows, init, sharded in self.tables:
             exp |= {"sweep_full_hashes", *(f"{k}.sharded" if sharded else k for k in (
                 "sweep_roll_entries", "sweep_pair_claim"))}
+            if sharded:
+                exp.add("sweep_pair_claim.keys")
             if init:
                 exp |= {"sweep_link_defaults", "sweep_init_links"}
             if rows > g._ONE_SEGMENT_MAX_ROWS:
@@ -2055,6 +2422,14 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
         timings["sweep_roll_entries"] = check_roll(
             args, f"{label}'s first sweep round: n={args[0].shape[0]} rows, "
             f"{int(args[2].sum()) + int(args[3].sum())} active entries", 20)
+        # the same round cut into MESH_RANKS simulated shards: the sharded
+        # round's kernels and span at a size where its data outweighs its
+        # launches
+        lanes, nmask, a_s, a_p, i, L_, h, p, h2, p2 = args[:10]
+        sharded_round_phase(f"{label}'s first round", dict(
+            lanes=lanes, nmask=nmask, h=h, p=p, h2=h2, p2=p2, a_s=a_s, a_p=a_p), i, L_,
+            MESH_RANKS)
+        del lanes, nmask, a_s, a_p, h, p, h2, p2
         args = firsts["sweep_compact"].args
         timings["sweep_compact"] = check_compact(
             args, f"{label}'s first compaction: n={args[2].numel()} rows, "
@@ -2389,7 +2764,7 @@ class CollectiveClock:
 
     def __init__(self, mesh):
         self.seconds, self.calls = 0.0, 0
-        for name in ("gather_counts", "all_gather_parts", "all_reduce"):
+        for name in ("gather_counts", "all_gather_rows", "all_reduce"):
             setattr(mesh, name, self._timed(getattr(mesh, name)))
 
     def _timed(self, fn):
@@ -2471,13 +2846,16 @@ def mesh_rank(mesh, hq_path: str, src: str, work: str) -> dict:
         firsts = ({name: stack.enter_context(FirstCall(greedy_scs, name))
                    for name in ("sweep_roll_records", "sweep_pair_records")}
                   if mesh.rank == 0 else {})
+        # entered after the FirstCall spies, so their copies of F's inputs
+        # are made after the gap it watches has closed
+        gap = stack.enter_context(RoundGap(mesh))
         t0 = time.time()
         res = greedy_scs.find_overlaps(codes, device=mesh.device, mesh=mesh)
         torch.cuda.synchronize()
         out["sweep_s"] = time.time() - t0
     out.update(succ=res.succ, ovl=res.overlap, sweep_launches=dict(kernels.launches),
                syncs=dict(spy.syncs), banned=sorted(spy.banned), tables=spy.tables,
-               sweep_collectives=clock.take())
+               sweep_collectives=clock.take(), gap_ops=sorted(gap.ops), gaps=gap.gaps)
     require_launched(f"mesh rank {mesh.rank} sweep", kernels.launches, spy, matcher=False)
     if firsts:
         torch.save({name: tuple(a.cpu() if isinstance(a, torch.Tensor) else a
@@ -2540,13 +2918,16 @@ def one_device_roll_ms(args) -> float:
 def one_device_pair_ms(args, n: int) -> float:
     """Kernel F's one-device form timed on a sharded round's gathered
     entries (the sharded form's args) recast as one table of n rows: an
-    entry is its gid (a prefix) or n + gid (a suffix), the confirm hashes
-    scattered to p2 / h2 by gid."""
+    entry is its gid (a prefix) or n + gid (a suffix), in the sorted order,
+    the confirm hashes scattered to p2 / h2 by gid."""
     from pgrc_tpu_torch.kernels import sweep_pair_claim as kp
-    from pgrc_tpu_torch.kernels.sweep import GID_SHIFT, MASK31, SIDE_BIT
+    from pgrc_tpu_torch.kernels.sweep import GID_SHIFT, MASK31, SIDE_BIT, payload_words
 
-    ks, recs, conf, i, L_ = args[0], args[1], args[2], args[9], args[10]
+    ks, perm, gathered, counts, i, L_ = args[:4] + args[10:12]
     dev = ks.device
+    r, d = kp.gathered_rows(counts, perm)
+    flat = gathered.view(gathered.shape[0], -1)
+    recs, conf = flat[r, payload_words(d)], flat[r, payload_words(d) + 1]
     suf = (recs & SIDE_BIT) != 0
     gid = (recs >> GID_SHIFT) & MASK31
     ent = torch.where(suf, gid + n, gid)
@@ -2638,6 +3019,14 @@ def phase_mesh(dev, work: str, src: str, timings: dict) -> dict:
         require(not o["banned"] and syncs <= allowed,
                 f"mesh rank {r}: the sweep dispatched {o['banned']} or read the card {syncs} "
                 f"times (at most {allowed})")
+        f_sh = o["sweep_launches"]["sweep_pair_claim.sharded"]
+        extra = sorted(set(o["gap_ops"]) - RoundGap.ALLOWED)
+        say(f"[mesh] rank {r}: between the records gather and F's sharded form, {o['gaps']} "
+            f"rounds dispatched {o['gap_ops']} (F's sharded form {f_sh} launches, the key "
+            f"layout {o['sweep_launches']['sweep_pair_claim.keys']})")
+        require(o["gaps"] > 0 and o["gaps"] == f_sh == o["sweep_launches"][
+            "sweep_pair_claim.keys"] and not extra, f"mesh rank {r}: {extra} ran between the "
+            f"records gather and F's sharded form ({o['gaps']} gaps, {f_sh} F launches)")
         with open(o["archive"], "rb") as f:
             blob = f.read()
         say(f"[mesh] rank {r}: SE 200k encode {o['encode_s']:.3f} s, archive {len(blob)} B "
@@ -2657,13 +3046,20 @@ def phase_mesh(dev, work: str, src: str, timings: dict) -> dict:
     say(f"[kernel] sweep_roll_entries (the one-device form) on the same rows: "
         f"{one_device_roll_ms(args):.4f} ms")
     args = on(first["sweep_pair_records"])
-    timings["sweep_pair_claim.sharded"] = check_pair_records(
-        args, f"SE 200k's first sharded round on rank 0 of {MESH_RANKS}: m={args[0].numel()} "
-        f"gathered entries, rank 0's {args[5].numel()} rows", 20)
+    note = (f"SE 200k's first sharded round on rank 0 of {MESH_RANKS}: m={args[0].numel()} "
+            f"gathered entries, rank 0's {args[6].numel()} rows")
+    timings["sweep_pair_claim.keys"] = check_keys((args[2], args[3], args[0].numel()), note, 20)
+    timings["sweep_pair_claim.sharded"] = check_pair_records(args, note, 20)
     say(f"[kernel] sweep_pair_claim (the one-device form) on the same entries as one table "
         f"of {hq.shape[0]} rows: {one_device_pair_ms(args, hq.shape[0]):.4f} ms")
+    del first, args
+    # the same round over simulated shards on this process's card: the
+    # kernels on every shard and the round's span, as SE 2M's in phase 5
+    sharded_round_phase("SE 200k's first round of its HQ reads", round_state(hq, dev), 1, L,
+                        MESH_RANKS)
     return {name: sum(o["encode_launches"][name] for o in outs)
-            for name in ("sweep_roll_entries.sharded", "sweep_pair_claim.sharded")}
+            for name in ("sweep_roll_entries.sharded", "sweep_pair_claim.sharded",
+                         "sweep_pair_claim.keys")}
 
 
 def phase_entry() -> None:

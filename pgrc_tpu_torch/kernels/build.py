@@ -40,7 +40,8 @@ SIGNATURES = {
     "pgrc_sweep_roll_entries": [_I, _P, _I64, _P, _I, _P, _I, _P, _P, _I, _I,
                                 _U64, _U64, _U64, _U64, _P, _P, _P, _P, _P, _P, _P, _I64],
     "pgrc_sweep_roll_records": [_I, _P, _I64, _P, _I, _P, _I, _P, _P, _I, _I,
-                                _U64, _U64, _U64, _U64, _P, _P, _P, _P, _P, _P, _P, _I64],
+                                _U64, _U64, _U64, _U64, _P, _P, _P, _P, _P, _P, _I64, _P,
+                                _I64],
     "pgrc_sweep_full_hashes": [_I, _P, _I64, _P, _I, _P, _I, _I, _U64, _U64, _P, _P, _P, _P],
     "pgrc_sweep_link_defaults": [_I, _P, _I64, _P, _P, _P, _P],
     "pgrc_sweep_init_links": [_I, _P, _I64, _P, _P, _P, _I, _P, _P, _P, _P],
@@ -48,8 +49,9 @@ SIGNATURES = {
     "pgrc_join_carry": [_I, _P, _I64, _P, _P, _P, _I, _P, _P, _I64],
     "pgrc_sweep_pair_claim": [_I, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P,
                               _P, _P, _I, _P, _I64],
-    "pgrc_sweep_pair_records": [_I, _P, _I64, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _I,
-                                _P, _I64],
+    "pgrc_sweep_pair_records": [_I, _P, _I64, _P, _P, _P, _I64, _P, _I, _I64, _I64, _P, _P,
+                                _P, _P, _I, _P, _I64],
+    "pgrc_sharded_keys": [_I, _P, _I64, _P, _I64, _P, _I, _P],
     "pgrc_strand_rows": [_I, _P, _P, _P, _I, _P, _I64, _I, _P],
 }
 # geometry queries (no launch): entry point -> (argtypes, restype)
@@ -58,6 +60,7 @@ QUERIES = {
     "pgrc_seg_scan_scratch_words": ([_I64], _I64),
     "pgrc_sweep_compact_scratch_words": ([_I64], _I64),
     "pgrc_sweep_compact_tile": ([], _I64),
+    "pgrc_sweep_record_chunk": ([], _I64),
 }
 
 

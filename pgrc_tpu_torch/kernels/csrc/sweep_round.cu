@@ -39,15 +39,19 @@
 // from memory twice where both sides' columns share a sector.
 //
 // The sharded form (`kRecords`, kernel D of a mesh round; pgrc_tpu's
-// `round_fn` under shard_map, :243-263) rolls the same way but writes each
-// active entry's whole record (sweep_record.cuh: key, side | gid | row,
-// confirm hash) to out[3d .. 3d+2], since after the ranks' gather its row
-// lives on another rank, and counts the active prefixes beside all active
-// entries (scratch word kTotalsWord + 1): the prefixes come first, so that
-// count splits the output into the two halves the gather keeps apart. An
-// entry's gid is ids[row]; its confirm hash is the rolled p2 or h2, which
-// the thread that rolled it reads back. Bytes: 4 more a row (ids) and 8
-// more an active entry than the one-device form.
+// `round_fn` under shard_map, :243-263, with its entry build :251-258)
+// rolls the same way but writes each active entry whole, since after the
+// ranks' gather its row lives on another rank: its key and its payload
+// [side | gid | row, confirm hash] into the rank's send buffer, in the
+// chunked layout of sweep_record.cuh (keys apart from payloads, each
+// payload one aligned 16-byte store), and counts the active prefixes beside
+// all active entries (scratch word kTotalsWord + 1): the prefixes come
+// first, so that count splits the entries into the two sides that the
+// gathered order keeps apart. An entry's gid is ids[row]; its confirm hash
+// is the p2 or h2 that the thread rolled, kept in shared memory from the
+// roll to the write (the thread that rolls an entry writes it), not read
+// back from device memory. Bytes: 4 more a row (ids) and 8 more an active
+// entry than the one-device form.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -78,6 +82,7 @@ sweep_roll_entries_kernel(int64_t n, const uint32_t* __restrict__ lanes, int ld_
   constexpr uint64_t kFlip = 1ull << 63;
   __shared__ long long s_key[kTile + kTile / 8];
   __shared__ short s_slot[kTile];   // 1/0 active, then the entry's output slot or -1
+  __shared__ uint64_t s_conf[kRecords ? kTile : 1];   // the rolled confirm hashes
   __shared__ long long s_base;
   const int64_t m = 2 * n;
   const int64_t tile = next_tile(scratch);
@@ -94,19 +99,22 @@ sweep_roll_entries_kernel(int64_t n, const uint32_t* __restrict__ lanes, int ld_
       const int64_t r = suf ? e - n : e;
       const uint64_t v =
           packed_cols::col_val(lanes, ld_lanes, nmask, ld_nmask, r, suf ? i - 1 : L - i);
-      uint64_t hv;
+      uint64_t hv, conf;
       if (suf) {
         hv = h[r] - v * pow_a;
         h[r] = hv;
-        h2[r] = h2[r] - v * pow_b;
+        conf = h2[r] - v * pow_b;
+        h2[r] = conf;
         act = active_s[r];
       } else {
         hv = (p[r] - v) * inv_a;
         p[r] = hv;
-        p2[r] = (p2[r] - v) * inv_b;
+        conf = (p2[r] - v) * inv_b;
+        p2[r] = conf;
         act = active_p[r];
       }
       s_key[padded(idx)] = (long long)(hv ^ kFlip);
+      if constexpr (kRecords) s_conf[idx] = conf;
     }
     s_slot[idx] = act;
   }
@@ -142,10 +150,9 @@ sweep_roll_entries_kernel(int64_t n, const uint32_t* __restrict__ lanes, int ld_
     if constexpr (kRecords) {
       const bool suf = e >= n;
       const int64_t r = suf ? e - n : e;
-      long long* rec = keys + sweep_record::kWords * o;
-      rec[0] = s_key[padded(idx)];
-      rec[1] = sweep_record::pack(suf, ids[r], r);
-      rec[2] = (long long)(suf ? h2[r] : p2[r]);
+      keys[sweep_record::key_word(o)] = s_key[padded(idx)];
+      *reinterpret_cast<longlong2*>(keys + sweep_record::payload_word(o)) =
+          make_longlong2(sweep_record::pack(suf, ids[r], r), (long long)s_conf[idx]);
     } else {
       keys[o] = s_key[padded(idx)];
       ent[o] = e;
@@ -162,11 +169,13 @@ int roll_entries(int device, void* stream, int64_t n, const void* lanes, int ld_
                  const void* nmask, int ld_nmask, const void* active_s, const void* active_p,
                  int i, int L, uint64_t pow_a, uint64_t pow_b, uint64_t inv_a, uint64_t inv_b,
                  void* h, void* p, void* h2, void* p2, const void* ids, void* keys, void* ent,
-                 void* scratch, int64_t scratch_words) {
+                 int64_t capacity, void* scratch, int64_t scratch_words) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int64_t m = 2 * n;
-  if (scratch_words < seg_scan::scratch_words(m)) return (int)cudaErrorInvalidValue;
+  if (scratch_words < seg_scan::scratch_words(m) || capacity < m ||
+      (kRecords && (reinterpret_cast<uintptr_t>(keys) & 15) != 0))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   err = seg_scan::zero_scratch(scratch, m, s);
   if (err != cudaSuccess || n == 0) return (int)err;
@@ -191,19 +200,23 @@ extern "C" int pgrc_sweep_roll_entries(
     int64_t scratch_words) {
   return roll_entries<false>(device, stream, n, lanes, ld_lanes, nmask, ld_nmask, active_s,
                              active_p, i, L, pow_a, pow_b, inv_a, inv_b, h, p, h2, p2,
-                             nullptr, keys, ent, scratch, scratch_words);
+                             nullptr, keys, ent, 2 * n, scratch, scratch_words);
 }
 
-// The sharded form: ids [n] int32 (the rows' global ids), recs [2n, 3]
-// int64 (capacity); m lands in scratch[kTotalsWord], the active prefixes,
-// which come first, in scratch[kTotalsWord + 1].
+// The sharded form: ids [n] int32 (the rows' global ids), recs the send
+// buffer, rec_chunks chunks of sweep_record::kChunkWords int64 words (at
+// least 2n entries; 16-byte aligned); m lands in scratch[kTotalsWord], the
+// active prefixes, which come first, in scratch[kTotalsWord + 1].
 extern "C" int pgrc_sweep_roll_records(
     int device, void* stream, int64_t n, const void* lanes, int ld_lanes,
     const void* nmask, int ld_nmask, const void* active_s, const void* active_p,
     int i, int L, uint64_t pow_a, uint64_t pow_b, uint64_t inv_a, uint64_t inv_b,
-    void* h, void* p, void* h2, void* p2, const void* ids, void* recs, void* scratch,
-    int64_t scratch_words) {
+    void* h, void* p, void* h2, void* p2, const void* ids, void* recs, int64_t rec_chunks,
+    void* scratch, int64_t scratch_words) {
   return roll_entries<true>(device, stream, n, lanes, ld_lanes, nmask, ld_nmask, active_s,
                             active_p, i, L, pow_a, pow_b, inv_a, inv_b, h, p, h2, p2, ids,
-                            recs, nullptr, scratch, scratch_words);
+                            recs, nullptr, rec_chunks * sweep_record::kChunk, scratch,
+                            scratch_words);
 }
+
+extern "C" int64_t pgrc_sweep_record_chunk() { return sweep_record::kChunk; }

@@ -4,9 +4,10 @@ active entries, compacted (csrc/sweep_round.cu). Replaces greedy_scs.py
 of the valid entries that the port's round did with cat and nonzero.
 
 Its sharded form, `sweep_roll_records` (a mesh round, greedy_scs.py:243-263),
-writes each active entry's whole record instead of its index: [key, side |
-gid | row, confirm hash] (csrc/sweep_record.cuh), prefixes first, and counts
-the prefixes beside all entries.
+writes each active entry whole instead of its index, prefixes first, into
+the rank's send buffer: its key and its payload [side | gid | row, confirm
+hash], in chunks of CHUNK keys then CHUNK payloads (csrc/sweep_record.cuh),
+and counts the prefixes beside all entries.
 """
 from __future__ import annotations
 
@@ -18,13 +19,16 @@ from ..utils.uint import SIGN64, s64
 from . import TOTALS_WORD, check, launch, launches, on_cpu, ptr, scan_scratch
 
 _M64 = (1 << 64) - 1
-# a sharded round's entry record (csrc/sweep_record.cuh): int64 words [key,
-# record, confirm hash]; the record is side (bit 62, 1 = suffix), global id
-# (bits 31-61) and the row in its owner's table (bits 0-30)
-REC_WORDS = 3
+# a sharded round's entries (csrc/sweep_record.cuh): a key and a payload
+# [record, confirm hash] each; the record is side (bit 62, 1 = suffix),
+# global id (bits 31-61) and the row in its owner's table (bits 0-30). A
+# rank's send buffer holds them in chunks of CHUNK entries, CHUNK_WORDS
+# int64 words each: the chunk's keys, then its payloads
 SIDE_BIT = 1 << 62
 GID_SHIFT = 31
 MASK31 = (1 << 31) - 1
+CHUNK = 32
+CHUNK_WORDS = 3 * CHUNK
 
 
 def round_powers(i: int, L: int) -> tuple[int, int, int, int]:
@@ -112,33 +116,53 @@ def sweep_roll_entries(lanes: torch.Tensor, nmask: torch.Tensor | None,
     return scratch[TOTALS_WORD:TOTALS_WORD + 1]
 
 
-def record_buffers(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(recs, scratch) of a sharded table of n rows, allocated once and
-    reused every round: recs [2n, REC_WORDS] int64 at capacity, scratch the
-    words of kernel D's scan with the round's count at TOTALS_WORD and its
-    active prefixes in the next word."""
+def record_chunks(m: int) -> int:
+    """Chunks of a send buffer that hold m entries."""
+    return -(-m // CHUNK)
+
+
+def key_words(d: torch.Tensor) -> torch.Tensor:
+    """Word of entry d's key in its rank's send buffer."""
+    return d // CHUNK * CHUNK_WORDS + d % CHUNK
+
+
+def payload_words(d: torch.Tensor) -> torch.Tensor:
+    """Word of entry d's payload (its record; the confirm hash follows)."""
+    return d // CHUNK * CHUNK_WORDS + CHUNK + 2 * (d % CHUNK)
+
+
+def record_buffers(rows_max: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(recs, scratch) of a sharded table, allocated once and reused every
+    round: recs the send buffer [record_chunks(2 * rows_max), CHUNK_WORDS]
+    int64, sized from the largest table of any rank (rows_max rows), so
+    that a rank's buffer holds at least the largest count of entries any
+    rank sends in a round and the gather sends its head as it is; scratch
+    the words of kernel D's scan over up to 2 * rows_max entries, with the
+    round's count at TOTALS_WORD and its active prefixes in the next word."""
     device = torch.device(device)
-    scratch = (scan_scratch(2 * n, device) if device.type == "cuda"
+    scratch = (scan_scratch(2 * rows_max, device) if device.type == "cuda"
                else torch.empty((TOTALS_WORD + 2,), dtype=torch.int64, device=device))
-    return torch.empty((2 * n, REC_WORDS), dtype=torch.int64, device=device), scratch
+    return (torch.empty((record_chunks(2 * rows_max), CHUNK_WORDS), dtype=torch.int64,
+                        device=device), scratch)
 
 
 def sweep_roll_records_plain(lanes, nmask, active_s, active_p, i: int, L: int,
                              h, p, h2, p2, ids, recs, scratch) -> torch.Tensor:
     """Roll h, p, h2, p2 (IN PLACE) for round i, then write the active
-    entries' records, prefixes then suffixes, each side in row order:
-    recs[d] = [hash ^ SIGN64, side | gid | row, the rolled p2 or h2]."""
+    entries, prefixes then suffixes, each side in row order, entry d at
+    key_words(d) (hash ^ SIGN64) and payload_words(d) (side | gid | row,
+    then the rolled p2 or h2) of recs."""
     roll_plain(lanes, nmask, i, L, h, p, h2, p2)
+    flat = recs.view(-1)
+    gid = ids.to(torch.int64) << GID_SHIFT
     pre = torch.nonzero(active_p).squeeze(1)
     suf = torch.nonzero(active_s).squeeze(1)
     mp, m = pre.numel(), pre.numel() + suf.numel()
-    gid = ids.to(torch.int64) << GID_SHIFT
-    recs[:mp, 0] = p[pre] ^ SIGN64
-    recs[:mp, 1] = gid[pre] | pre
-    recs[:mp, 2] = p2[pre]
-    recs[mp:m, 0] = h[suf] ^ SIGN64
-    recs[mp:m, 1] = gid[suf] | suf | SIDE_BIT
-    recs[mp:m, 2] = h2[suf]
+    for rows, first, key, conf, side in ((pre, 0, p, p2, 0), (suf, mp, h, h2, SIDE_BIT)):
+        d = torch.arange(first, first + rows.numel(), dtype=torch.int64, device=recs.device)
+        flat[key_words(d)] = key[rows] ^ SIGN64
+        flat[payload_words(d)] = gid[rows] | rows | side
+        flat[payload_words(d) + 1] = conf[rows]
     scratch[TOTALS_WORD] = m
     scratch[TOTALS_WORD + 1] = mp
     return scratch[TOTALS_WORD:TOTALS_WORD + 2]
@@ -150,10 +174,11 @@ def sweep_roll_records(lanes: torch.Tensor, nmask: torch.Tensor | None,
                        ids: torch.Tensor, recs: torch.Tensor,
                        scratch: torch.Tensor) -> torch.Tensor:
     """Kernel D's sharded form: as `sweep_roll_entries`, with ids [n] int32
-    the rows' global ids, and recs [2n, REC_WORDS] int64 and scratch from
-    `record_buffers` -> the active entries' records in recs[:m], the mp
-    active prefixes first, and (m, mp) as a two-element int64 view on the
-    tensors' device. CUDA tensors run kernel D's sharded form."""
+    the rows' global ids, and recs [chunks, CHUNK_WORDS] int64 (at least 2n
+    entries) and scratch from `record_buffers` -> the m active entries in
+    the chunks of recs (the mp active prefixes first; csrc/sweep_record.cuh),
+    and (m, mp) as a two-element int64 view on the tensors' device. CUDA
+    tensors run kernel D's sharded form."""
     n = lanes.shape[0]
     check(lanes, "lanes", torch.int32, (n, None))
     if nmask is not None:
@@ -163,8 +188,10 @@ def sweep_roll_records(lanes: torch.Tensor, nmask: torch.Tensor | None,
     for name, t in (("h", h), ("p", p), ("h2", h2), ("p2", p2)):
         check(t, name, torch.int64, (n,))
     check(ids, "ids", torch.int32, (n,))
-    check(recs, "recs", torch.int64, (2 * n, REC_WORDS))
+    check(recs, "recs", torch.int64, (None, CHUNK_WORDS))
     check(scratch, "scratch", torch.int64, (None,))
+    if recs.shape[0] * CHUNK < 2 * n:
+        raise ValueError(f"recs: {recs.shape[0]} chunks cannot hold {2 * n} entries")
     if not 1 <= i < L or L > 16 * lanes.shape[1]:
         raise ValueError(f"round {i} out of range for read length {L}")
     if on_cpu(lanes, nmask, active_s, active_p, h, p, h2, p2, ids, recs, scratch):
@@ -173,6 +200,6 @@ def sweep_roll_records(lanes: torch.Tensor, nmask: torch.Tensor | None,
     launch("pgrc_sweep_roll_records", lanes.device, n, ptr(lanes), lanes.shape[1],
            ptr(nmask), 0 if nmask is None else nmask.shape[1], ptr(active_s),
            ptr(active_p), i, L, *round_powers(i, L), ptr(h), ptr(p), ptr(h2),
-           ptr(p2), ptr(ids), ptr(recs), ptr(scratch), scratch.numel())
+           ptr(p2), ptr(ids), ptr(recs), recs.shape[0], ptr(scratch), scratch.numel())
     launches["sweep_roll_entries.sharded"] += 1
     return scratch[TOTALS_WORD:TOTALS_WORD + 2]

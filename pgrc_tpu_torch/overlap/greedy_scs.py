@@ -33,16 +33,22 @@ With a `mesh` of more than one rank (the reference's shard_map path,
 greedy_scs.py:243-263, :323-331, :381-397, :514-528) every rank runs the
 init over all rows, then keeps one contiguous block of rows, its shard
 (sizes differ by at most one; n need not divide by the ranks, and a rank
-may hold none). A round: D's sharded form writes each active entry's whole
-record, prefixes first; the ranks' counts are gathered (the round's one
-host read), then their prefixes and their suffixes, each in rank order, so
-the gathered entries stand in (side, gid) order, as on one device, before
-every rank sorts them all stably; F's sharded form pairs them on every
-rank, writes every link into the rank's replicated link arrays and clears
-only the flags of the rank's own rows. H compacts each rank's table on its
-own; the segment end all-reduces the kept rows and active counts (max), so
-every rank takes the same number of rounds. The links are the one-device
-links, bit for bit.
+may hold none). A round, on the card: D's sharded form writes each active
+entry, prefixes first, into the rank's send buffer (its key apart from its
+payload [side | gid | row, confirm hash]; kernels/csrc/sweep_record.cuh);
+the ranks' counts are gathered (the round's one host read); one gather
+brings every rank's send buffer to every rank, the buffer's head as it
+lies; the key layout writes the gathered keys as one vector in (side,
+rank) order, every rank's prefixes, then every rank's suffixes, so the
+entries stand in (side, gid) order, as on one device; the library's stable
+sort orders them by key; F's sharded form pairs them on every rank,
+reading each entry's payload from the gathered buffer through the sort's
+permutation, writes every link into the rank's replicated link arrays and
+clears only the flags of the rank's own rows. Nothing copies or permutes
+the records in between. H compacts each rank's table on its own; the
+segment end all-reduces the kept rows and active counts (max), so every
+rank takes the same number of rounds. The links are the one-device links,
+bit for bit.
 """
 from __future__ import annotations
 
@@ -51,11 +57,11 @@ import torch
 
 from .. import state
 from ..core import packed
-from ..kernels.sweep import (REC_WORDS, record_buffers, round_buffers, sweep_roll_entries,
+from ..kernels.sweep import (record_buffers, record_chunks, round_buffers, sweep_roll_entries,
                              sweep_roll_records)
 from ..kernels.sweep_compact import sweep_compact
 from ..kernels.sweep_init import link_defaults, sweep_full_hashes, sweep_init_links
-from ..kernels.sweep_pair_claim import sweep_pair_claim, sweep_pair_records
+from ..kernels.sweep_pair_claim import sharded_keys, sweep_pair_claim, sweep_pair_records
 from ..parallel.mesh import active
 from ..utils.trace import span
 from .host import (  # noqa: F401  (re-exported host layer)
@@ -119,29 +125,26 @@ def _round(i: int, L: int, t: dict, succ_g, ovl_g) -> None:
 
 def _round_sharded(i: int, L: int, t: dict, succ_g, ovl_g, mesh) -> None:
     """One overlap round of a rank's table `t` under `mesh` (in place);
-    every rank's links go to succ_g/ovl_g on every rank."""
+    every rank's links go to succ_g/ovl_g on every rank. D's sharded form,
+    the count gather (the host read), one gather of the send buffers'
+    heads, the key layout in (side, rank) order, its stable sort, and F's
+    sharded form reading the gathered buffer through the permutation; the
+    key layout and F take the counts where the count gather left them, on
+    the card."""
     recs, scratch = t["entries"]
     counts = sweep_roll_records(t["lanes"], t["nmask"], t["a_s"], t["a_p"], i, L,
                                 t["h"], t["p"], t["h2"], t["p2"], t["ids"], recs, scratch)
-    got = mesh.gather_counts(counts)           # [ranks, (m, prefixes)]: the host read
-    n_pref, n_suf = got[:, 1], got[:, 0] - got[:, 1]
-    tot_pref, tot_suf = int(n_pref.sum()), int(n_suf.sum())
-    if tot_pref == 0 or tot_suf == 0:
+    # [ranks, (m, prefixes)], on the host (the host read) and on the card
+    got, counts = mesh.gather_counts(counts)
+    m, n_pref = int(got[:, 0].sum()), int(got[:, 1].sum())
+    if n_pref == 0 or n_pref == m:
         return          # no pair can form: the round changes nothing
-    # one gather of every rank's records (its prefixes, then its suffixes);
-    # then every prefix before every suffix, each side in rank order, so in
-    # gid order: the stable sort keeps the reference's (key, side|gid) order
-    parts = mesh.all_gather_parts(recs, got[:, 0])
-    g = torch.empty((tot_pref + tot_suf, REC_WORDS), dtype=torch.int64, device=recs.device)
-    off = 0
-    for side in (0, 1):
-        for part, mp in zip(parts, n_pref):
-            rows = part[:mp] if side == 0 else part[mp:]
-            g[off:off + rows.shape[0]].copy_(rows)
-            off += rows.shape[0]
-    ks, perm = torch.sort(g[:, 0], stable=True)
-    sweep_pair_records(ks, g[:, 1].index_select(0, perm), g[:, 2].index_select(0, perm),
-                       succ_g, ovl_g, t["a_s"], t["a_p"], *t["gids"], i, L)
+    gathered = mesh.all_gather_rows(recs, record_chunks(int(got[:, 0].max())))
+    # the stable sort keeps the (side, gid) order of the layout in a run of
+    # equal keys: the reference's (key, side|gid) order
+    ks, perm = torch.sort(sharded_keys(gathered, counts, m), stable=True)
+    sweep_pair_records(ks, perm, gathered, counts, succ_g, ovl_g, t["a_s"], t["a_p"],
+                       *t["gids"], i, L)
 
 
 def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
@@ -191,14 +194,15 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
         # and ovl_g, are every rank's)
         lanes, nmask, h0, h0b, a_s, a_p = (None if v is None else v[lo:hi].clone()
                                            for v in (lanes, nmask, h0, h0b, a_s, a_p))
+    # the largest table of any rank decides the segments, the same on all,
+    # and sizes every rank's send buffer
+    rows_max = hi - lo if mesh is None else max(mesh.splits(n))
     # the round kernel rolls h, p, h2, p2 in place: four distinct buffers;
     # the table holds its rounds' entry buffers (kernel D's outputs)
     t = dict(lanes=lanes, nmask=nmask,
              ids=torch.arange(lo, hi, dtype=torch.int32, device=device),
              h=h0, p=h0.clone(), h2=h0b, p2=h0b.clone(), a_s=a_s, a_p=a_p, gids=(lo, hi),
-             entries=_entry_buffers(hi - lo, device, mesh))
-    # the largest table of any rank decides the segments, the same on all
-    rows_max = hi - lo if mesh is None else max(mesh.splits(n))
+             entries=_entry_buffers(rows_max, device, mesh))
     iters = int(L * coef)
     i, seg_idx = 1, 0
     with span(f"sweep rounds n={n}"):
@@ -235,16 +239,17 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
             if kept < rows:
                 t.update((k, None if v is None else v[:kept]) for k, v in zip(_TABLE, new))
             del new
-            t["entries"] = _entry_buffers(kept, device, mesh)
+            t["entries"] = _entry_buffers(rows_max, device, mesh)
     res = OverlapResult(succ_g.cpu().numpy(), ovl_g.cpu().numpy(), L)
     with span("sweep verify_links"):
         _verify_links(res, codes)
     return res
 
 
-def _entry_buffers(rows: int, device, mesh):
-    """A table's round buffers: kernel D's, or its sharded form's."""
-    return round_buffers(rows, device) if mesh is None else record_buffers(rows, device)
+def _entry_buffers(rows_max: int, device, mesh):
+    """A table's round buffers: kernel D's, or its sharded form's (sized
+    from the largest table of any rank, rows_max rows)."""
+    return round_buffers(rows_max, device) if mesh is None else record_buffers(rows_max, device)
 
 
 def _find_overlaps_partitioned(codes: np.ndarray, coef: float, *,

@@ -64,27 +64,38 @@ class Mesh:
         lo = sum(sizes[:self.rank])
         return lo, lo + sizes[self.rank]
 
-    def gather_counts(self, t: torch.Tensor) -> np.ndarray:
+    def gather_counts(self, t: torch.Tensor) -> tuple[np.ndarray, torch.Tensor]:
         """Every rank's t (a small int64 vector on the rank's device, the
-        same length on every rank) -> host int64 [size, len(t)], in rank
-        order: the one host read that sizes a variable-length gather."""
+        same length on every rank), in rank order -> (host int64 [size,
+        len(t)]: the one host read that sizes a variable-length gather; the
+        same [size, len(t)] tensor on the device, for the kernels that read
+        the gathered rows)."""
         out = torch.empty((self.size, *t.shape), dtype=t.dtype, device=t.device)
         dist.all_gather(list(out.unbind(0)), t.contiguous())
-        return out.cpu().numpy()
+        return out.cpu().numpy(), out
+
+    def all_gather_rows(self, t: torch.Tensor, rows: int) -> torch.Tensor:
+        """Every rank's first `rows` rows of t, in rank order: one gather ->
+        [size, rows, *t.shape[1:]]. NCCL and gloo gather equal sizes. A
+        rank whose t holds at least `rows` rows sends its head as it is
+        (what lies past the rank's own count is dropped by every receiver);
+        a shorter t is first copied into a buffer of `rows` rows."""
+        send = t[:rows]
+        if send.shape[0] < rows:
+            send = torch.empty((rows, *t.shape[1:]), dtype=t.dtype, device=t.device)
+            send[:t.shape[0]].copy_(t)
+        bufs = torch.empty((self.size, *send.shape), dtype=t.dtype, device=t.device)
+        if rows:
+            dist.all_gather(list(bufs.unbind(0)), send)
+        return bufs
 
     def all_gather_parts(self, t: torch.Tensor, counts) -> list[torch.Tensor]:
-        """Every rank's t[:counts[r]], in rank order: one gather. NCCL and
-        gloo gather equal sizes, so each rank pads its rows to the largest
-        count, gathers, and each part drops its rank's padding. -> [size]
-        views of the gathered buffer (rank r's part has counts[r] rows)."""
+        """Every rank's t[:counts[r]], in rank order: one gather of the
+        largest count of rows (`all_gather_rows`; t padded only where it is
+        shorter). -> [size] views of the gathered buffer (rank r's part has
+        counts[r] rows)."""
         counts = [int(c) for c in counts]
-        big = max(counts)
-        mine = counts[self.rank]
-        pad = torch.empty((big, *t.shape[1:]), dtype=t.dtype, device=t.device)
-        pad[:mine].copy_(t[:mine])
-        bufs = torch.empty((self.size, *pad.shape), dtype=t.dtype, device=t.device)
-        if big:
-            dist.all_gather(list(bufs.unbind(0)), pad)
+        bufs = self.all_gather_rows(t, max(counts))
         return [buf[:c] for buf, c in zip(bufs.unbind(0), counts)]
 
     def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:

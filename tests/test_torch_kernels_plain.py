@@ -594,12 +594,30 @@ def test_probe_from_anchors_matches_make_probe(case, wide, n_verify):
         assert (mis_r == 255).all()
 
 
+def sharded_round_entries(shards, counts):
+    """The gathered side of a sharded round, as greedy_scs._round_sharded
+    builds it from the shards' send buffers and counts after kernel D's
+    sharded form: the gathered heads (the gather: every shard's first
+    chunks, as many as the largest count needs), the key layout and its
+    stable sort. -> (ks, perm, gathered, counts)."""
+    from pgrc_tpu_torch.kernels import sweep_pair_claim
+
+    chunks = sweep.record_chunks(max(c[0] for c in counts))
+    gathered = torch.stack([s["bufs"][0][:chunks] for s in shards])
+    counts = torch.tensor(counts, dtype=torch.int64)
+    keys = sweep_pair_claim.sharded_keys(gathered, counts, int(counts[:, 0].sum()))
+    ks, perm = torch.sort(keys, stable=True)
+    return ks, perm, gathered, counts
+
+
 def sharded_rounds(codes, a_s, a_p, ranks, rounds):
     """Rounds 1..rounds of a sweep table over `ranks` simulated shards with
-    the plain sharded forms of kernels D and F (each shard a contiguous
-    block of rows with its own flags and its own replica of the links; the
-    gather as greedy_scs._round_sharded does it: all shards' prefixes, then
-    all their suffixes, in shard order), against the one-device plain D and
+    the plain sharded forms of kernels D and F and the key layout (each
+    shard a contiguous block of rows with its own flags, its own replica of
+    the links and its own send buffer, sized from the largest shard; the
+    round as greedy_scs._round_sharded runs it: the shards' heads gathered,
+    the keys laid out in (side, rank) order and sorted stably, F reading
+    each entry through the permutation), against the one-device plain D and
     F on the whole table: after every round each replica's links equal the
     one-device links, and the shards' flags and hashes, in shard order, the
     one-device ones. -> the total entries per round."""
@@ -624,7 +642,7 @@ def sharded_rounds(codes, a_s, a_p, ranks, rounds):
             ids=torch.arange(lo, hi, dtype=torch.int32),
             **{k: one[k][lo:hi].clone() for k in ("h", "p", "h2", "p2", "a_s", "a_p")},
             succ=one["succ"].clone(), ovl=one["ovl"].clone(),
-            bufs=sweep.record_buffers(hi - lo, "cpu")))
+            bufs=sweep.record_buffers(max(sizes), "cpu")))
     keys, ent, scratch = sweep.round_buffers(n, "cpu")
     totals = []
     for i in range(1, rounds + 1):
@@ -635,21 +653,14 @@ def sharded_rounds(codes, a_s, a_p, ranks, rounds):
             sweep_pair_claim.sweep_pair_claim(*order, torch.arange(n, dtype=torch.int32),
                                               one["p2"], one["h2"], one["succ"], one["ovl"],
                                               one["a_s"], one["a_p"], i, L_)
-        pref, suf = [], []
+        counts = [sweep.sweep_roll_records(
+            s["lanes"], s["nmask"], s["a_s"], s["a_p"], i, L_, s["h"], s["p"], s["h2"],
+            s["p2"], s["ids"], *s["bufs"]).tolist() for s in shards]
+        ks, perm, gathered, counts = sharded_round_entries(shards, counts)
+        totals.append(ks.numel())
         for s in shards:
-            recs, sc = s["bufs"]
-            m, mp = sweep.sweep_roll_records(
-                s["lanes"], s["nmask"], s["a_s"], s["a_p"], i, L_, s["h"], s["p"], s["h2"],
-                s["p2"], s["ids"], recs, sc).tolist()
-            pref.append(recs[:mp].clone())
-            suf.append(recs[mp:m].clone())
-        g = torch.cat(pref + suf)
-        totals.append(g.shape[0])
-        ks, perm = torch.sort(g[:, 0], stable=True)
-        for s in shards:
-            sweep_pair_claim.sweep_pair_records(ks, g[perm, 1], g[perm, 2], s["succ"],
-                                                s["ovl"], s["a_s"], s["a_p"], s["lo"],
-                                                s["hi"], i, L_)
+            sweep_pair_claim.sweep_pair_records(ks, perm, gathered, counts, s["succ"], s["ovl"],
+                                                s["a_s"], s["a_p"], s["lo"], s["hi"], i, L_)
         for s in shards:
             assert torch.equal(s["succ"], one["succ"]) and torch.equal(s["ovl"], one["ovl"])
         for k in ("h", "p", "h2", "p2", "a_s", "a_p"):
@@ -666,8 +677,12 @@ def _sharded_case(case):
     L_ = 40
     if case == "a rank with no rows":
         codes, ranks = np.stack([genome[s:s + L_] for s in (20, 0, 10)]), 4
-    elif case == "n not divisible by the ranks":
+    elif case in ("n not divisible by the ranks", "a rank with no active prefix",
+                  "a rank with no active suffix"):
         st = rng.integers(0, genome.size - L_, size=1001)
+        codes, ranks = genome[st[:, None] + np.arange(L_)], 4
+    elif case == "send buffers filled to their last word":   # 4 ranks of 2 chunks' rows
+        st = rng.integers(0, genome.size - L_, size=8 * sweep.CHUNK)
         codes, ranks = genome[st[:, None] + np.arange(L_)], 4
     elif case == "an equal-hash run across ranks":
         base = np.stack([genome[s:s + L_] for s in range(6)])
@@ -680,42 +695,132 @@ def _sharded_case(case):
     if case == "every entry on one rank":
         a_s[:] = a_p[:] = False
         a_s[200:300] = a_p[200:300] = True
+    elif case == "a rank with no active prefix":   # rank 1's rows: suffixes only
+        a_p[251:501] = False
+    elif case == "a rank with no active suffix":   # rank 2's rows: prefixes only
+        a_s[501:751] = False
     return codes, a_s, a_p, ranks
 
 
 SHARDED_CASES = ("a rank with no rows", "n not divisible by the ranks",
-                 "an equal-hash run across ranks", "every entry on one rank")
+                 "an equal-hash run across ranks", "every entry on one rank",
+                 "a rank with no active prefix", "a rank with no active suffix",
+                 "send buffers filled to their last word")
 
 
 @pytest.mark.parametrize("case", SHARDED_CASES)
 def test_sharded_d_and_f_plain_match_one_device(case):
-    """Kernels D's and F's sharded forms (plain versions) over simulated
-    shards give the one-device plain D + F's links, flags and hashes, round
-    after round (39 rounds at L 40)."""
+    """Kernels D's and F's sharded forms and the key layout (plain
+    versions) over simulated shards give the one-device plain D + F's
+    links, flags and hashes, round after round (39 rounds at L 40)."""
     codes, a_s, a_p, ranks = _sharded_case(case)
     totals = sharded_rounds(codes, a_s, a_p, ranks, codes.shape[1] - 1)
     assert totals[0] > 0
 
 
 def test_sharded_records_pack_side_gid_row():
-    """Kernel D's sharded form writes [key, side | gid | row, confirm hash],
-    prefixes (in row order) before suffixes, and counts both."""
-    n = 6
-    codes = np.random.default_rng(3).integers(0, 4, size=(n, L), dtype=np.uint8)
+    """Kernel D's sharded form writes each active entry d, prefixes (in row
+    order) before suffixes, in chunks of CHUNK: its key (hash ^ SIGN64) at
+    word d // CHUNK * CHUNK_WORDS + d % CHUNK, its record side | gid | row
+    and its confirm hash at the chunk's payload words CHUNK + 2 (d % CHUNK)
+    and the one after; it counts both sides; the words past the entries are
+    left as they were."""
+    n = 40
+    rng = np.random.default_rng(3)
+    codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
     lanes, nmask = state.lanes_to_device(*ref_packed.pack_lanes(codes), "cpu")
-    hs = [torch.arange(n, dtype=torch.int64) * (k + 1) for k in range(4)]
-    a_s = torch.tensor([1, 0, 1, 0, 0, 1], dtype=torch.bool)
-    a_p = torch.tensor([0, 1, 1, 0, 1, 0], dtype=torch.bool)
+    hs = [torch.arange(n, dtype=torch.int64) * (k + 1) + 7 for k in range(4)]
+    a_s = torch.from_numpy(rng.random(n) < 0.6)
+    a_p = torch.from_numpy(rng.random(n) < 0.6)
     ids = torch.arange(100, 100 + n, dtype=torch.int32)
     recs, scratch = sweep.record_buffers(n, "cpu")
-    counts = sweep.sweep_roll_records(lanes, nmask, a_s, a_p, 1, L, *hs, ids, recs, scratch)
-    assert counts.tolist() == [6, 3]
-    rows = [1, 2, 4, 0, 2, 5]
-    side = [0, 0, 0, 1, 1, 1]
-    want = [(s << 62) | ((100 + r) << 31) | r for s, r in zip(side, rows)]
-    assert recs[:6, 1].tolist() == want
-    h, p, h2, p2 = hs
-    assert recs[:3, 0].tolist() == (p[[1, 2, 4]] ^ uint.SIGN64).tolist()
-    assert recs[3:6, 0].tolist() == (h[[0, 2, 5]] ^ uint.SIGN64).tolist()
-    assert recs[:3, 2].tolist() == p2[[1, 2, 4]].tolist()
-    assert recs[3:6, 2].tolist() == h2[[0, 2, 5]].tolist()
+    assert tuple(recs.shape) == (-(-2 * n // sweep.CHUNK), sweep.CHUNK_WORDS)
+    recs.fill_(-5)
+    h, p, h2, p2 = (t.clone() for t in hs)
+    counts = sweep.sweep_roll_records(lanes, nmask, a_s, a_p, 1, L, h, p, h2, p2, ids, recs,
+                                      scratch)
+    pre = [r for r in range(n) if a_p[r]]
+    suf = [r for r in range(n) if a_s[r]]
+    assert counts.tolist() == [len(pre) + len(suf), len(pre)]
+    flat = recs.view(-1).tolist()
+    entries = [(0, r, p[r], p2[r]) for r in pre] + [(1, r, h[r], h2[r]) for r in suf]
+    assert len(entries) > sweep.CHUNK    # the entries span chunks
+    for d, (side, r, key, conf) in enumerate(entries):
+        chunk, k = divmod(d, sweep.CHUNK)
+        base = chunk * sweep.CHUNK_WORDS
+        assert flat[base + k] == int(key) ^ uint.SIGN64
+        assert flat[base + sweep.CHUNK + 2 * k] == (side << 62) | ((100 + r) << 31) | r
+        assert flat[base + sweep.CHUNK + 2 * k + 1] == int(conf)
+    written = {w for d in range(len(entries)) for w in (
+        d // sweep.CHUNK * sweep.CHUNK_WORDS + d % sweep.CHUNK,
+        d // sweep.CHUNK * sweep.CHUNK_WORDS + sweep.CHUNK + 2 * (d % sweep.CHUNK),
+        d // sweep.CHUNK * sweep.CHUNK_WORDS + sweep.CHUNK + 2 * (d % sweep.CHUNK) + 1)}
+    assert all(v == -5 for w, v in enumerate(flat) if w not in written)
+
+
+@pytest.mark.parametrize("counts", [[(9, 4)], [(3, 1), (0, 0), (70, 33)],
+                                    [(5, 5), (2, 0), (0, 0), (40, 17)]],
+                         ids=["1 rank", "3 ranks", "4 ranks"])
+def test_sharded_position_map(counts):
+    """F's position map (a position in (side, rank) order -> its rank and
+    its row in that rank's send buffer) against the order written out: every
+    rank's prefixes in rank order, then every rank's suffixes, a rank's
+    suffixes after its prefixes in its buffer; uneven counts, ranks with no
+    entry, no prefix or no suffix."""
+    from pgrc_tpu_torch.kernels import sweep_pair_claim
+
+    want = [(r, d) for r, (m, mp) in enumerate(counts) for d in range(mp)]
+    want += [(r, d) for r, (m, mp) in enumerate(counts) for d in range(mp, m)]
+    counts = torch.tensor(counts, dtype=torch.int64)
+    table = sweep_pair_claim.record_table(counts).tolist()
+    assert table[-1] == len(want) and table[counts.shape[0]] == int(counts[:, 1].sum())
+    r, d = sweep_pair_claim.gathered_rows(counts, torch.arange(len(want)))
+    assert list(zip(r.tolist(), d.tolist())) == want
+
+
+def test_sharded_layout_rank_with_no_entries():
+    """A rank with no row sends counts (0, 0) and its buffer's head; the key
+    layout skips it (and the chunks past every rank's count), and F's
+    sharded form pairs the other ranks' entries as if it were not there."""
+    from pgrc_tpu_torch.kernels import sweep_init, sweep_pair_claim
+
+    rng = np.random.default_rng(8)
+    genome = rng.integers(0, 4, size=300, dtype=np.uint8)
+    codes = np.stack([genome[s:s + L] for s in rng.integers(0, 200, size=70)])
+    lanes, nmask = state.lanes_to_device(*ref_packed.pack_lanes(codes), "cpu")
+    h0, h0b = sweep_init.sweep_full_hashes(lanes, nmask, L)
+    blocks = ((0, 0), (0, 30), (30, 70))     # rank 0 holds no row
+    shards, counts = [], []
+    for lo, hi in blocks:
+        s = dict(lo=lo, hi=hi, bufs=sweep.record_buffers(40, "cpu"),
+                 hs=[h0[lo:hi].clone(), h0[lo:hi].clone(), h0b[lo:hi].clone(),
+                     h0b[lo:hi].clone()], a_s=torch.ones(hi - lo, dtype=torch.bool),
+                 a_p=torch.ones(hi - lo, dtype=torch.bool))
+        s["bufs"][0].fill_(-1)
+        counts.append(sweep.sweep_roll_records(
+            lanes[lo:hi], None if nmask is None else nmask[lo:hi], s["a_s"], s["a_p"], 1, L,
+            *s["hs"], torch.arange(lo, hi, dtype=torch.int32), *s["bufs"]).tolist())
+        shards.append(s)
+    assert counts == [[0, 0], [60, 30], [80, 40]]
+    ks, perm, gathered, counts = sharded_round_entries(shards, counts)
+    assert gathered.shape[1] == sweep.record_chunks(80)
+    assert sweep_pair_claim.record_table(counts).tolist() == [0, 0, 30, 70, 70, 100, 140]
+    rolled = [s["hs"] for s in shards]
+    want = torch.cat([rolled[1][1], rolled[2][1], rolled[1][0], rolled[2][0]]) ^ uint.SIGN64
+    assert torch.equal(ks, torch.sort(want, stable=True).values)
+    assert torch.equal(sweep_pair_claim.sharded_keys(gathered, counts, 140)[perm], ks)
+    # F over the gathered entries of ranks 1 and 2 against one table of rows 0-69
+    succ, ovl = torch.full((70,), -1, dtype=torch.int32), torch.zeros(70, dtype=torch.int32)
+    flags = [torch.ones(70, dtype=torch.bool) for _ in range(2)]
+    for s in shards:
+        sweep_pair_claim.sweep_pair_records(ks, perm, gathered, counts, succ, ovl,
+                                            s["a_s"], s["a_p"], s["lo"], s["hi"], 1, L)
+    h, p, h2, p2 = (torch.cat([rolled[1][k], rolled[2][k]]) for k in range(4))
+    keys = torch.cat([p, h]) ^ uint.SIGN64
+    ks1, order = torch.sort(keys, stable=True)
+    succ1, ovl1 = torch.full((70,), -1, dtype=torch.int32), torch.zeros(70, dtype=torch.int32)
+    sweep_pair_claim.sweep_pair_claim(ks1, order, torch.arange(70, dtype=torch.int32), p2, h2,
+                                      succ1, ovl1, *flags, 1, L)
+    assert torch.equal(succ, succ1) and torch.equal(ovl, ovl1) and (succ >= 0).any()
+    assert torch.equal(torch.cat([s["a_s"] for s in shards]), flags[0])
+    assert torch.equal(torch.cat([s["a_p"] for s in shards]), flags[1])

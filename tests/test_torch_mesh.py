@@ -75,16 +75,32 @@ def rank_encode(mesh, src, out_dir, accept_mis):
         return f.read()
 
 
-def rank_collectives(mesh, counts):
+def rank_collectives(mesh, counts, send_rows):
     """The mesh's collectives on rank-dependent data: a variable gather of
-    [c, 2] rows (rank r's row j = (r, j)), a count gather, a sum and a max."""
+    [c, 2] rows (rank r's row j = (r, j)) from a send buffer of
+    max(c, send_rows) rows (junk past c; send_rows None: c rows), a count
+    gather, a sum and a max; and the aten ops the gather dispatched."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
     c = counts[mesh.rank]
     rows = torch.stack([torch.full((c,), mesh.rank), torch.arange(c)], 1).to(torch.int64)
-    out = torch.cat(mesh.all_gather_parts(rows, counts))
-    got = mesh.gather_counts(torch.tensor([c, 10 * mesh.rank], dtype=torch.int64))
-    s = mesh.all_reduce(torch.tensor([mesh.rank + 1, -mesh.rank]), "sum")
-    m = mesh.all_reduce(torch.tensor([mesh.rank + 1, -mesh.rank]), "max")
-    return out, got, s, m, mesh.block(10)
+    if send_rows is not None and send_rows > c:
+        rows = torch.cat([rows, torch.full((send_rows - c, 2), -7, dtype=torch.int64)])
+    ops = set()
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.add(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    with Log():
+        parts = mesh.all_gather_parts(rows, counts)
+    out = torch.cat(parts).numpy()
+    got, on_device = mesh.gather_counts(torch.tensor([c, 10 * mesh.rank], dtype=torch.int64))
+    assert on_device.tolist() == got.tolist()
+    s = mesh.all_reduce(torch.tensor([mesh.rank + 1, -mesh.rank]), "sum").tolist()
+    m = mesh.all_reduce(torch.tensor([mesh.rank + 1, -mesh.rank]), "max").tolist()
+    return out, got, s, m, mesh.block(10), rows.shape[0], ops
 
 
 def same_links(a, succ, ovl):
@@ -241,19 +257,26 @@ def test_find_overlaps_mesh_port_cases(tmp_path, monkeypatch, label):
     assert (r1.succ >= 0).any()
 
 
-@pytest.mark.parametrize("counts", [[3, 0, 5], [0, 0, 1], [2, 2, 2], [0, 0, 0]])
-def test_mesh_collectives(tmp_path, counts):
-    """The variable gather keeps rank order and drops the padding (a rank
-    with nothing to send included); counts, sums and maxima reach every
+@pytest.mark.parametrize("counts, send_rows", [
+    ([3, 0, 5], None), ([0, 0, 1], None), ([2, 2, 2], None), ([0, 0, 0], None),
+    ([3, 0, 5], 7),     # every send buffer longer than the largest count: no pad copy
+    ([3, 0, 5], 4),     # ranks 0 and 1 shorter than the largest count: padded
+], ids=["counts0", "counts1", "counts2", "counts3", "longer buffers", "shorter buffers"])
+def test_mesh_collectives(tmp_path, counts, send_rows):
+    """The variable gather keeps rank order and drops the padding and what
+    lies past a rank's count (a rank with nothing to send included), and a
+    rank copies its rows into a padded buffer only where its send buffer is
+    shorter than the largest count; counts, sums and maxima reach every
     rank; 10 rows split 4/3/3 in rank order."""
-    want_rows = torch.tensor([(r, j) for r, c in enumerate(counts) for j in range(c)],
-                             dtype=torch.int64).reshape(-1, 2)
-    for rank, (rows, got, s, m, block) in enumerate(
-            on_ranks(tmp_path, rank_collectives, counts, n=3)):
-        assert torch.equal(rows, want_rows)
+    want_rows = np.array([(r, j) for r, c in enumerate(counts) for j in range(c)],
+                         dtype=np.int64).reshape(-1, 2)
+    for rank, (rows, got, s, m, block, sent, ops) in enumerate(
+            on_ranks(tmp_path, rank_collectives, counts, send_rows, n=3)):
+        np.testing.assert_array_equal(rows, want_rows)
         np.testing.assert_array_equal(got, [[c, 10 * r] for r, c in enumerate(counts)])
-        assert s.tolist() == [6, -3] and m.tolist() == [3, 0]
+        assert s == [6, -3] and m == [3, 0]
         assert block == ((0, 4), (4, 7), (7, 10))[rank]
+        assert ("aten.copy_" in ops) == (sent < max(counts)), (rank, sent, ops)
 
 
 @pytest.mark.parametrize("device_type, host_ranks, cards, want", [
