@@ -31,11 +31,16 @@ and maximum from the card on every call. Prints one `[ab]` line per kernel
 and tree: the time, the bound (chip_smoke.bound over the bytes that tree's
 kernel moves) and the share.
 
---what sweep: kernels G (sweep_full_hashes), G2 (sweep_init_links) and H
-(sweep_compact) the same way, one process per TREE, with chip_smoke.py's
-`check_hashes` and `check_compact` (10 launches bit-equal to the tree's
-plain version, then the device time beside the plain version's and
-chip_smoke's bound), on random tables made on the card:
+--what sweep: kernels G (sweep_full_hashes), G2 (sweep_init_links), D
+(sweep_roll_entries) and H (sweep_compact) the same way, one process per
+TREE. Each process takes the TREE's own chip_smoke.py for the table and
+the checks, so each tree builds its tables in its own layout (row-major
+lanes before the sweep stored them column-major) and counts its own
+bytes: `sweep_table` (random reads packed on the host and uploaded as
+that tree's find_overlaps uploads them, random hashes and flags),
+`check_hashes`, `check_roll` and `check_compact` (10 launches bit-equal
+to the tree's plain version, then the device time beside the plain
+version's and the bound):
   G in its init form (with the key) at SE 2M's first init, 1,760,000 rows
     of L 100 without N, a share SE2M_DUP of them copies of other rows, and
     at 2^18 rows with N;
@@ -43,6 +48,9 @@ chip_smoke's bound), on random tables made on the card:
     init calls it (the rows' unlinked state and the links) and, in a tree
     with G2's fill kernel (`link_defaults`), kernel G2 alone patching a
     filled state; and G + G2;
+  D at SE 2M's first round, 1,760,000 rows, each side active with
+    probability SE2M_ROUND_ACT (3.39M entries), and at 2^18 rows with N,
+    0.8 active (chip_smoke's 2^18 round), round 1 in both;
   H at SE 2M's first compaction, 1,760,000 rows of L 100 without N, 81%
     kept, and at 2^18 rows with N, 58% kept (chip_smoke's 2^18 table).
 The `[kernel]` lines name the tree.
@@ -76,8 +84,9 @@ from the prep's rows.
 first round of SHARDED_SHAPES' HQ reads (bench.py's SE 200k and SE 2M
 inputs, made with the tree's generator and divided by its stage 1: 175,908
 and 1,759,988 rows), after the tree's init on the card, cut into
-chip_smoke.py's MESH_RANKS simulated shards on the one card: its SimRound runs
-the tree's own greedy_scs._round_sharded for every shard, with the
+chip_smoke.py's MESH_RANKS simulated shards on the one card: the tree's own
+chip_smoke.py (its table layout) and its SimRound, which runs the tree's
+own greedy_scs._round_sharded for every shard, with the
 collectives answered from what every shard sent (no transfer, but each
 send side's own device work: a tree whose gather pads copies its rows
 first), checks every shard against the tree's one-device round (links of
@@ -126,13 +135,15 @@ BLOCK_LANES = (1 << 26) * K1 // 16   # lanes of one 2^26-entry index block
 WIDE_FROM = 0x7FFF0000               # the matcher's wide probe: pg_len > WIDE_FROM - L
 C_ROWS, C_LANES, C_K = 1 << 18, 8, 32
 C_OFFS = tuple(range(0, L - C_K + 1, 3))
-# (label, rows, N, each side active with this probability) of --what sweep:
-# SE 2M's first init and compaction (81% of its rows kept) and chip_smoke's
-# 2^18 table
+# (label, rows, N, each side active with this probability at the
+# compaction, and at the round) of --what sweep: SE 2M's first init, round
+# and compaction (81% of its rows kept) and chip_smoke's 2^18 table
 SE2M_ROWS = 1_760_000
+SE2M_ROUND_ACT = 3_387_088 / (2 * 1_759_988)   # SE 2M's first round: m / 2n
 SWEEP_SHAPES = (
-    ("SE 2M's first init / compaction shape", SE2M_ROWS, False, 1 - 0.19 ** 0.5),
-    ("2^18 rows with N", 1 << 18, True, 0.35),
+    ("SE 2M's first init / round / compaction shape", SE2M_ROWS, False, 1 - 0.19 ** 0.5,
+     SE2M_ROUND_ACT),
+    ("2^18 rows with N", 1 << 18, True, 0.35, 0.8),
 )
 # the share of SE 2M's first-init rows made copies of other rows for G2,
 # so that its share of tied positions is about SE 2M's (chip_smoke.py
@@ -165,10 +176,11 @@ SHARDED_SHAPES = (
 )
 
 
-def load_timer():
-    """chip_smoke.py from beside this script (not the tree's own copy)."""
+def load_timer(tree: str = HERE):
+    """chip_smoke.py from beside this script, or from `tree` (the tree's
+    own copy: its table layout, checks and bytes)."""
     spec = importlib.util.spec_from_file_location("chip_smoke_timer",
-                                                  os.path.join(HERE, "chip_smoke.py"))
+                                                  os.path.join(tree, "chip_smoke.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -262,41 +274,40 @@ def kmer_tree(tree: str) -> None:
 
 def sweep_tree(tree: str) -> None:
     import_from(tree)
-    from pgrc_tpu_torch import kernels
+    import numpy as np
 
-    cs = load_timer()
-    dev = torch.device("cuda")
-    kernels.build.lib()
-    gen = torch.Generator(device=dev).manual_seed(7)
-    words = lambda n, w: torch.randint(-(1 << 31), (1 << 31) - 1, (n, w), dtype=torch.int32,
-                                       device=dev, generator=gen)
+    from pgrc_tpu_torch import kernels
     from pgrc_tpu_torch.kernels import sweep_init as ki
 
-    for label, n, with_n, act in SWEEP_SHAPES:
-        lanes = words(n, (L + 15) // 16 + 1)
+    own = load_timer(tree)
+    dev = torch.device("cuda")
+    kernels.build.lib()
+    rng = np.random.default_rng(7)
+    for label, n, with_n, act, round_act in SWEEP_SHAPES:
+        table = list(own.sweep_table(dev, n, rng, act, n_frac=0.05 if with_n else 0.0,
+                                     dup_frac=0.1 if with_n else SE2M_DUP))
+        lanes, nmask = table[:2]
+        if (nmask is not None) != with_n:
+            raise SystemExit(f"{tree}: {label}: the table's N mask is not as asked")
+        own.check_hashes((lanes, nmask, L, True), f"{tree}: {label}, n={n} N={with_n} key=True",
+                         REPS)
         if not with_n:
-            dup = torch.nonzero(torch.rand((n,), device=dev, generator=gen) < SE2M_DUP)[:, 0]
-            lanes[dup] = lanes[torch.randint(0, n, (dup.numel(),), device=dev, generator=gen)]
-        nmask = words(n, (L + 31) // 32 + 1) if with_n else None
-        cs.check_hashes((lanes, nmask, L, True), f"{tree}: {label}, n={n} N={with_n} key=True",
-                        REPS)
-        if not with_n:
-            links_tree(tree, cs, ki, lanes, f"{label}, n={n}")
-        hashes = [torch.randint(-(1 << 63), (1 << 63) - 1, (n,), dtype=torch.int64, device=dev,
-                                generator=gen) for _ in range(4)]
-        flags = [torch.rand((n,), device=dev, generator=gen) < act for _ in range(2)]
-        ids = torch.arange(0, 3 * n, 3, dtype=torch.int32, device=dev)
-        table = (lanes, nmask, ids, *hashes, *flags)
-        kept = int((flags[0] | flags[1]).sum())
-        cs.check_compact(table, f"{tree}: {label}, n={n} N={with_n}, {kept} kept", REPS)
-        del lanes, nmask, hashes, flags, ids, table
+            links_tree(tree, own, ki, lanes, f"{label}, n={n}")
+        kept = int((table[7] | table[8]).sum())
+        own.check_compact(tuple(table), f"{tree}: {label}, n={n} N={with_n}, {kept} kept", REPS)
+        table[7], table[8] = (torch.from_numpy(rng.random(n) < round_act).to(dev)
+                              for _ in range(2))
+        m = int(table[7].sum()) + int(table[8].sum())
+        own.check_roll(own.roll_args(table, 1), f"{tree}: {label}, n={n} round 1 N={with_n}, "
+                       f"m={m}", REPS)
+        del table, lanes, nmask
         torch.cuda.empty_cache()
 
 
 def links_tree(tree, cs, ki, lanes, label) -> None:
     """G2 and G + G2 on `lanes` (no N) of one tree."""
-    n = lanes.shape[0]
     h0, h0b, key = ki.sweep_full_hashes(lanes, None, L, True)
+    n = h0.numel()
     ks, sidx = torch.sort(key, stable=True)
     del h0, key
     # a tree with G2's fill kernel: the init fills the rows' unlinked state,
@@ -445,7 +456,7 @@ def sharded_tree(tree: str) -> None:
     from pgrc_tpu_torch.core import fastq
     from pgrc_tpu_torch.kernels import sweep
 
-    cs = load_timer()
+    cs = load_timer(tree)   # the tree's own SimRound and table layout
     dev = torch.device("cuda")
     kernels.build.lib()
     form = ("chunked send buffers, key layout, F through the permutation"

@@ -30,7 +30,9 @@ Phases, each printed with its times; the first failure exits nonzero:
      (sweep_roll_entries) and H (sweep_compact) at n
      2^18 rows, and D and H on their scan edge cases
      (m = 0, all active, one active entry at the last position, n off the
-     tile, a count scan past one 32-tile look-back window), H also at its
+     tile, a count scan past one 32-tile look-back window, a compacted
+     view whose lanes' column stride is past its rows, there D's sharded
+     form too, and columns off 16-byte alignment, there G too), H also at its
      own tile (n on it and one off, a ragged last tile, each output base
      residue mod 4, rows too wide for its tile), G and G2 on theirs
      (one row, rows off the block, more tiles than resident blocks, L 37,
@@ -593,8 +595,9 @@ def pair_entries(ids, a_s, a_p, p, h, p2, h2, i=1, L=L):
 def hashes_work(lanes, nmask, L, with_key):
     """Bytes and operations of kernel G on these inputs: the lane words that
     hold the row's L symbols (and its N-mask words) read once, two hashes
-    (and the key) written."""
-    n = lanes.shape[0]
+    (and the key) written; lanes [W+1, n], the sweep table's column-major
+    layout."""
+    n = lanes.shape[1]
     nbytes = n * (4 * -(-L // 16) + (4 * -(-L // 32) if nmask is not None else 0)
                   + (24 if with_key else 16))
     return nbytes, n * (-(-L // 4) * (OPS_G_BYTE + (OPS_G_NIBBLE if nmask is not None else 0))
@@ -716,7 +719,7 @@ def check_roll(args, note, reps, timed=True):
     require(err == 0, f"sweep_roll_entries {note}: kernel differs from its plain version")
     if not timed:
         return err
-    n, with_n = args[0].shape[0], args[1] is not None
+    n, with_n = args[0].shape[1], args[1] is not None
     # timing: repeated calls roll one set of copies on (the same work)
     mine = tuple(t.clone() for t in args[6:13])
     return record("sweep_roll_entries", lambda: sweep.sweep_roll_entries(*args[:6], *mine),
@@ -727,11 +730,12 @@ def check_roll(args, note, reps, timed=True):
 
 def compact_outputs(fn, args):
     """A callable that runs kernel H (or its plain version) -> (counts, and
-    the first k rows of each output array)."""
+    the first k rows of each output array: of each column of the lanes and
+    N mask)."""
     def run():
         outs, counts = fn(*args)
         k = int(counts[0])
-        return (counts, *(o[:k] for o in outs if o is not None))
+        return (counts, *(o[..., :k] for o in outs if o is not None))
     return run
 
 
@@ -751,7 +755,8 @@ def check_compact(args, note, reps, timed=True):
     if not timed:
         return err
     n = args[2].numel()
-    row = sum(a[0].numel() * a.element_size() for a in args if a is not None)
+    # a row's bytes: W+1 and Wn+1 words of the column-major lanes and N mask
+    row = sum(a[..., 0].numel() * a.element_size() for a in args if a is not None)
     return record("sweep_compact", lambda: kc.sweep_compact(*args),
                   lambda: kc.sweep_compact_plain(*args), reps, note, 2 * n + 2 * k * row + 24,
                   OPS_SCAN * n, err=err)
@@ -760,7 +765,8 @@ def check_compact(args, note, reps, timed=True):
 def sweep_table(dev, n, rng, act, n_frac=0.05, dup_frac=0.1, read_len=L):
     """A sweep table of n random reads of read_len symbols (a share
     duplicated, N in a share of rows), random 64-bit hashes and active flags
-    with probability act: (lanes, nmask, ids, h, p, h2, p2, a_s, a_p)."""
+    with probability act: (lanes, nmask, ids, h, p, h2, p2, a_s, a_p), the
+    lanes and N mask column-major, as find_overlaps uploads them."""
     from pgrc_tpu_torch import state
     from pgrc_tpu_torch.core import packed
 
@@ -768,7 +774,7 @@ def sweep_table(dev, n, rng, act, n_frac=0.05, dup_frac=0.1, read_len=L):
     dup = np.nonzero(rng.random(n) < dup_frac)[0]
     codes[dup] = codes[rng.integers(0, n, dup.size)]
     codes[rng.random(n) < n_frac, rng.integers(0, read_len)] = 4
-    lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), dev)
+    lanes, nmask = state.sweep_lanes_to_device(*packed.pack_lanes(codes), dev)
     ids = torch.from_numpy(np.sort(rng.choice(3 * n, n, replace=False)).astype(np.int32)).to(dev)
     hs = [state.hashes_to_device(rng.integers(0, 2**64, n, dtype=np.uint64), dev)
           for _ in range(4)]
@@ -819,7 +825,10 @@ def sweep_edge_cases(dev) -> int:
     own tile (n at the tile and one off, a ragged last tile under the
     asynchronous copies, the rows kept before a tile at each residue mod 4,
     where its 16-byte stores start their runs, with and without N, and rows
-    too wide for its tile, which it halves), and G and G2 at their edges
+    too wide for its tile, which it halves), D, D's sharded form and H on
+    a compacted view (every array the head rows of wider storage, the
+    lanes' column stride past the rows), G, D and H on columns off 16-byte
+    alignment (an odd column stride), and G and G2 at their edges
     (one row, rows off the block, more tiles than the resident blocks take
     in one pass, L off the byte and the lane, 17 lanes, rows all N, one
     long run of equal keys). Each case over CHECK_LAUNCHES launches
@@ -839,6 +848,31 @@ def sweep_edge_cases(dev) -> int:
         check_roll(roll_args(table), label, 0, timed=False)
         check_compact(table, label, 0, timed=False)
         cases += [f"D {label}", f"H {label}"]
+    # a compacted table, as find_overlaps keeps it after a segment end:
+    # every array a view of wider storage at its head rows, the lanes' and
+    # N mask's column stride past the rows
+    from pgrc_tpu_torch.kernels import sweep
+
+    kept = 2 * T + 333
+    view = tuple(None if v is None else v[..., :kept]
+                 for v in sweep_table(dev, 3 * T + 100, rng, 0.7))
+    require(view[1] is not None and min(view[0].stride(0), view[1].stride(0)) > kept,
+            "the compacted view's column stride is not past its rows")
+    label = f"a compacted view ({kept} rows, column stride {view[0].stride(0)})"
+    check_roll(roll_args(view), label, 0, timed=False)
+    check_roll_records((*roll_args(view)[:10], view[2], *sweep.record_buffers(kept, dev)),
+                       label, 0, timed=False)
+    check_compact(view, label, 0, timed=False)
+    cases += [f"D {label}", f"D sharded {label}", f"H {label}"]
+    # the same rows but two, copied with a column stride of their odd count:
+    # columns off 16-byte alignment, which G and H stage by 4-byte copies
+    odd = tuple(None if v is None else v[..., :kept - 2].contiguous() for v in view)
+    require(odd[0].stride(0) % 4 != 0, "the copied table's columns are 16-byte aligned")
+    label = f"columns off 16-byte alignment (column stride {odd[0].stride(0)})"
+    check_hashes((odd[0], odd[1], L, True), label, 0, timed=False)
+    check_roll(roll_args(odd), label, 0, timed=False)
+    check_compact(odd, label, 0, timed=False)
+    cases += [f"G {label}", f"D {label}", f"H {label}"]
     table = list(sweep_table(dev, 3 * T + 1, rng, 0.0))
     table[7][-1] = True            # the last suffix alone: the last entry
     check_roll(roll_args(table), "one active entry, the last", 0, timed=False)
@@ -873,7 +907,7 @@ def sweep_edge_cases(dev) -> int:
                  timed=False)
     cases.append("G more tiles than resident blocks")
     table = sweep_table(dev, 20_000, rng, 1.0, dup_frac=0.0)
-    same = table[0][:1].expand(20_000, -1).contiguous()   # one read 20,000 times
+    same = packed.cols_copy(table[0][:, :1].expand(-1, 20_000))   # one read 20,000 times
     check_links(links_args(same, None), "one run of 20,000 equal keys", 0, timed=False)
     check_init_links(same, None, L, "one run of 20,000 equal reads")
     cases += ["G2 one run of equal keys", "init one run of equal reads"]
@@ -893,13 +927,13 @@ def sweep_edge_cases(dev) -> int:
     for read_len, n_sym, with_key in ((37, 5, False), (99, 5, True), (99, 4, False),
                                       (255, 5, True), (255, 4, False)):
         codes = rng.integers(0, n_sym, size=(5000, read_len), dtype=np.uint8)
-        lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), dev)
-        label = f"L {read_len} ({lanes.shape[1]} lanes), N {nmask is not None}, key {with_key}"
+        lanes, nmask = state.sweep_lanes_to_device(*packed.pack_lanes(codes), dev)
+        label = f"L {read_len} ({lanes.shape[0]} lanes), N {nmask is not None}, key {with_key}"
         check_hashes((lanes, nmask, read_len, with_key), label, 0, timed=False)
         cases.append(f"G {label}")
     codes = rng.integers(0, 5, size=(3000, L), dtype=np.uint8)
     codes[::3] = 4                 # every third row all N
-    lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), dev)
+    lanes, nmask = state.sweep_lanes_to_device(*packed.pack_lanes(codes), dev)
     check_hashes((lanes, nmask, L, True), "rows all N", 0, timed=False)
     cases.append("G rows all N")
     return len(cases)
@@ -1263,7 +1297,7 @@ def check_roll_records(args, note, reps, timed=True):
             f"version")
     if not timed:
         return err
-    n, with_n = args[0].shape[0], args[1] is not None
+    n, with_n = args[0].shape[1], args[1] is not None
     mine = tuple(t.clone() for t in args[6:10]) + (args[10],) + tuple(
         t.clone() for t in args[11:13])
     return record("sweep_roll_entries.sharded",
@@ -1369,7 +1403,7 @@ def sharded_rounds(dev, label, codes, a_s, a_p, ranks, rounds) -> None:
     from pgrc_tpu_torch.kernels import sweep_pair_claim as kp
 
     n, L_ = codes.shape
-    lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), dev)
+    lanes, nmask = state.sweep_lanes_to_device(*packed.pack_lanes(codes), dev)
     h0, h0b = sweep_init.sweep_full_hashes_plain(lanes, nmask, L_)
     base, extra = divmod(n, ranks)
     sizes = [base + (r < extra) for r in range(ranks)]
@@ -1378,8 +1412,8 @@ def sharded_rounds(dev, label, codes, a_s, a_p, ranks, rounds) -> None:
         hi = lo + sizes[r]
         on = lambda a: torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(dev)
         shards.append(dict(
-            gids=(lo, hi), lanes=lanes[lo:hi].clone(),
-            nmask=None if nmask is None else nmask[lo:hi].clone(),
+            gids=(lo, hi), lanes=packed.cols_copy(lanes[:, lo:hi]),
+            nmask=None if nmask is None else packed.cols_copy(nmask[:, lo:hi]),
             ids=torch.arange(lo, hi, dtype=torch.int32, device=dev),
             h=h0[lo:hi].clone(), p=h0[lo:hi].clone(), h2=h0b[lo:hi].clone(),
             p2=h0b[lo:hi].clone(), a_s=on(a_s), a_p=on(a_p),
@@ -1527,7 +1561,7 @@ def round_state(codes, dev) -> dict:
     from pgrc_tpu_torch.core import packed
     from pgrc_tpu_torch.overlap import greedy_scs as g
 
-    lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), dev)
+    lanes, nmask = state.sweep_lanes_to_device(*packed.pack_lanes(codes), dev)
     h0, h0b, _, _, a_s, a_p = g._init_links(lanes, nmask, codes.shape[1])
     return dict(lanes=lanes, nmask=nmask, h=h0, p=h0.clone(), h2=h0b, p2=h0b.clone(),
                 a_s=a_s, a_p=a_p)
@@ -1561,8 +1595,8 @@ class SimRound:
         lo = sum(self.sizes[:r])
         hi = lo + self.sizes[r]
         st = self.state
-        t = {k: st[k][lo:hi].clone() for k in ("lanes", "h", "p", "h2", "p2", "a_s", "a_p")}
-        t["nmask"] = None if st["nmask"] is None else st["nmask"][lo:hi].clone()
+        t = {k: g._block(st[k], lo, hi) for k in ("lanes", "h", "p", "h2", "p2", "a_s", "a_p")}
+        t["nmask"] = None if st["nmask"] is None else g._block(st["nmask"], lo, hi)
         # this tree sizes every rank's send buffer from the largest shard,
         # the parent tree from the rank's own rows
         rows = max(self.sizes) if hasattr(sweep, "CHUNK") else hi - lo
@@ -2408,7 +2442,7 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
         del lanes, nmask, rows
         args = firsts["sweep_full_hashes"].args
         timings["sweep_full_hashes"] = check_hashes(
-            args, f"{label}'s first init: n={args[0].shape[0]} N={args[1] is not None}", 20)
+            args, f"{label}'s first init: n={args[0].shape[1]} N={args[1] is not None}", 20)
         t0 = time.time()
         check_init_links(args[0], args[1], args[2], f"{label}'s first init")
         say(f"[kernel] _init_links on the card at {label}'s first init: bit-equal to the "
@@ -2420,7 +2454,7 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
             args[0].numel(), args[0].device, f"{label}'s first init: n={args[0].numel()}", 20)
         args = firsts["sweep_roll_entries"].args
         timings["sweep_roll_entries"] = check_roll(
-            args, f"{label}'s first sweep round: n={args[0].shape[0]} rows, "
+            args, f"{label}'s first sweep round: n={args[0].shape[1]} rows, "
             f"{int(args[2].sum()) + int(args[3].sum())} active entries", 20)
         # the same round cut into MESH_RANKS simulated shards: the sharded
         # round's kernels and span at a size where its data outweighs its
@@ -2911,7 +2945,7 @@ def one_device_roll_ms(args) -> float:
     from pgrc_tpu_torch.kernels import sweep
 
     mine = tuple(t.clone() for t in args[6:10])
-    bufs = sweep.round_buffers(args[0].shape[0], args[0].device)
+    bufs = sweep.round_buffers(args[0].shape[1], args[0].device)
     return cuda_ms(lambda: sweep.sweep_roll_entries(*args[:6], *mine, *bufs), 20)
 
 
@@ -3041,7 +3075,7 @@ def phase_mesh(dev, work: str, src: str, timings: dict) -> dict:
     on = lambda args: tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
     args = on(first["sweep_roll_records"])
     timings["sweep_roll_entries.sharded"] = check_roll_records(
-        args, f"SE 200k's first sharded round on rank 0 of {MESH_RANKS}: n={args[0].shape[0]} "
+        args, f"SE 200k's first sharded round on rank 0 of {MESH_RANKS}: n={args[0].shape[1]} "
         f"rows, {int(args[2].sum()) + int(args[3].sum())} active entries", 20)
     say(f"[kernel] sweep_roll_entries (the one-device form) on the same rows: "
         f"{one_device_roll_ms(args):.4f} ms")

@@ -8,7 +8,10 @@ arrays only.
 
 Device: lanes are the `pack_lanes` layout carried in int32: symbol j at
 bits 2*(15 - j%16) of lane j//16, N packed as A, one zero pad lane; the N
-mask holds bit 31 - j%32 of lane j//32.
+mask holds bit 31 - j%32 of lane j//32. The matcher keeps them row-major
+([n, W+1]); the overlap sweep's table stores them column-major ([W+1, n],
+lane c of every row contiguous: `empty_cols`, `col_vals`), so that a round
+reads each column it needs coalesced.
 """
 from __future__ import annotations
 
@@ -29,13 +32,35 @@ def popcount_u32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) & U32_MASK) >> 24
 
 
+# words the column stride of a column-major table is rounded up to: every
+# column starts on a 128-byte line
+COL_ALIGN = 32
+
+
+def empty_cols(cols: int, rows: int, device) -> torch.Tensor:
+    """An uninitialised column-major int32 table [cols, rows]: a view of
+    [cols, ld] storage, ld = rows rounded up to COL_ALIGN words, so column
+    c of every row is contiguous and starts on a 128-byte line."""
+    ld = -(-rows // COL_ALIGN) * COL_ALIGN
+    return torch.empty((cols, ld), dtype=torch.int32, device=device)[:, :rows]
+
+
+def cols_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of a column-major table (any column stride) in `empty_cols`
+    storage."""
+    out = empty_cols(t.shape[0], t.shape[1], t.device)
+    out.copy_(t)
+    return out
+
+
 def col_vals(lanes: torch.Tensor, nmask: torch.Tensor | None, t: int) -> torch.Tensor:
-    """Symbol value (0..7: 2-bit code + 4 * N bit) of column t of every row,
-    as int64 (port of greedy_scs._col_vals, :149-162). The arithmetic shifts
+    """Symbol value (0..7: 2-bit code + 4 * N bit) of column t of every row
+    of a column-major table (lanes [W+1, n], nmask [Wn+1, n] or None), as
+    int64 (port of greedy_scs._col_vals, :149-162). The arithmetic shifts
     are safe: every result is masked to the bits it keeps."""
-    c = ((lanes[:, t // 16] >> (2 * (15 - t % 16))) & 3).to(torch.int64)
+    c = ((lanes[t // 16] >> (2 * (15 - t % 16))) & 3).to(torch.int64)
     if nmask is not None:
-        c = c + (((nmask[:, t // 32] >> (31 - t % 32)) & 1).to(torch.int64) << 2)
+        c = c + (((nmask[t // 32] >> (31 - t % 32)) & 1).to(torch.int64) << 2)
     return c
 
 

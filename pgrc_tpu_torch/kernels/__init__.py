@@ -61,6 +61,22 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def check_cols(t: torch.Tensor, name: str, rows: int) -> None:
+    """Raise unless `t` is a column-major int32 table of `rows` rows
+    ([cols, rows], `core.packed.empty_cols`): each column contiguous
+    (stride(1) == 1) and the column stride at least the rows. A compacted
+    table is a view [:, :kept] of larger storage, so the stride may exceed
+    the rows; it is passed to the kernel, and nothing is copied."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: expected {torch.int32}, got {t.dtype}")
+    if t.dim() != 2 or t.shape[1] != rows:
+        raise ValueError(f"{name}: expected shape (None, {rows}), got {tuple(t.shape)}")
+    if rows > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name}: each column must be contiguous, got strides {t.stride()}")
+    if t.stride(0) < rows:
+        raise ValueError(f"{name}: column stride {t.stride(0)} is below the {rows} rows")
+
+
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 

@@ -37,15 +37,17 @@ SIGNATURES = {
     "pgrc_index_kmer_hash": [_I, _P, _P, _I64, _I, _I, _I64, _I64, _I64, _U32,
                              _I, _P, _P],
     "pgrc_probe_kmer_hash": [_I, _P, _P, _I64, _I, _P, _I, _I, _I, _U32, _P],
-    "pgrc_sweep_roll_entries": [_I, _P, _I64, _P, _I, _P, _I, _P, _P, _I, _I,
+    "pgrc_sweep_roll_entries": [_I, _P, _I64, _P, _I64, _P, _I64, _P, _P, _I, _I,
                                 _U64, _U64, _U64, _U64, _P, _P, _P, _P, _P, _P, _P, _I64],
-    "pgrc_sweep_roll_records": [_I, _P, _I64, _P, _I, _P, _I, _P, _P, _I, _I,
+    "pgrc_sweep_roll_records": [_I, _P, _I64, _P, _I64, _P, _I64, _P, _P, _I, _I,
                                 _U64, _U64, _U64, _U64, _P, _P, _P, _P, _P, _P, _I64, _P,
                                 _I64],
-    "pgrc_sweep_full_hashes": [_I, _P, _I64, _P, _I, _P, _I, _I, _U64, _U64, _P, _P, _P, _P],
+    "pgrc_sweep_full_hashes": [_I, _P, _I64, _P, _I64, _P, _I64, _I, _U64, _U64, _P, _P, _P,
+                               _P],
     "pgrc_sweep_link_defaults": [_I, _P, _I64, _P, _P, _P, _P],
     "pgrc_sweep_init_links": [_I, _P, _I64, _P, _P, _P, _I, _P, _P, _P, _P],
-    "pgrc_sweep_compact": [_I, _P, _I64, _P, _I, _P, _I] + [_P] * 16 + [_P, _I64],
+    "pgrc_sweep_compact": ([_I, _P, _I64, _P, _I, _I64, _P, _I, _I64] + [_P] * 7
+                           + [_P, _I64, _P, _I64] + [_P] * 7 + [_P, _I64]),
     "pgrc_join_carry": [_I, _P, _I64, _P, _P, _P, _I, _P, _P, _I64],
     "pgrc_sweep_pair_claim": [_I, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P,
                               _P, _P, _I, _P, _I64],

@@ -170,6 +170,44 @@ __device__ __forceinline__ void copy_async(void* dst, const void* __restrict__ s
   for (int i = 16 * chunks + threadIdx.x; i < bytes; i += blockDim.x) d[i] = s[i];
 }
 
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// Start copying `cols` columns of `rows` <= kRowsMax 32-bit words, column c
+// from src + c * ld (device memory: a column-major table, core/packed.py
+// `empty_cols`) to dst + c * kRowsMax (shared memory, 16-byte aligned), the
+// block's threads striped over the columns' chunks (kRowsMax a power of two
+// and a multiple of 4, so a chunk's column and place are shifts): 16-byte
+// cp.async copies where every column starts 16-byte aligned (the table's
+// storage rounds its stride up to 32 words), 4-byte ones otherwise and for
+// a column's ragged end. Commits no group.
+template <int kRowsMax>
+__device__ __forceinline__ void copy_cols_async(uint32_t* dst, const uint32_t* __restrict__ src,
+                                                int64_t ld, int cols, int rows) {
+  static_assert(kRowsMax % 4 == 0 && (kRowsMax & (kRowsMax - 1)) == 0, "a power of two");
+  if (((reinterpret_cast<uintptr_t>(src) | (uintptr_t)(4 * ld)) & 15) == 0) {
+    constexpr int kPer = kRowsMax / 4;   // chunks a column
+    for (int k = threadIdx.x; k < cols * kPer; k += blockDim.x) {
+      const int c = k / kPer, w = 4 * (k % kPer);
+      if (w >= rows) continue;
+      const uint32_t* s = src + c * ld + w;
+      uint32_t* d = dst + c * kRowsMax + w;
+      if (w + 4 <= rows) {
+        cp_async16(d, s);
+      } else {
+        for (int j = 0; j < rows - w; ++j) cp_async4(d + j, s + j);
+      }
+    }
+  } else {
+    for (int k = threadIdx.x; k < cols * kRowsMax; k += blockDim.x) {
+      const int c = k / kRowsMax, r = k % kRowsMax;
+      if (r < rows) cp_async4(dst + c * kRowsMax + r, src + c * ld + r);
+    }
+  }
+}
+
 __device__ __forceinline__ void commit_copies() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }

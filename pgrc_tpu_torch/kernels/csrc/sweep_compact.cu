@@ -4,12 +4,15 @@
 // (:488-528: a stable partition of the rows with a_s | a_p to the front by
 // one sort, then a take of every per-row array) and the host's count
 // readback that decides it (:391-397, :816-823). Rows with keep = a_s | a_p
-// move, in row order, to the front of the output arrays: the lanes
-// [n, ld_lanes] and N-mask [n, ld_nmask] rows (int32 words), ids (int32),
-// the four rolled hashes h, p, h2, p2 (int64) and a_s, a_p (bool). The
-// output arrays are sized n (the caller's choice, PERF.md section 5); the
-// kept rows fill their first k. Dropped rows have written their links
-// already, so compaction moves rows and never changes a link (:824-826).
+// move, in row order, to the front of the output arrays: each of the
+// lane_cols lane columns and nmask_cols N-mask columns of the table's
+// column-major lanes ([cols, n] int32, column c of row r at c * ld + r;
+// core/packed.py `empty_cols`), ids (int32), the four rolled hashes h, p,
+// h2, p2 (int64) and a_s, a_p (bool). The output arrays are sized n (the
+// caller's choice, PERF.md section 5); the kept rows fill the first k
+// entries of each, and of each output column. Dropped rows have written
+// their links already, so compaction moves rows and never changes a link
+// (:824-826).
 //
 // The same pass writes three totals to scratch words kTotalsWord.. (see
 // seg_scan.cuh): the kept rows k, the active suffixes and the active
@@ -23,24 +26,29 @@
 // - Loads before the look-back. A block takes a tile of kItems * threads
 //   consecutive rows and, first thing, starts cp.async copies of the tile's
 //   slice of every per-row array into shared memory: the flags in one copy
-//   group, the rest (lanes, N mask, ids, the four hashes) in a second. It
+//   group, the rest (each lane and N-mask column, ids, the four hashes) in
+//   a second, a column's tile one run of 4 B a row, staged [column][row]. It
 //   waits for the flags alone, scans them (seg_scan.cuh's count scan with
 //   its warp-wide look-back: thread t's kItems consecutive rows, each flag
 //   array read as one 8-byte word), and the row bytes arrive meanwhile.
 // - Writes from shared memory. The tile's kept rows land in one contiguous
-//   output run per array, rows base .. base + cnt, where base is the count
-//   kept before the tile and can take any value. Each array's run is
-//   written as 32-bit words, consecutive threads on consecutive words, in
-//   16-byte stores between a head and a tail of single words that reach and
-//   leave 16-byte alignment (int32 runs start at any residue of base mod 4,
-//   int64 runs at any residue mod 2, lane rows anywhere); each word comes
-//   from its row's staged copy through the tile's list of kept rows. The
-//   flags go out a byte a thread (2 of a row's ~70 bytes).
+//   output run per array and per lane column, rows base .. base + cnt,
+//   where base is the count kept before the tile and can take any value.
+//   Each run is written as 32-bit words, consecutive threads on consecutive
+//   words, in 16-byte stores between a head and a tail of single words that
+//   reach and leave 16-byte alignment (int32 runs start at any residue of
+//   base mod 4, int64 runs at any residue mod 2); each word comes from its
+//   row's staged copy through the tile's list of kept rows. The lane and
+//   N-mask columns go out together (write_columns): a thread reads four
+//   kept rows' places in the list once and writes them to every column, so
+//   the list is not read again for each column. The flags go out a byte a
+//   thread (2 of a row's ~70 bytes).
 // - The tile: a tile of 70-90 B rows fills shared memory fast (2048 rows:
 //   140-180 KB, one block an SM), so H has its own tile, kTile = 1024 rows
 //   (timed on an H100 against 512 and 2048 at SE 2M's first compaction,
-//   PERF.md), halved to 512 for rows too wide for a block's shared memory
-//   (long reads with N).
+//   PERF.md), halved to 512 for rows too wide for a block's shared memory:
+//   up to L 255 with N (17 lane and 9 N-mask columns, 142 B a row, 147 KB a
+//   tile) the whole tile fits; L 496 with N (234 B a row) halves it.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -59,39 +67,38 @@ constexpr int kLanes = 0, kNmask = 1, kIds = 2, kHash = 3, kAs = 7, kAp = 8;
 struct Arrays {
   const void* in[kArrays];   // nmask may be null
   void* out[kArrays];
+  int cols[2];               // lane and N-mask columns
+  int64_t ld_in[2], ld_out[2];   // their column strides, in words
 };
 
 // Bytes a row of each array.
-__host__ __device__ inline int row_bytes(int a, int ld_lanes, int ld_nmask) {
-  return a == kLanes ? 4 * ld_lanes : a == kNmask ? 4 * ld_nmask : a == kIds ? 4 : a < kAs ? 8 : 1;
+__host__ __device__ inline int row_bytes(int a, int lane_cols, int nmask_cols) {
+  return a == kLanes ? 4 * lane_cols : a == kNmask ? 4 * nmask_cols : a == kIds ? 4 : a < kAs ? 8 : 1;
 }
 
 // Shared memory of a tile: each array's staged rows (16-byte aligned, as
 // tile is a multiple of 16), then the list of the tile's kept rows.
-__host__ __device__ inline int tile_smem(int tile, int ld_lanes, int ld_nmask, bool has_nmask) {
+__host__ __device__ inline int tile_smem(int tile, int lane_cols, int nmask_cols, bool has_nmask) {
   int bytes = 2 * tile;
   for (int a = 0; a < kArrays; ++a)
-    if (a != kNmask || has_nmask) bytes += tile * row_bytes(a, ld_lanes, ld_nmask);
+    if (a != kNmask || has_nmask) bytes += tile * row_bytes(a, lane_cols, nmask_cols);
   return bytes;
 }
 
-// Write the tile's kept rows of a staged array of w 32-bit words a row (kW
-// when it is known here, else w >= 2 and magic = ceil(2^32 / w)) to the
-// output rows base .. base + cnt: consecutive threads on consecutive words,
-// 16-byte stores between a head and a tail of single words. src[d] is the
-// staged row of the tile's d-th kept row.
+// Write the tile's kept rows of a staged array of kW 32-bit words a row (1
+// or 2) to the output rows base .. base + cnt of out: consecutive threads
+// on consecutive words, 16-byte stores between a head and a tail of single
+// words. src[d] is the staged row of the tile's d-th kept row.
 template <int kW>
-__device__ __forceinline__ void write_words(uint32_t* __restrict__ out, const uint32_t* s, int w,
-                                            uint32_t magic, long long base, int cnt,
-                                            const short* src) {
-  if (kW) w = kW;
-  const long long o0 = base * w;
-  uint32_t* dst = out + o0;
-  const int total = cnt * w;
-  const int head = min(total, (int)((4 - (o0 & 3)) & 3));
+__device__ __forceinline__ void write_words(uint32_t* __restrict__ out, const uint32_t* s,
+                                            long long base, int cnt, const short* src) {
+  static_assert(kW == 1 || kW == 2, "int32 or int64 rows");
+  uint32_t* dst = out + base * kW;
+  const int total = cnt * kW;
+  const int head =
+      min(total, (int)(((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) >> 2));
   const auto word = [&](int x) -> uint32_t {
-    const int q = kW == 1 ? x : kW == 2 ? x >> 1 : (int)__umulhi((unsigned)x, magic);
-    return s[src[q] * w + (x - q * w)];
+    return kW == 1 ? s[src[x]] : s[src[x >> 1] * 2 + (x & 1)];
   };
   for (int x = threadIdx.x; x < head; x += blockDim.x) dst[x] = word(x);
   const int body = (total - head) >> 2;
@@ -102,9 +109,41 @@ __device__ __forceinline__ void write_words(uint32_t* __restrict__ out, const ui
   for (int x = head + 4 * body + threadIdx.x; x < total; x += blockDim.x) dst[x] = word(x);
 }
 
+// Write the tile's kept rows of `cols` staged int32 columns (column c at
+// s + c * kRows) to the output rows base .. base + cnt of each output
+// column (out + c * ld, ld a multiple of 4, so every column's run starts at
+// the same residue mod 4): a thread takes four consecutive kept rows, reads
+// their staged rows' indices once and writes one 16-byte store a column,
+// consecutive threads on consecutive stores; the head and tail rows that
+// reach and leave 16-byte alignment are written singly.
+template <int kRows>
+__device__ __forceinline__ void write_columns(uint32_t* __restrict__ out, int64_t ld,
+                                              const uint32_t* s, int cols, long long base,
+                                              int cnt, const short* src) {
+  uint32_t* dst = out + base;
+  const int head =
+      min(cnt, (int)(((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) >> 2));
+  const int body = (cnt - head) >> 2;
+  for (int g = threadIdx.x; g < body; g += blockDim.x) {
+    const int d = head + 4 * g;
+    const int r0 = src[d], r1 = src[d + 1], r2 = src[d + 2], r3 = src[d + 3];
+    for (int c = 0; c < cols; ++c) {
+      const uint32_t* sc = s + c * kRows;
+      *reinterpret_cast<uint4*>(dst + c * ld + d) = make_uint4(sc[r0], sc[r1], sc[r2], sc[r3]);
+    }
+  }
+  // the head and tail rows
+  const int tail = cnt - head - 4 * body;
+  for (int x = threadIdx.x; x < (head + tail) * cols; x += blockDim.x) {
+    const int k = x / cols, c = x - k * cols;
+    const int d = k < head ? k : head + 4 * body + (k - head);
+    dst[c * ld + d] = s[c * kRows + src[d]];
+  }
+}
+
 template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
-sweep_compact_kernel(int64_t n, Arrays arr, int ld_lanes, int ld_nmask, long long* scratch) {
+sweep_compact_kernel(int64_t n, Arrays arr, long long* scratch) {
   constexpr int kRows = kThreads * kItems;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ long long s_base;
@@ -119,7 +158,8 @@ sweep_compact_kernel(int64_t n, Arrays arr, int ld_lanes, int ld_nmask, long lon
 #pragma unroll
   for (int a = 0; a < kArrays; ++a) {
     staged[a] = smem + off;
-    if (a != kNmask || arr.in[kNmask] != nullptr) off += kRows * row_bytes(a, ld_lanes, ld_nmask);
+    if (a != kNmask || arr.in[kNmask] != nullptr)
+      off += kRows * row_bytes(a, arr.cols[kLanes], arr.cols[kNmask]);
   }
   short* src = reinterpret_cast<short*>(smem + off);
 #pragma unroll
@@ -127,9 +167,15 @@ sweep_compact_kernel(int64_t n, Arrays arr, int ld_lanes, int ld_nmask, long lon
     seg_scan::copy_async(staged[a], static_cast<const char*>(arr.in[a]) + first, rows);
   seg_scan::commit_copies();
 #pragma unroll
-  for (int a = kLanes; a < kAs; ++a) {
+  for (int a = kLanes; a <= kNmask; ++a) {   // the lane and N-mask columns, [column][row]
     if (arr.in[a] == nullptr) continue;
-    const int rb = row_bytes(a, ld_lanes, ld_nmask);
+    seg_scan::copy_cols_async<kRows>(reinterpret_cast<uint32_t*>(staged[a]),
+                                     static_cast<const uint32_t*>(arr.in[a]) + first,
+                                     arr.ld_in[a], arr.cols[a], rows);
+  }
+#pragma unroll
+  for (int a = kIds; a < kAs; ++a) {
+    const int rb = row_bytes(a, 0, 0);
     seg_scan::copy_async(staged[a], static_cast<const char*>(arr.in[a]) + first * rb, rows * rb);
   }
   seg_scan::commit_copies();
@@ -177,14 +223,12 @@ sweep_compact_kernel(int64_t n, Arrays arr, int ld_lanes, int ld_nmask, long lon
   const int kept = s_cnt;
   const auto words = [&](int a) { return reinterpret_cast<const uint32_t*>(staged[a]); };
   const auto out = [&](int a) { return static_cast<uint32_t*>(arr.out[a]); };
-  write_words<0>(out(kLanes), words(kLanes), ld_lanes,
-                 (uint32_t)(0xFFFFFFFFull / ld_lanes + 1), base, kept, src);
-  if (arr.in[kNmask] != nullptr)
-    write_words<0>(out(kNmask), words(kNmask), ld_nmask,
-                   (uint32_t)(0xFFFFFFFFull / ld_nmask + 1), base, kept, src);
-  write_words<1>(out(kIds), words(kIds), 1, 0, base, kept, src);
+  for (int a = kLanes; a <= kNmask; ++a)
+    if (arr.in[a] != nullptr)
+      write_columns<kRows>(out(a), arr.ld_out[a], words(a), arr.cols[a], base, kept, src);
+  write_words<1>(out(kIds), words(kIds), base, kept, src);
 #pragma unroll
-  for (int a = kHash; a < kAs; ++a) write_words<2>(out(a), words(a), 2, 0, base, kept, src);
+  for (int a = kHash; a < kAs; ++a) write_words<2>(out(a), words(a), base, kept, src);
 #pragma unroll
   for (int a = kAs; a <= kAp; ++a) {
     unsigned char* o = static_cast<unsigned char*>(arr.out[a]) + base;
@@ -193,14 +237,14 @@ sweep_compact_kernel(int64_t n, Arrays arr, int ld_lanes, int ld_nmask, long lon
 }
 
 template <int kThreads>
-cudaError_t launch(int64_t n, const Arrays& arr, int ld_lanes, int ld_nmask, int smem,
-                   long long* scratch, cudaStream_t s) {
+cudaError_t launch(int64_t n, const Arrays& arr, int smem, long long* scratch,
+                   cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(sweep_compact_kernel<kThreads>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   sweep_compact_kernel<kThreads>
       <<<(unsigned)seg_scan::tiles_for(n, kThreads * kItems), kThreads, smem, s>>>(
-          n, arr, ld_lanes, ld_nmask, scratch);
+          n, arr, scratch);
   return cudaGetLastError();
 }
 
@@ -215,36 +259,46 @@ extern "C" int64_t pgrc_sweep_compact_scratch_words(int64_t n) {
 // Rows a tile (of rows that fit; chip_smoke.py sizes H's edge cases by it).
 extern "C" int64_t pgrc_sweep_compact_tile() { return kTile; }
 
-// Inputs [n] (lanes [n, ld_lanes], nmask [n, ld_nmask] or null), outputs of
-// the same shapes (16-byte aligned, as torch allocates them); scratch:
+// Inputs [n] (lanes [lane_cols, n] and nmask [nmask_cols, n] or null,
+// column-major with column strides ld_lanes and ld_nmask), outputs of the
+// same shapes (16-byte aligned, as torch allocates them; the output
+// columns at strides ld_o_lanes and ld_o_nmask, multiples of 4 words, as
+// core/packed.py `empty_cols` gives them); scratch:
 // pgrc_sweep_compact_scratch_words(n) int64 words, zeroed here; the totals
 // (kept, active suffixes, active prefixes) land in scratch[kTotalsWord ..].
 extern "C" int pgrc_sweep_compact(int device, void* stream, int64_t n, const void* lanes,
-                                  int ld_lanes, const void* nmask, int ld_nmask, const void* ids,
+                                  int lane_cols, int64_t ld_lanes, const void* nmask,
+                                  int nmask_cols, int64_t ld_nmask, const void* ids,
                                   const void* h, const void* p, const void* h2, const void* p2,
                                   const void* a_s, const void* a_p, void* o_lanes,
-                                  void* o_nmask, void* o_ids, void* o_h, void* o_p, void* o_h2,
-                                  void* o_p2, void* o_as, void* o_ap, void* scratch,
-                                  int64_t scratch_words) {
+                                  int64_t ld_o_lanes, void* o_nmask, int64_t ld_o_nmask,
+                                  void* o_ids, void* o_h, void* o_p, void* o_h2, void* o_p2,
+                                  void* o_as, void* o_ap, void* scratch, int64_t scratch_words) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (scratch_words < seg_scan::scratch_words(n, kMinTile) || ld_lanes < 2 || ld_lanes > 32 ||
-      (nmask != nullptr && (ld_nmask < 2 || ld_nmask > 32)))
+  if (scratch_words < seg_scan::scratch_words(n, kMinTile) || lane_cols < 2 || lane_cols > 32 ||
+      ld_lanes < n || ld_o_lanes < n || ld_o_lanes % 4 != 0 ||
+      (nmask != nullptr && (nmask_cols < 2 || nmask_cols > 32 || ld_nmask < n ||
+                            ld_o_nmask < n || ld_o_nmask % 4 != 0)))
     return (int)cudaErrorInvalidValue;
   int smem_max = 0;
   err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
   // the static shared memory of the scan and the tile's counters, with room
   const int reserve = 1024;
-  const bool fits = tile_smem(kTile, ld_lanes, ld_nmask, nmask != nullptr) + reserve <= smem_max;
+  const bool fits =
+      tile_smem(kTile, lane_cols, nmask_cols, nmask != nullptr) + reserve <= smem_max;
   const int tile = fits ? kTile : kMinTile;
-  const int smem = tile_smem(tile, ld_lanes, ld_nmask, nmask != nullptr);
+  const int smem = tile_smem(tile, lane_cols, nmask_cols, nmask != nullptr);
   cudaStream_t s = (cudaStream_t)stream;
   err = seg_scan::zero_scratch(scratch, n, s, tile);
   if (err != cudaSuccess || n == 0) return (int)err;
   const Arrays arr = {{lanes, nmask, ids, h, p, h2, p2, a_s, a_p},
-                      {o_lanes, o_nmask, o_ids, o_h, o_p, o_h2, o_p2, o_as, o_ap}};
+                      {o_lanes, o_nmask, o_ids, o_h, o_p, o_h2, o_p2, o_as, o_ap},
+                      {lane_cols, nmask_cols},
+                      {ld_lanes, ld_nmask},
+                      {ld_o_lanes, ld_o_nmask}};
   long long* sc = (long long*)scratch;
-  if (fits) return (int)launch<kTile / kItems>(n, arr, ld_lanes, ld_nmask, smem, sc, s);
-  return (int)launch<kMinTile / kItems>(n, arr, ld_lanes, ld_nmask, smem, sc, s);
+  if (fits) return (int)launch<kTile / kItems>(n, arr, smem, sc, s);
+  return (int)launch<kMinTile / kItems>(n, arr, smem, sc, s);
 }

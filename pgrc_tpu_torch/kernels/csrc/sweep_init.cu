@@ -25,12 +25,20 @@
 //   their bytes (with one copy, G took 1.31x as long on an H100, PERF.md).
 //   The grid is the card's resident blocks, each walking tiles of
 //   kHashThreads rows, so a block fills its 35 KB of tables once.
-// - Coalesced loads: a tile's rows of lanes (and N mask) are contiguous in
-//   device memory, so they arrive in shared memory by 16-byte cp.async
-//   copies; thread t then hashes row t from there, four lane words at a
-//   time (one 16-byte load when a row is a whole number of 16-byte chunks).
-//   One staging buffer: with a second, the next tile in flight while this
-//   one is hashed, G was 5% faster at L 100 and 9% slower with N (PERF.md).
+// - Coalesced loads: the table's lanes are column-major ([W+1, n], lane c
+//   of every row contiguous, core/packed.py `empty_cols`), so a tile's 256
+//   rows of one lane word are one 1 KB run in device memory; the read's
+//   ceil(L/16) lane columns (and ceil(L/32) N-mask columns) arrive in shared
+//   memory, laid out [column][row], by 16-byte cp.async copies, and thread
+//   t then hashes row t from there, reading its words at a stride of 256
+//   words: consecutive threads on consecutive banks, no conflict. The pad
+//   lane, which no hash reads, is not copied.
+// - Two staging buffers: the block's next tile is in flight while this one
+//   is hashed. A tile's columns are 1 KB runs at the table's column stride
+//   apart; staged one tile at a time they left G 5% slower than on
+//   row-major tiles, and double-buffered it is within 2% of them at SE 2M's
+//   init and with N at 2^18 rows (PERF.md section 6). With row-major tiles a
+//   second buffer had made G 5% faster at L 100 and 9% slower with N.
 //
 // G2 replaces the init's linking (:442-465) after the stable sort: sorted
 // position j links row sidx[j] to row sidx[j+1] when both their keys and
@@ -67,11 +75,11 @@ constexpr int kLinkThreads = 256;
 constexpr uint64_t kFlip = 1ull << 63;
 constexpr uint64_t kInv64 = ~0ull;
 
-// Shared memory of G's block: the table copies, then a tile's lanes and N
-// mask, each with 4 words of slack for the 16-byte reads past a row's end.
-__host__ __device__ inline int hash_smem(int ld_lanes, int ld_nmask) {
-  return 16 * kTableEntries * kCopies + 4 * (kHashThreads * ld_lanes + 4) +
-         (ld_nmask ? 4 * (kHashThreads * ld_nmask + 4) : 0);
+// Shared memory of G's block: the table copies, then two staged tiles, each
+// its lane words and N-mask words, [column][row], kHashThreads rows a
+// column.
+__host__ __device__ inline int hash_smem(int lane_cols, int nmask_cols) {
+  return 16 * kTableEntries * kCopies + 2 * 4 * kHashThreads * (lane_cols + nmask_cols);
 }
 
 struct Hashes {
@@ -96,46 +104,60 @@ __device__ __forceinline__ void hash_byte(Hashes& h, uint64_t a4, uint64_t b4,
 
 template <bool kN>
 __global__ void __launch_bounds__(kHashThreads)
-sweep_full_hashes_kernel(int64_t n, const uint32_t* __restrict__ lanes, int ld_lanes,
-                         const uint32_t* __restrict__ nmask, int ld_nmask, int L,
+sweep_full_hashes_kernel(int64_t n, const uint32_t* __restrict__ lanes, int64_t ld_lanes,
+                         const uint32_t* __restrict__ nmask, int64_t ld_nmask, int L,
                          uint64_t base_a, uint64_t base_b, const ulonglong2* __restrict__ tables,
                          uint64_t* __restrict__ h0, uint64_t* __restrict__ h0b,
                          long long* __restrict__ key) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int wl = (L + 15) >> 4, wn = kN ? (L + 31) >> 5 : 0;   // the columns a hash reads
   ulonglong2* s_tab = reinterpret_cast<ulonglong2*>(smem);
-  uint32_t* s_lanes = reinterpret_cast<uint32_t*>(s_tab + kTableEntries * kCopies);
-  uint32_t* s_nmask = s_lanes + kHashThreads * ld_lanes + 4;
+  uint32_t* s_stage = reinterpret_cast<uint32_t*>(s_tab + kTableEntries * kCopies);
+  const int stage = kHashThreads * (wl + wn);   // words of one staged tile
   for (int i = threadIdx.x; i < kTableEntries * kCopies; i += kHashThreads)
     s_tab[i] = tables[i / kCopies];
   const ulonglong2* tab = s_tab + (threadIdx.x & (kCopies - 1));
   const ulonglong2* ntab = tab + 256 * kCopies;
   const uint64_t a2 = base_a * base_a, b2 = base_b * base_b;
   const uint64_t a4 = a2 * a2, b4 = b2 * b2;
-  const bool vec = (ld_lanes & 3) == 0;   // a row is whole 16-byte chunks
   const int64_t tiles = (n + kHashThreads - 1) / kHashThreads;
-  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  // start staging tile t's columns into buf (one copy group is committed
+  // a tile, so wait_copies<1> waits for all but the newest)
+  const auto stage_tile = [&](int64_t t, uint32_t* buf) {
+    const int64_t f = t * kHashThreads;
+    const int r = (int)min((int64_t)kHashThreads, n - f);
+    seg_scan::copy_cols_async<kHashThreads>(buf, lanes + f, ld_lanes, wl, r);
+    if (kN)
+      seg_scan::copy_cols_async<kHashThreads>(buf + kHashThreads * wl, nmask + f, ld_nmask, wn, r);
+  };
+  if (blockIdx.x < tiles) stage_tile(blockIdx.x, s_stage);
+  seg_scan::commit_copies();
+  int b = 0;
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x, b ^= 1) {
     const int64_t first = tile * kHashThreads;
     const int rows = (int)min((int64_t)kHashThreads, n - first);
-    seg_scan::copy_async(s_lanes, lanes + first * ld_lanes, 4 * rows * ld_lanes);
-    if (kN) seg_scan::copy_async(s_nmask, nmask + first * ld_nmask, 4 * rows * ld_nmask);
+    if (tile + gridDim.x < tiles) stage_tile(tile + gridDim.x, s_stage + (b ^ 1) * stage);
     seg_scan::commit_copies();
-    seg_scan::staged_wait();
+    seg_scan::wait_copies<1>();
+    __syncthreads();
+    const uint32_t* s_lanes = s_stage + b * stage;
+    const uint32_t* s_nmask = s_lanes + kHashThreads * wl;
     if (threadIdx.x < rows) {
-      const uint32_t* row = s_lanes + threadIdx.x * ld_lanes;
-      const uint32_t* nrow = s_nmask + threadIdx.x * ld_nmask;
+      // the row's word c at col[c * kHashThreads]
+      const uint32_t* col = s_lanes + threadIdx.x;
+      const uint32_t* ncol = s_nmask + threadIdx.x;
       Hashes h = {0, 0};
       // four lane words (64 symbols) a step; word i's N bits are the high
       // (even i) or low (odd i) half of N-mask word i / 2
       for (int c = 0; 64 * c < L; ++c) {
         uint32_t w[4];
-        if (vec) {
-          const uint4 v = *reinterpret_cast<const uint4*>(row + 4 * c);
-          w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
-        } else {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) w[i] = row[4 * c + i];
+        for (int i = 0; i < 4; ++i) w[i] = 4 * c + i < wl ? col[(4 * c + i) * kHashThreads] : 0u;
+        uint32_t nw[2] = {0u, 0u};
+        if (kN) {
+          nw[0] = ncol[2 * c * kHashThreads];
+          if (2 * c + 1 < wn) nw[1] = ncol[(2 * c + 1) * kHashThreads];
         }
-        const uint32_t nw[2] = {kN ? nrow[2 * c] : 0u, kN ? nrow[2 * c + 1] : 0u};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int syms = min(16, L - (64 * c + 16 * i));   // of this word
@@ -164,16 +186,17 @@ sweep_full_hashes_kernel(int64_t n, const uint32_t* __restrict__ lanes, int ld_l
       h0b[r] = h.b;
       if (key != nullptr) key[r] = (long long)((h.a == kInv64 ? kInv64 - 1 : h.a) ^ kFlip);
     }
-    __syncthreads();   // the tile's rows are read before the next tile's copies land
+    __syncthreads();   // the tile's rows are read before its buffer is staged again
   }
 }
 
 template <bool kN>
-cudaError_t launch_hashes(int device, cudaStream_t s, int64_t n, const void* lanes, int ld_lanes,
-                          const void* nmask, int ld_nmask, int L, uint64_t base_a,
-                          uint64_t base_b, const void* tables, void* h0, void* h0b, void* key) {
+cudaError_t launch_hashes(int device, cudaStream_t s, int64_t n, const void* lanes,
+                          int64_t ld_lanes, const void* nmask, int64_t ld_nmask, int L,
+                          uint64_t base_a, uint64_t base_b, const void* tables, void* h0,
+                          void* h0b, void* key) {
   const auto kernel = sweep_full_hashes_kernel<kN>;
-  const int smem = hash_smem(ld_lanes, kN ? ld_nmask : 0);
+  const int smem = hash_smem((L + 15) >> 4, kN ? (L + 31) >> 5 : 0);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -246,11 +269,14 @@ sweep_init_links_kernel(int64_t n, const long long* __restrict__ ks,
 
 }  // namespace
 
+// lanes [W+1, n] and nmask [Wn+1, n] (or null) column-major, column c of
+// row r at c * ld + r, with at least ceil(L/16) and ceil(L/32) columns;
 // h0, h0b [n] u64 (int64 carriers); key [n] int64 or null (hash-only form);
 // tables: kTableEntries (A's, B's) u64 pairs, kernels/sweep_init.py
 // `table_tensor`.
 extern "C" int pgrc_sweep_full_hashes(int device, void* stream, int64_t n, const void* lanes,
-                                      int ld_lanes, const void* nmask, int ld_nmask, int L,
+                                      int64_t ld_lanes, const void* nmask, int64_t ld_nmask,
+                                      int L,
                                       uint64_t base_a, uint64_t base_b, const void* tables,
                                       void* h0, void* h0b, void* key) {
   cudaError_t err = cudaSetDevice(device);

@@ -21,22 +21,30 @@
 // keeps the reference's (key, side|gid) order, and kernel F finds an
 // entry's side, gid and confirm hash from its index.
 //
-// What bounds D on the card: two things. Bytes: an entry reads and writes
-// its side's two hashes (32 B), reads one lane word and N-mask word and one
-// flag, and an active entry writes 16 B. And a cost of a few microseconds a
-// launch that does not scale with bytes (PERF.md section 6), which the round
-// paid four times over before: D, then a cat, a nonzero with its host sync
-// and a gather of the keys. What the design does about it: the selection
-// is fused into the roll as a one-pass count scan (seg_scan.cuh's tiles and
-// warp-wide decoupled look-back, as one segment), so a round is D, the
-// sort, one gather and F; the output buffers are allocated once per table
-// at capacity 2n and the scratch is zeroed here, by cudaMemsetAsync, not by
-// a fill kernel. The roll is striped (consecutive threads on consecutive
-// entries, so hash loads and stores coalesce); keys and flags go through
-// shared memory to the blocked layout of the scan and back to a striped
-// write of the outputs. A thread rolls only its side's pair of hashes; the
-// price is that each side reads its row's lane sector, so the lanes come
-// from memory twice where both sides' columns share a sector.
+// What bounds D on the card: bytes. A row's two entries read and write
+// their side's two hashes (64 B a row), read one lane word each (4 B a
+// side) and an N-mask word each, and two flags; an active entry writes
+// 16 B. Beside them a cost of a few microseconds a launch that does not
+// scale with bytes (PERF.md section 6), which the round paid four times
+// over before the selection was fused in. The design:
+// - The selection is fused into the roll as a one-pass count scan
+//   (seg_scan.cuh's tiles and warp-wide decoupled look-back, as one
+//   segment), so a round is D, the sort, one gather and F; the output
+//   buffers are allocated once per table at capacity 2n and the scratch is
+//   zeroed here, by cudaMemsetAsync, not by a fill kernel.
+// - The roll is striped: consecutive threads on consecutive entries, so
+//   hash loads and stores coalesce; keys and flags go through shared
+//   memory to the blocked layout of the scan and back to a striped write of
+//   the outputs. A thread rolls only its side's pair of hashes.
+// - The table's lanes are column-major ([W+1, n], packed_cols.cuh): a
+//   round reads one column a side, so a warp's 32 consecutive rows read
+//   one 128-byte line of it, 4 bytes a row a side. Row-major ([n, W+1]),
+//   each side fetched its row's whole 32-byte sector for one word, and at
+//   SE 2M's first round (1.76M rows, 56 MB of lanes, more than the 50 MB
+//   L2) both sides fetched it from memory: 64 B of lane traffic a row for
+//   8 useful bytes, about a third of the round's bytes. The column stride
+//   is passed, not assumed: a compacted table is a view [:, :kept] of
+//   arrays sized by the rows before, and is read as it lies.
 //
 // The sharded form (`kRecords`, kernel D of a mesh round; pgrc_tpu's
 // `round_fn` under shard_map, :243-263, with its entry build :251-258)
@@ -70,8 +78,8 @@ __device__ __forceinline__ int padded(int k) { return k + (k >> 3); }
 
 template <bool kRecords>
 __global__ void __launch_bounds__(seg_scan::kThreads, seg_scan::kMinBlocks)
-sweep_roll_entries_kernel(int64_t n, const uint32_t* __restrict__ lanes, int ld_lanes,
-                          const uint32_t* __restrict__ nmask, int ld_nmask,
+sweep_roll_entries_kernel(int64_t n, const uint32_t* __restrict__ lanes, int64_t ld_lanes,
+                          const uint32_t* __restrict__ nmask, int64_t ld_nmask,
                           const bool* __restrict__ active_s, const bool* __restrict__ active_p,
                           int i, int L, uint64_t pow_a, uint64_t pow_b, uint64_t inv_a,
                           uint64_t inv_b, uint64_t* __restrict__ h, uint64_t* __restrict__ p,
@@ -87,6 +95,9 @@ sweep_roll_entries_kernel(int64_t n, const uint32_t* __restrict__ lanes, int ld_
   const int64_t m = 2 * n;
   const int64_t tile = next_tile(scratch);
   const int64_t first = tile * kTile;
+  // the round's two columns: a suffix drops column i-1, a prefix column L-i
+  const packed_cols::Column col_s = packed_cols::column(lanes, ld_lanes, nmask, ld_nmask, i - 1);
+  const packed_cols::Column col_p = packed_cols::column(lanes, ld_lanes, nmask, ld_nmask, L - i);
 
   // the roll, striped
 #pragma unroll
@@ -97,8 +108,8 @@ sweep_roll_entries_kernel(int64_t n, const uint32_t* __restrict__ lanes, int ld_
     if (e < m) {
       const bool suf = e >= n;
       const int64_t r = suf ? e - n : e;
-      const uint64_t v =
-          packed_cols::col_val(lanes, ld_lanes, nmask, ld_nmask, r, suf ? i - 1 : L - i);
+      const packed_cols::Column col = suf ? col_s : col_p;
+      const uint64_t v = col.val(r);
       uint64_t hv, conf;
       if (suf) {
         hv = h[r] - v * pow_a;
@@ -165,8 +176,8 @@ sweep_roll_entries_kernel(int64_t n, const uint32_t* __restrict__ lanes, int ld_
 namespace {
 
 template <bool kRecords>
-int roll_entries(int device, void* stream, int64_t n, const void* lanes, int ld_lanes,
-                 const void* nmask, int ld_nmask, const void* active_s, const void* active_p,
+int roll_entries(int device, void* stream, int64_t n, const void* lanes, int64_t ld_lanes,
+                 const void* nmask, int64_t ld_nmask, const void* active_s, const void* active_p,
                  int i, int L, uint64_t pow_a, uint64_t pow_b, uint64_t inv_a, uint64_t inv_b,
                  void* h, void* p, void* h2, void* p2, const void* ids, void* keys, void* ent,
                  int64_t capacity, void* scratch, int64_t scratch_words) {
@@ -190,11 +201,13 @@ int roll_entries(int device, void* stream, int64_t n, const void* lanes, int ld_
 
 }  // namespace
 
-// keys, ent [2n] int64 (capacity); scratch: seg_scan::scratch_words(2n)
-// int64 words, zeroed here; the count m lands in scratch[kTotalsWord].
+// lanes [W+1, n] and nmask [Wn+1, n] (or null) column-major, column c of
+// row r at c * ld + r (packed_cols.cuh); keys, ent [2n] int64 (capacity);
+// scratch: seg_scan::scratch_words(2n) int64 words, zeroed here; the count
+// m lands in scratch[kTotalsWord].
 extern "C" int pgrc_sweep_roll_entries(
-    int device, void* stream, int64_t n, const void* lanes, int ld_lanes,
-    const void* nmask, int ld_nmask, const void* active_s, const void* active_p,
+    int device, void* stream, int64_t n, const void* lanes, int64_t ld_lanes,
+    const void* nmask, int64_t ld_nmask, const void* active_s, const void* active_p,
     int i, int L, uint64_t pow_a, uint64_t pow_b, uint64_t inv_a, uint64_t inv_b,
     void* h, void* p, void* h2, void* p2, void* keys, void* ent, void* scratch,
     int64_t scratch_words) {
@@ -208,8 +221,8 @@ extern "C" int pgrc_sweep_roll_entries(
 // least 2n entries; 16-byte aligned); m lands in scratch[kTotalsWord], the
 // active prefixes, which come first, in scratch[kTotalsWord + 1].
 extern "C" int pgrc_sweep_roll_records(
-    int device, void* stream, int64_t n, const void* lanes, int ld_lanes,
-    const void* nmask, int ld_nmask, const void* active_s, const void* active_p,
+    int device, void* stream, int64_t n, const void* lanes, int64_t ld_lanes,
+    const void* nmask, int64_t ld_nmask, const void* active_s, const void* active_p,
     int i, int L, uint64_t pow_a, uint64_t pow_b, uint64_t inv_a, uint64_t inv_b,
     void* h, void* p, void* h2, void* p2, const void* ids, void* recs, int64_t rec_chunks,
     void* scratch, int64_t scratch_words) {

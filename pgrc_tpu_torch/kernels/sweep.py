@@ -16,7 +16,7 @@ import torch
 from ..core.packed import col_vals
 from ..overlap.host import HASH_BASE64, HASH_BASE64_INV, HASH_BASE64B, HASH_BASE64B_INV
 from ..utils.uint import SIGN64, s64
-from . import TOTALS_WORD, check, launch, launches, on_cpu, ptr, scan_scratch
+from . import TOTALS_WORD, check, check_cols, launch, launches, on_cpu, ptr, scan_scratch
 
 _M64 = (1 << 64) - 1
 # a sharded round's entries (csrc/sweep_record.cuh): a key and a payload
@@ -29,6 +29,20 @@ GID_SHIFT = 31
 MASK31 = (1 << 31) - 1
 CHUNK = 32
 CHUNK_WORDS = 3 * CHUNK
+
+
+def check_table(lanes: torch.Tensor, nmask: torch.Tensor | None, n: int, i: int,
+                L: int) -> None:
+    """Raise unless lanes [W+1, n] and nmask [Wn+1, n] (or None) are a sweep
+    table's column-major lanes (`kernels.check_cols`: contiguous columns,
+    a column stride of at least n, passed to the kernel as it is) wide
+    enough for read length L, and 1 <= i < L."""
+    check_cols(lanes, "lanes", n)
+    if nmask is not None:
+        check_cols(nmask, "nmask", n)
+    if not 1 <= i < L or L > 16 * lanes.shape[0] or (
+            nmask is not None and L > 32 * nmask.shape[0]):
+        raise ValueError(f"round {i} out of range for read length {L}")
 
 
 def round_powers(i: int, L: int) -> tuple[int, int, int, int]:
@@ -62,7 +76,8 @@ def round_entries_plain(active_s, active_p, h, p, keys, ent, scratch) -> torch.T
 
 
 def roll_plain(lanes, nmask, i: int, L: int, h, p, h2, p2) -> None:
-    """Roll h, p, h2, p2 (int64 bit patterns, IN PLACE) for round i."""
+    """Roll h, p, h2, p2 (int64 bit patterns, IN PLACE) for round i; lanes
+    and nmask column-major (`check_table`)."""
     pa, pb, ia, ib = (s64(x) for x in round_powers(i, L))
     vi = col_vals(lanes, nmask, i - 1)
     vm = col_vals(lanes, nmask, L - i)
@@ -85,16 +100,15 @@ def sweep_roll_entries(lanes: torch.Tensor, nmask: torch.Tensor | None,
                        h: torch.Tensor, p: torch.Tensor, h2: torch.Tensor, p2: torch.Tensor,
                        keys: torch.Tensor, ent: torch.Tensor,
                        scratch: torch.Tensor) -> torch.Tensor:
-    """lanes [n, W+1] int32, nmask [n, Wn+1] int32 or None, active_s/active_p
+    """lanes [W+1, n] int32 and nmask [Wn+1, n] int32 or None, the sweep
+    table's column-major lanes (`check_table`), active_s/active_p
     [n] bool, h/p/h2/p2 [n] int64 (rolled in place), keys/ent [2n] int64
     and scratch from `round_buffers` -> the round's active entries in
     keys[:m] (order keys) and ent[:m] (entry indices: r < n row r's prefix,
     n + r its suffix), in entry order, and m as a one-element int64 tensor
     on the tensors' device. CUDA tensors run kernel D."""
-    n = lanes.shape[0]
-    check(lanes, "lanes", torch.int32, (n, None))
-    if nmask is not None:
-        check(nmask, "nmask", torch.int32, (n, None))
+    n = lanes.shape[1]
+    check_table(lanes, nmask, n, i, L)
     for name, t in (("active_s", active_s), ("active_p", active_p)):
         check(t, name, torch.bool, (n,))
     for name, t in (("h", h), ("p", p), ("h2", h2), ("p2", p2)):
@@ -102,14 +116,12 @@ def sweep_roll_entries(lanes: torch.Tensor, nmask: torch.Tensor | None,
     for name, t in (("keys", keys), ("ent", ent)):
         check(t, name, torch.int64, (2 * n,))
     check(scratch, "scratch", torch.int64, (None,))
-    if not 1 <= i < L or L > 16 * lanes.shape[1]:
-        raise ValueError(f"round {i} out of range for read length {L}")
     if on_cpu(lanes, nmask, active_s, active_p, h, p, h2, p2, keys, ent, scratch):
         return sweep_roll_entries_plain(lanes, nmask, active_s, active_p, i, L, h, p, h2, p2,
                                         keys, ent, scratch)
     dev = lanes.device
-    launch("pgrc_sweep_roll_entries", dev, n, ptr(lanes), lanes.shape[1],
-           ptr(nmask), 0 if nmask is None else nmask.shape[1], ptr(active_s),
+    launch("pgrc_sweep_roll_entries", dev, n, ptr(lanes), lanes.stride(0),
+           ptr(nmask), 0 if nmask is None else nmask.stride(0), ptr(active_s),
            ptr(active_p), i, L, *round_powers(i, L), ptr(h), ptr(p), ptr(h2),
            ptr(p2), ptr(keys), ptr(ent), ptr(scratch), scratch.numel())
     launches["sweep_roll_entries"] += 1
@@ -179,10 +191,8 @@ def sweep_roll_records(lanes: torch.Tensor, nmask: torch.Tensor | None,
     the chunks of recs (the mp active prefixes first; csrc/sweep_record.cuh),
     and (m, mp) as a two-element int64 view on the tensors' device. CUDA
     tensors run kernel D's sharded form."""
-    n = lanes.shape[0]
-    check(lanes, "lanes", torch.int32, (n, None))
-    if nmask is not None:
-        check(nmask, "nmask", torch.int32, (n, None))
+    n = lanes.shape[1]
+    check_table(lanes, nmask, n, i, L)
     for name, t in (("active_s", active_s), ("active_p", active_p)):
         check(t, name, torch.bool, (n,))
     for name, t in (("h", h), ("p", p), ("h2", h2), ("p2", p2)):
@@ -192,13 +202,11 @@ def sweep_roll_records(lanes: torch.Tensor, nmask: torch.Tensor | None,
     check(scratch, "scratch", torch.int64, (None,))
     if recs.shape[0] * CHUNK < 2 * n:
         raise ValueError(f"recs: {recs.shape[0]} chunks cannot hold {2 * n} entries")
-    if not 1 <= i < L or L > 16 * lanes.shape[1]:
-        raise ValueError(f"round {i} out of range for read length {L}")
     if on_cpu(lanes, nmask, active_s, active_p, h, p, h2, p2, ids, recs, scratch):
         return sweep_roll_records_plain(lanes, nmask, active_s, active_p, i, L, h, p, h2, p2,
                                         ids, recs, scratch)
-    launch("pgrc_sweep_roll_records", lanes.device, n, ptr(lanes), lanes.shape[1],
-           ptr(nmask), 0 if nmask is None else nmask.shape[1], ptr(active_s),
+    launch("pgrc_sweep_roll_records", lanes.device, n, ptr(lanes), lanes.stride(0),
+           ptr(nmask), 0 if nmask is None else nmask.stride(0), ptr(active_s),
            ptr(active_p), i, L, *round_powers(i, L), ptr(h), ptr(p), ptr(h2),
            ptr(p2), ptr(ids), ptr(recs), recs.shape[0], ptr(scratch), scratch.numel())
     launches["sweep_roll_entries.sharded"] += 1

@@ -13,7 +13,7 @@ import torch
 from ..core.packed import col_vals
 from ..overlap.host import HASH_BASE64, HASH_BASE64B
 from ..utils.uint import SIGN64, s64
-from . import check, launch, launches, on_cpu, ptr
+from . import check, check_cols, launch, launches, on_cpu, ptr
 
 _A, _B = int(HASH_BASE64), int(HASH_BASE64B)
 _U64 = (1 << 64) - 1
@@ -46,9 +46,10 @@ def table_tensor(device) -> torch.Tensor:
 
 
 def sweep_full_hashes_plain(lanes, nmask, L: int, with_key: bool = False):
-    """Both full-read u64 hashes by Horner over the columns; with_key adds
-    the init's order key min(h0, INV64 - 1) ^ SIGN64."""
-    n = lanes.shape[0]
+    """Both full-read u64 hashes by Horner over the columns of a
+    column-major table; with_key adds the init's order key min(h0, INV64 -
+    1) ^ SIGN64."""
+    n = lanes.shape[1]
     h = torch.zeros((n,), dtype=torch.int64, device=lanes.device)
     hb = torch.zeros_like(h)
     for t in range(L):
@@ -62,23 +63,24 @@ def sweep_full_hashes_plain(lanes, nmask, L: int, with_key: bool = False):
 
 def sweep_full_hashes(lanes: torch.Tensor, nmask: torch.Tensor | None, L: int,
                       with_key: bool = False):
-    """lanes [n, W+1] int32, nmask [n, Wn+1] int32 or None -> (h0, h0b) [n]
+    """lanes [W+1, n] int32 and nmask [Wn+1, n] int32 or None, the sweep
+    table's column-major lanes (`kernels.check_cols`) -> (h0, h0b) [n]
     int64 (u64 bit patterns), and with_key the init's order key [n] int64.
     CUDA tensors run kernel G."""
-    n = lanes.shape[0]
-    check(lanes, "lanes", torch.int32, (n, None))
+    n = lanes.shape[1]
+    check_cols(lanes, "lanes", n)
     if nmask is not None:
-        check(nmask, "nmask", torch.int32, (n, None))
-    if not 1 <= L <= 16 * lanes.shape[1]:
-        raise ValueError(f"read length {L} out of range for {lanes.shape[1]} lanes")
+        check_cols(nmask, "nmask", n)
+    if not 1 <= L <= 16 * lanes.shape[0] or (nmask is not None and L > 32 * nmask.shape[0]):
+        raise ValueError(f"read length {L} out of range for {lanes.shape[0]} lanes")
     if on_cpu(lanes, nmask):
         return sweep_full_hashes_plain(lanes, nmask, L, with_key)
     dev = lanes.device
     h0 = torch.empty((n,), dtype=torch.int64, device=dev)
     h0b = torch.empty_like(h0)
     key = torch.empty_like(h0) if with_key else None
-    launch("pgrc_sweep_full_hashes", dev, n, ptr(lanes), lanes.shape[1], ptr(nmask),
-           0 if nmask is None else nmask.shape[1], L, _A, _B, ptr(table_tensor(dev)), ptr(h0),
+    launch("pgrc_sweep_full_hashes", dev, n, ptr(lanes), lanes.stride(0), ptr(nmask),
+           0 if nmask is None else nmask.stride(0), L, _A, _B, ptr(table_tensor(dev)), ptr(h0),
            ptr(h0b), ptr(key))
     launches["sweep_full_hashes"] += 1
     return (h0, h0b, key) if with_key else (h0, h0b)

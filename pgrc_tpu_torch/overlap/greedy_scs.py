@@ -27,7 +27,9 @@ key), G2 links the init's duplicates, D rolls a round's hashes and writes
 its active entries compacted, F pairs and links, H compacts the table. The
 host reads one count a round (D's entry count, before the sort) and three
 at a segment end (H's kept rows and active sides), and nothing else until
-the links come back.
+the links come back. The table's lanes and N mask are column-major ([W+1,
+n], `state.sweep_lanes_to_device`), so that each round reads the two
+columns it rolls coalesced; the layout stays inside the sweep.
 
 With a `mesh` of more than one rank (the reference's shard_map path,
 greedy_scs.py:243-263, :323-331, :381-397, :514-528) every rank runs the
@@ -80,7 +82,9 @@ _ONE_SEGMENT_MAX_ROWS = 32768
 # setting it here reaches every call. Raising it changes the links (and so
 # the archive bytes) of inputs past 48M rows.
 _SWEEP_MAX_ROWS = 48_000_000
-# the per-row arrays of a sweep table, in kernel H's order
+# the per-row arrays of a sweep table, in kernel H's order: the lanes
+# [W+1, n] and N mask [Wn+1, n] column-major (core/packed.py `empty_cols`),
+# the rest [n]
 _TABLE = ("lanes", "nmask", "ids", "h", "p", "h2", "p2", "a_s", "a_p")
 
 
@@ -179,7 +183,9 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
     if n >= (1 << 30):
         raise NotImplementedError("overlap rounds index reads with 31-bit ids")
     with span(f"sweep pack+upload n={n}"):
-        lanes, nmask = state.lanes_to_device(*packed.pack_lanes(codes), device)
+        # the table's lanes column-major ([W+1, n]): a round reads two
+        # columns of every row, each coalesced (kernel D)
+        lanes, nmask = state.sweep_lanes_to_device(*packed.pack_lanes(codes), device)
     if init_active is None:
         h0, h0b, succ_g, ovl_g, a_s, a_p = _init_links(lanes, nmask, L)
     else:
@@ -192,7 +198,7 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
     if mesh is not None:
         # the rank's shard: its block of rows (the init's links, in succ_g
         # and ovl_g, are every rank's)
-        lanes, nmask, h0, h0b, a_s, a_p = (None if v is None else v[lo:hi].clone()
+        lanes, nmask, h0, h0b, a_s, a_p = (None if v is None else _block(v, lo, hi)
                                            for v in (lanes, nmask, h0, h0b, a_s, a_p))
     # the largest table of any rank decides the segments, the same on all,
     # and sizes every rank's send buffer
@@ -237,13 +243,21 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
             if n_suf == 0 or n_pref == 0:
                 break
             if kept < rows:
-                t.update((k, None if v is None else v[:kept]) for k, v in zip(_TABLE, new))
+                # the kept rows: the head of each array, and of each lane
+                # and N-mask column (a view; the kernels take its stride)
+                t.update((k, None if v is None else v[..., :kept]) for k, v in zip(_TABLE, new))
             del new
             t["entries"] = _entry_buffers(rows_max, device, mesh)
     res = OverlapResult(succ_g.cpu().numpy(), ovl_g.cpu().numpy(), L)
     with span("sweep verify_links"):
         _verify_links(res, codes)
     return res
+
+
+def _block(v: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Rows lo..hi of a table array, copied; the lanes and N mask stay
+    column-major."""
+    return packed.cols_copy(v[:, lo:hi]) if v.dim() == 2 else v[lo:hi].clone()
 
 
 def _entry_buffers(rows_max: int, device, mesh):

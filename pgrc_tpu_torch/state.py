@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core import packed
 from .utils import uint
 
 
@@ -20,6 +21,32 @@ def lanes_to_device(lanes: np.ndarray, nmask: np.ndarray | None, device):
     lanes_t = uint.np_u32_to_tensor(lanes, device)
     nmask_t = None if nmask is None else uint.np_u32_to_tensor(nmask, device)
     return lanes_t, nmask_t
+
+
+# rows of the sweep table's upload that are held row-major on the device
+# at once, before their transpose (128 MB of lanes at L 100)
+UPLOAD_CHUNK_ROWS = 1 << 22
+
+
+def sweep_lanes_to_device(lanes: np.ndarray, nmask: np.ndarray | None, device):
+    """`packed.pack_lanes` output -> the overlap sweep's column-major table
+    on `device`: int32 lanes [W+1, n] and N mask [Wn+1, n] or None
+    (`packed.empty_cols`: lane c of every row contiguous). The rows are
+    uploaded as they lie, UPLOAD_CHUNK_ROWS at a time, and transposed on
+    the device into the table, so no full row-major copy is held beside it
+    and the host does no transpose."""
+    out = []
+    for a in (lanes, nmask):
+        if a is None:
+            out.append(None)
+            continue
+        t = packed.empty_cols(a.shape[1], a.shape[0], device)
+        for lo in range(0, a.shape[0], UPLOAD_CHUNK_ROWS):
+            rows = uint.np_u32_to_tensor(a[lo:lo + UPLOAD_CHUNK_ROWS], device)
+            t[:, lo:lo + rows.shape[0]].copy_(rows.t())
+            del rows
+        out.append(t)
+    return tuple(out)
 
 
 def lanes_from_device(lanes_t: torch.Tensor, nmask_t: torch.Tensor | None):

@@ -241,7 +241,7 @@ def roll_rounds(with_n, act, seed):
     a_s = rng.random(n) < act
     a_p = rng.random(n) < act
     hs = [rng.integers(0, 2**64, n, dtype=np.uint64) for _ in range(4)]
-    lanes, nmask = state.lanes_to_device(*ref_packed.pack_lanes(codes), "cpu")
+    lanes, nmask = state.sweep_lanes_to_device(*ref_packed.pack_lanes(codes), "cpu")
     assert (nmask is not None) == with_n
     ts = [state.hashes_to_device(h.copy(), "cpu") for h in hs]
     keys, ent, scratch = sweep.round_buffers(n, "cpu")
@@ -625,7 +625,7 @@ def sharded_rounds(codes, a_s, a_p, ranks, rounds):
     from pgrc_tpu_torch.overlap import greedy_scs as port_scs
 
     n, L_ = codes.shape
-    lanes, nmask = state.lanes_to_device(*ref_packed.pack_lanes(codes), "cpu")
+    lanes, nmask = state.sweep_lanes_to_device(*ref_packed.pack_lanes(codes), "cpu")
     h0, h0b = sweep_init.sweep_full_hashes(lanes, nmask, L_)
     one = dict(h=h0.clone(), p=h0.clone(), h2=h0b.clone(), p2=h0b.clone(),
                a_s=torch.from_numpy(a_s.copy()), a_p=torch.from_numpy(a_p.copy()),
@@ -637,8 +637,8 @@ def sharded_rounds(codes, a_s, a_p, ranks, rounds):
         lo = sum(sizes[:r])
         hi = lo + sizes[r]
         shards.append(dict(
-            lo=lo, hi=hi, lanes=lanes[lo:hi].clone(),
-            nmask=None if nmask is None else nmask[lo:hi].clone(),
+            lo=lo, hi=hi, lanes=port_packed.cols_copy(lanes[:, lo:hi]),
+            nmask=None if nmask is None else port_packed.cols_copy(nmask[:, lo:hi]),
             ids=torch.arange(lo, hi, dtype=torch.int32),
             **{k: one[k][lo:hi].clone() for k in ("h", "p", "h2", "p2", "a_s", "a_p")},
             succ=one["succ"].clone(), ovl=one["ovl"].clone(),
@@ -728,7 +728,7 @@ def test_sharded_records_pack_side_gid_row():
     n = 40
     rng = np.random.default_rng(3)
     codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
-    lanes, nmask = state.lanes_to_device(*ref_packed.pack_lanes(codes), "cpu")
+    lanes, nmask = state.sweep_lanes_to_device(*ref_packed.pack_lanes(codes), "cpu")
     hs = [torch.arange(n, dtype=torch.int64) * (k + 1) + 7 for k in range(4)]
     a_s = torch.from_numpy(rng.random(n) < 0.6)
     a_p = torch.from_numpy(rng.random(n) < 0.6)
@@ -787,7 +787,7 @@ def test_sharded_layout_rank_with_no_entries():
     rng = np.random.default_rng(8)
     genome = rng.integers(0, 4, size=300, dtype=np.uint8)
     codes = np.stack([genome[s:s + L] for s in rng.integers(0, 200, size=70)])
-    lanes, nmask = state.lanes_to_device(*ref_packed.pack_lanes(codes), "cpu")
+    lanes, nmask = state.sweep_lanes_to_device(*ref_packed.pack_lanes(codes), "cpu")
     h0, h0b = sweep_init.sweep_full_hashes(lanes, nmask, L)
     blocks = ((0, 0), (0, 30), (30, 70))     # rank 0 holds no row
     shards, counts = [], []
@@ -798,7 +798,7 @@ def test_sharded_layout_rank_with_no_entries():
                  a_p=torch.ones(hi - lo, dtype=torch.bool))
         s["bufs"][0].fill_(-1)
         counts.append(sweep.sweep_roll_records(
-            lanes[lo:hi], None if nmask is None else nmask[lo:hi], s["a_s"], s["a_p"], 1, L,
+            lanes[:, lo:hi], None if nmask is None else nmask[:, lo:hi], s["a_s"], s["a_p"], 1, L,
             *s["hs"], torch.arange(lo, hi, dtype=torch.int32), *s["bufs"]).tolist())
         shards.append(s)
     assert counts == [[0, 0], [60, 30], [80, 40]]

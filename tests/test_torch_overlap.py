@@ -103,7 +103,7 @@ def test_init_hashes_and_links_match_reference(with_n):
     init_fn = ref._build_init_fn(n, L, with_n)
     nm = nmask if with_n else np.zeros((n, 1), np.uint32)
     want = [np.asarray(x) for x in init_fn(lanes, nm, np.int32(n))]
-    lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
+    lt, nt = state.sweep_lanes_to_device(lanes, nmask, "cpu")
     h0, h0b, succ, ovl, a_s, a_p = port._init_links(lt, nt, L)
     got = [uint.tensor_to_np_u64(h0), uint.tensor_to_np_u64(h0b), a_s.numpy(),
            a_p.numpy(), succ.numpy(), ovl.numpy()]
@@ -144,7 +144,7 @@ def test_init_links_match_init_fn_at_ties(kind):
     lanes, _ = ref_packed.pack_lanes(codes)
     want = [np.asarray(x) for x in ref._build_init_fn(n, L, False)(
         lanes, np.zeros((n, 1), np.uint32), np.int32(n))]
-    lt, _ = state.lanes_to_device(lanes, None, "cpu")
+    lt, _ = state.sweep_lanes_to_device(lanes, None, "cpu")
     h0, h0b, succ, ovl, a_s, a_p = port._init_links(lt, None, L)
     got = [uint.tensor_to_np_u64(h0), uint.tensor_to_np_u64(h0b), a_s.numpy(), a_p.numpy(),
            succ.numpy(), ovl.numpy()]
@@ -223,7 +223,7 @@ def test_full_hashes_match_hash_fn(with_n):
     lanes, nmask = ref_packed.pack_lanes(codes)
     nm = nmask if with_n else np.zeros((n, 1), np.uint32)
     want = [np.asarray(x) for x in ref._build_hash_fn(n, L, with_n)(lanes, nm)]
-    lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
+    lt, nt = state.sweep_lanes_to_device(lanes, nmask, "cpu")
     got = sweep_init.sweep_full_hashes(lt, nt, L)
     assert len(got) == 2
     for g, w in zip(got, want):
@@ -243,26 +243,27 @@ def test_full_hashes_at_any_read_length(L_, with_n):
     lanes, nmask = ref_packed.pack_lanes(codes)
     nm = nmask if with_n else np.zeros((n, 1), np.uint32)
     want = [np.asarray(x) for x in ref._build_hash_fn(n, L_, with_n)(lanes, nm)]
-    lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
+    lt, nt = state.sweep_lanes_to_device(lanes, nmask, "cpu")
     for g, w in zip(sweep_init.sweep_full_hashes(lt, nt, L_), want):
         np.testing.assert_array_equal(uint.tensor_to_np_u64(g), w)
 
 
 def chunked_hashes(lanes, nmask, L: int):
     """Kernel G's loop (csrc/sweep_init.cu) in torch, on the tables it reads
-    (`sweep_init.table_tensor`): per lane word, four bytes of h = h * X^4 +
-    T[byte] + TN[nibble], and the read's last word byte by byte, then symbol
-    by symbol. -> (h0, h0b, key) [n] int64."""
+    (`sweep_init.table_tensor`), over the column-major table's lane words:
+    per lane word, four bytes of h = h * X^4 + T[byte] + TN[nibble], and
+    the read's last word byte by byte, then symbol by symbol. -> (h0, h0b,
+    key) [n] int64."""
     tab = sweep_init.table_tensor("cpu")
     A, B = int(ref.HASH_BASE64), int(ref.HASH_BASE64B)
     a4, b4 = (uint.s64(pow(x, 4, 1 << 64)) for x in (A, B))
-    n = lanes.shape[0]
+    n = lanes.shape[1]
     ha = torch.zeros((n,), dtype=torch.int64)
     hb = torch.zeros_like(ha)
     for w in range(-(-L // 16)):
-        word = lanes[:, w]
+        word = lanes[w]
         nb = (torch.zeros_like(word) if nmask is None
-              else (nmask[:, w // 2] >> (0 if w % 2 else 16)) & 0xFFFF)
+              else (nmask[w // 2] >> (0 if w % 2 else 16)) & 0xFFFF)
         syms = min(16, L - 16 * w)
         for j in range(syms // 4):
             e = tab[((word >> (24 - 8 * j)) & 0xFF).long()]
@@ -310,7 +311,7 @@ def test_chunked_hashes_match_plain_and_hash_fn(L_, with_n):
     lanes, nmask = ref_packed.pack_lanes(codes)
     nm = nmask if with_n else np.zeros((n, 1), np.uint32)
     want = [np.asarray(x) for x in ref._build_hash_fn(n, L_, with_n)(lanes, nm)]
-    lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
+    lt, nt = state.sweep_lanes_to_device(lanes, nmask, "cpu")
     got = chunked_hashes(lt, nt, L_)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(uint.tensor_to_np_u64(g), w)
@@ -327,7 +328,7 @@ def test_chunked_key_matches_init_fn(with_n):
     lanes, nmask = ref_packed.pack_lanes(codes)
     nm = nmask if with_n else np.zeros((n, 1), np.uint32)
     want = [np.asarray(x) for x in ref._build_init_fn(n, L, with_n)(lanes, nm, np.int32(n))]
-    lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
+    lt, nt = state.sweep_lanes_to_device(lanes, nmask, "cpu")
     h0, h0b, key = chunked_hashes(lt, nt, L)
     np.testing.assert_array_equal(uint.tensor_to_np_u64(h0), want[0])
     np.testing.assert_array_equal(uint.tensor_to_np_u64(h0b), want[1])
@@ -371,7 +372,7 @@ def test_sweep_compact_matches_compact_fn(kind):
     succ_l, ovl_l = np.full(n, -1, np.int32), np.zeros(n, np.int32)
     want = [np.asarray(x) for x in ref._build_compact_fn(n, n, L, with_n)(
         lanes, nm, ids, *hs, a_s, a_p, succ_l, ovl_l)][:9]
-    lt, nt = state.lanes_to_device(lanes, nmask, "cpu")
+    lt, nt = state.sweep_lanes_to_device(lanes, nmask, "cpu")
     table = (lt, nt, torch.from_numpy(ids), *(state.hashes_to_device(h, "cpu") for h in hs),
              torch.from_numpy(a_s), torch.from_numpy(a_p))
     got, counts = sweep_compact.sweep_compact(*table)
@@ -382,9 +383,9 @@ def test_sweep_compact_matches_compact_fn(kind):
         if g is None:
             assert not with_n
             continue
-        g = g[:k]
+        g = g[..., :k]          # the lanes and N mask through their row-major view
         g = uint.tensor_to_np_u64(g) if g.dtype == torch.int64 else (
-            uint.tensor_to_np_u32(g) if g.dim() == 2 else g.numpy())
+            uint.tensor_to_np_u32(g.t()) if g.dim() == 2 else g.numpy())
         np.testing.assert_array_equal(g, w[:k])
 
 
