@@ -93,6 +93,13 @@ Phases, each printed with its times; the first failure exits nonzero:
      take, timed beside one torch.index_select of the same rows;
   8. PE 2x200k and SE_ORD 200k (bench.py's inputs): exact round trips,
      bits/base, Mbases/s, peak device memory, kernels launched;
+  8b. bench_torch.py (the port's twin of bench.py) in a child process at
+     BENCH_TORCH_ENV's sizes: 200k reads (phase 4's input and pair file),
+     the scale row off, the big row at 1M reads through its own child
+     processes; rc 0 and a result line with no error. Then the repeat
+     genome at 200k (the bench's input file, bench.py's seed 11) through the
+     port's CLI on the card and on the CPU: byte-identical archives, an exact
+     decode, kernels launched;
   9. mesh: MESH_RANKS ranks sharing the card (gloo, which takes the
      ranks' CUDA tensors; parallel.mesh.launch, after the kernels were
      built in phase 2): a rank that raises must fail the launch; gloo's
@@ -222,6 +229,10 @@ BENCH_200K = (  # label, argv, decode check, pgrc_tpu's bits/base (BENCH_r05.jso
     ("PE 2x200k", ["-i", "{s}", "{p}"], "pairs", 0.1728),
     ("SE_ORD 200k", ["-o", "-i", "{s}"], "order", 0.3052),
 )
+# phase 8b: bench_torch.py's sizes, and the repeat genome's row
+BENCH_TORCH_ENV = {"PGRC_BENCH_READS": "200000", "PGRC_BENCH_SCALE_READS": "0",
+                   "PGRC_BENCH_BIG_READS": "1000000"}
+BENCH_REPEAT = ("repeat 200k", 0.1339)  # label, pgrc_tpu's bits/base (BENCH_r05.json)
 # the card's rates for the bound: HBM3 bytes per second (the published
 # 3.35 TB/s), and 32-bit integer operations per second: 132 SMs x 64 INT32
 # operations a clock x 1.98 GHz (the SXM part's SM count and boost clock)
@@ -2790,6 +2801,62 @@ def phase_bench_200k(src: str, pair: str, codes) -> None:
         require_launched(label, launches, spy)
 
 
+def phase_bench_torch(work: str, src: str, pair: str) -> None:
+    """bench_torch.py at BENCH_TORCH_ENV's sizes in a child process, on phase
+    4's input (bench.py's seed and genome at 200k reads); then the repeat
+    genome's file that it wrote, compressed through the port's CLI on the
+    card and on the CPU: the same bytes and an exact decode."""
+    from pgrc_tpu_torch import cli, kernels
+
+    bench_dir = os.path.join(work, "bench")
+    os.makedirs(bench_dir)
+    n = BENCH_TORCH_ENV["PGRC_BENCH_READS"]
+    for path, name in ((src, f"bench_{n}.fastq"), (pair, f"bench_{n}_2.fastq")):
+        os.link(path, os.path.join(bench_dir, name))
+    free_card()
+    t0 = time.time()
+    p = subprocess.run([sys.executable, os.path.join(HERE, "bench_torch.py")],
+                       env={**os.environ, **BENCH_TORCH_ENV, "PGRC_BENCH_TMP": bench_dir},
+                       capture_output=True, text=True, timeout=900)
+    lines = p.stdout.strip().splitlines()
+    say(f"[bench_torch] {BENCH_TORCH_ENV}: rc {p.returncode} in {time.time() - t0:.1f} s; "
+        f"its rows:\n" + "\n".join(p.stderr.strip().splitlines()[-12:]))
+    try:
+        got = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        got = {"error": f"no result line: {p.stdout[-300:]!r} {p.stderr[-1500:]!r}"}
+    say(f"[bench_torch] {json.dumps(got)}")
+    require(p.returncode == 0 and "error" not in got,
+            f"bench_torch.py failed (rc {p.returncode}): {got.get('error')}")
+
+    label, ref_bpb = BENCH_REPEAT
+    rep_src = os.path.join(bench_dir, f"bench_rep_{n}.fastq")
+    card, cpu = (os.path.join(work, f"repeat.{d}.pgtc") for d in ("card", "cpu"))
+    kernels.reset_launches()
+    t0 = time.time()
+    with SweepSpy() as spy:
+        require(cli.main(["--device", "cuda", "-i", rep_src, card]) == 0,
+                f"{label}: compress on the card failed")
+        torch.cuda.synchronize()
+    card_s = time.time() - t0
+    launches = dict(kernels.launches)
+    t0 = time.time()
+    require(cli.main(["--device", "cpu", "-i", rep_src, cpu]) == 0,
+            f"{label}: compress on the CPU failed")
+    cpu_s = time.time() - t0
+    with open(card, "rb") as a, open(cpu, "rb") as b:
+        same = a.read() == b.read()
+    codes = fastq_codes(rep_src)
+    exact, dec_s = decodes_exactly(card, os.path.join(work, "repeat.dec"), "reads", [codes])
+    size = os.path.getsize(card)
+    say(f"[{label}] archive {size} B, {size * 8 / codes.size:.6f} bits/base (pgrc_tpu with "
+        f"zstd: {ref_bpb}), card {card_s:.2f} s, CPU {cpu_s:.2f} s, decode {dec_s:.2f} s, "
+        f"byte-identical to the CPU's {same}, exact decode {exact}, launches {launches}")
+    require(same, f"{label}: the card's archive differs from the CPU's")
+    require(exact, f"{label}: the decoded reads differ from the input")
+    require_launched(label, launches, spy)
+
+
 class CollectiveClock:
     """Host seconds a rank spends in its mesh's collectives (gloo's copies
     of CUDA tensors through host memory included, and so the wait for the
@@ -3157,6 +3224,9 @@ def main(argv=None) -> int:
         t0 = time.time()
         phase_bench_200k(src, pair, codes)
         say(f"[time] phase 8 {time.time() - t0:.1f} s")
+        t0 = time.time()
+        phase_bench_torch(work, src, pair)
+        say(f"[time] phase 8b {time.time() - t0:.1f} s")
         t0 = time.time()
         variant_launches.update(phase_mesh(dev, work, src, timings))
         say(f"[time] phase 9 {time.time() - t0:.1f} s")

@@ -26,7 +26,8 @@ import numpy as np
 
 from .. import ARCHIVE_MAGIC
 from ..config import MODE_SE, MODE_PE, MODE_ORD_SE, MODE_ORD_PE, MODE_MIN_PE
-from ..core import fastq, packed
+from ..core import fastq
+from ..core import packed_host as packed
 from ..pg.model import ReadsList
 from ..pg.reconstruct import reconstruct_at
 from ..streams.container import StreamReader

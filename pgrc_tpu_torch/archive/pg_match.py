@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..align import matcher as align_matcher
+from ..align import host as align_matcher
 from ..streams import props
 from ..streams.container import StreamReader
 from ..streams.varlen_dna import MARK
