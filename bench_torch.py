@@ -26,11 +26,24 @@ library's load inside the clock; nvcc too where the library is not built),
 `warm` an encode after the child has made its context and loaded the
 kernels, `validate` the streaming validator in a child that never imports
 torch, `trace` one more encode under torch.profiler for its
-device time. Each child reports its own peak RSS (`PeakRss`: VmHWM, or
-/proc/self/statm sampled every 10 ms where the kernel has no VmHWM),
-because a child's `ru_maxrss` starts from the parent's peak (the kernel
-keeps it across the exec), which is what bench.py's children report. Input files are made in a spawned process, so the
-generator's temporaries count in no row's RSS.
+device time. Each child reports its own peak RSS (`utils.rss.PeakRss`:
+VmHWM, or /proc/self/statm sampled every 10 ms where the kernel has no
+VmHWM), because a child's `ru_maxrss` starts from the parent's peak (the
+kernel keeps it across the exec), which is what bench.py's children
+report; the cold and warm children also each stage's own peak
+(`big_stage_rss_mb`, the encoder's PGRC_TPU_RSS_TRACE) and where their
+memory lies after the set-up (`big_init_memory`). Input files are made in
+a spawned process, so the generator's temporaries count in no row's RSS.
+
+    python3 bench_torch.py --rss-probe [--device D]
+
+prints where a fresh process's resident memory lies: statm's resident and
+shared MB after `import numpy`, `import torch`, `device.resolve`, the CUDA
+context and the kernel library, the /proc/self/status fields the kernel
+has, the mapped shared libraries' file sizes (and resident MB, where
+/proc/self/smaps has it) for torch, `nvidia/*` and the rest, and a plain
+`python3 -c "import torch"` child's resident MB. The bench runs it first,
+in a child, as `rss_probe`.
 
 Each wall is the host clock around `encoder.encode`, with
 `torch.cuda.synchronize()` before both reads. vs_baseline divides the SE
@@ -54,11 +67,14 @@ import os
 import statistics
 import subprocess
 import sys
-import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
+
+from pgrc_tpu_torch.utils.rss import (  # noqa: E402,F401  (bench_torch's names)
+    STATUS_FIELDS, PeakRss, mapped_libraries, rss_now_mb, statm_mb, status_fields,
+    vm_hwm_mb)
 
 # bench.py's fallback figure for the reference binary (Mbases/s, -t 8)
 BASELINE_LOCAL_MBASES_S = 2.2
@@ -73,46 +89,6 @@ SCALE_SCALING = 0.8
 SCALE_RSS_MB = 6144
 VS_BASELINE_FLOOR = 0.7
 BIG_PHASES = ("cold", "warm", "validate", "trace")
-
-
-def vm_hwm_mb():
-    """This process's peak RSS in MB from /proc/self/status (VmHWM), None
-    where the kernel does not report it."""
-    with open("/proc/self/status") as f:
-        for line in f:
-            if line.startswith("VmHWM:"):
-                return round(int(line.split()[1]) / 1024, 1)
-    return None
-
-
-def rss_now_mb() -> float:
-    with open("/proc/self/statm") as f:
-        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
-
-
-class PeakRss:
-    """This process's own peak RSS in MB: VmHWM where /proc/self/status
-    has it (Linux); where the kernel does not report it, the largest
-    resident size of /proc/self/statm, sampled every 10 ms by a daemon
-    thread from the start. Not `ru_maxrss`: a child's starts at its
-    parent's peak (the kernel keeps it across the exec)."""
-
-    def __init__(self, every: float = 0.01):
-        self.hwm = vm_hwm_mb() is not None
-        self.source = "VmHWM" if self.hwm else f"statm every {every * 1e3:.0f} ms"
-        self._max = rss_now_mb()
-        if not self.hwm:
-            threading.Thread(target=self._sample, args=(every,), daemon=True).start()
-
-    def _sample(self, every):
-        while True:
-            self._max = max(self._max, rss_now_mb())
-            time.sleep(every)
-
-    def mb(self) -> float:
-        if self.hwm:
-            return vm_hwm_mb()
-        return round(max(self._max, rss_now_mb()), 1)
 
 
 def ru_maxrss_mb() -> float:
@@ -262,7 +238,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", help="cuda[:N] or cpu (no fallback)")
     ap.add_argument("--big-row", nargs=3, metavar=("PHASE", "SRC", "OUT"),
                     help=f"one phase of the big row in this process: {BIG_PHASES}")
+    ap.add_argument("--rss-probe", action="store_true",
+                    help="print where this process's resident memory lies after each "
+                         "import and the device's set-up (one JSON line)")
     args = ap.parse_args(argv)
+    if args.rss_probe:
+        return rss_probe(args.device)
     peak = PeakRss()
     if args.big_row:
         return big_row(*args.big_row, peak, device=args.device)
@@ -285,7 +266,7 @@ def main(argv=None) -> int:
 
     fields = device_fields(dev)
     run = Runner(dev)
-    extra = {}
+    extra = {"rss_probe": child_rss_probe(args.device)}
     out = os.path.join(tmpdir, "bench.pgtc")
     # the first encode of the shape: nvcc (where the kernel library is not
     # built), the CUDA context, the allocator's first blocks
@@ -440,6 +421,8 @@ def main(argv=None) -> int:
         extra["big_peak_device_mib"] = warm["peak_device_mib"]
         extra["big_sha256"] = warm["sha256"]
         extra["big_stage_times_s"] = warm["stage_times_s"]
+        extra["big_stage_rss_mb"] = warm["stage_rss_mb"]
+        extra["big_init_memory"] = warm["init_memory"]
         extra["big_import_rss_mb"] = warm["import_rss_mb"]
         extra["big_init_rss_mb"] = warm["init_rss_mb"]
         extra["big_ru_maxrss_mb"] = warm["ru_maxrss_mb"]
@@ -515,6 +498,9 @@ def big_row(phase: str, src_b: str, out_b: str, peak: PeakRss, device: str = "cu
                 build.lib()
             run.reset_peak()
             res["init_rss_mb"] = peak.mb()
+            res["init_memory"] = memory_fields()
+            # each stage's own peak RSS (encoder._stage_done), in stats
+            os.environ["PGRC_TPU_RSS_TRACE"] = "1"
             if phase == "trace":
                 res.update(traced_encode(run, src_b, out_b))
             else:
@@ -524,8 +510,11 @@ def big_row(phase: str, src_b: str, out_b: str, peak: PeakRss, device: str = "cu
                 res["wall_s"] = round(wall, 3)
                 res["sha256"] = sha256(out_b)
                 res["stage_times_s"] = {k: round(v, 2) for k, v in stats.stage_times.items()}
+                res["stage_rss_mb"] = stats.stage_rss_mb
             res["peak_device_mib"] = run.peak_device_mib()
-        res["peak_rss_mb"] = peak.mb()
+        # a stage's sampled peak can pass VmHWM, which the kernel raises
+        # only at some unmaps: the child's peak is at least every stage's
+        res["peak_rss_mb"] = max([peak.mb(), *(res.get("stage_rss_mb") or {}).values()])
         res["rss_source"] = peak.source
         res["ru_maxrss_mb"] = ru_maxrss_mb()
         print(json.dumps(res))
@@ -533,6 +522,78 @@ def big_row(phase: str, src_b: str, out_b: str, peak: PeakRss, device: str = "cu
     except Exception as e:  # surfaced as a bench failure by the parent
         print(json.dumps({"error": f"{type(e).__name__}: {e}"}))
         return 1
+
+
+def memory_fields() -> dict:
+    """Where this process's resident memory lies now: statm's resident and
+    shared MB, the /proc/self/status fields the kernel has (and those it
+    lacks), and the mapped shared libraries by group."""
+    have = status_fields()
+    rss, shared = statm_mb()
+    return {"statm_rss_mb": round(rss, 1), "statm_shared_mb": round(shared, 1),
+            "status": have, "status_missing": [k for k in STATUS_FIELDS if k not in have],
+            "libs": mapped_libraries()}
+
+
+PLAIN_IMPORT_TORCH = ("import os, torch; f = open('/proc/self/statm').read().split(); "
+                      "p = os.sysconf('SC_PAGE_SIZE') / 2**20; "
+                      "print(round(int(f[1]) * p, 1), round(int(f[2]) * p, 1))")
+
+
+def rss_probe(device: str) -> int:
+    """`--rss-probe`: statm's resident and shared MB after the interpreter's
+    start, `import numpy`, `import torch`, `device.resolve`, the CUDA
+    context (`torch.zeros(1, device=dev)`) and the kernel library
+    (`kernels.build.lib()`; these two on a card only), then
+    `memory_fields()`, and a plain `python3 -c "import torch"` child's
+    resident and shared MB, so that nothing of this program is in that
+    figure. One JSON line."""
+    steps = []
+
+    def step(name):
+        rss, shared = statm_mb()
+        steps.append({"step": name, "rss_mb": round(rss, 1), "shared_mb": round(shared, 1)})
+
+    try:
+        step("start")
+        import numpy  # noqa: F401
+
+        step("import numpy")
+        import torch
+
+        step("import torch")
+        from pgrc_tpu_torch.device import resolve
+
+        dev = resolve(device)
+        step("device.resolve")
+        if dev.type == "cuda":
+            torch.zeros(1, device=dev)
+            step("cuda context")
+            from pgrc_tpu_torch.kernels import build
+
+            build.lib()
+            step("kernels.build.lib")
+        res = {"device": str(dev), "steps": steps, **memory_fields()}
+        out = subprocess.run([sys.executable, "-c", PLAIN_IMPORT_TORCH], capture_output=True,
+                             text=True, timeout=300, check=True).stdout.split()
+        res["plain_import_torch"] = {"rss_mb": float(out[0]), "shared_mb": float(out[1])}
+        print(json.dumps(res))
+        return 0
+    except Exception as e:  # surfaced as a bench failure by the parent
+        print(json.dumps({"error": f"{type(e).__name__}: {e}", "steps": steps}))
+        return 1
+
+
+def child_rss_probe(device: str) -> dict:
+    """`--rss-probe` in a fresh child process: its JSON line."""
+    p = subprocess.run([sys.executable, os.path.abspath(__file__), "--rss-probe",
+                        "--device", device], capture_output=True, text=True, timeout=900)
+    try:
+        got = json.loads(p.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        got = {"error": f"rc {p.returncode}: {p.stderr[-300:]}"}
+    log(f"rss probe: {json.dumps(got)}")
+    return got
 
 
 def traced_encode(run, src, out) -> dict:

@@ -96,7 +96,9 @@ Phases, each printed with its times; the first failure exits nonzero:
   8b. bench_torch.py (the port's twin of bench.py) in a child process at
      BENCH_TORCH_ENV's sizes: 200k reads (phase 4's input and pair file),
      the scale row off, the big row at 1M reads through its own child
-     processes; rc 0 and a result line with no error. Then the repeat
+     processes; rc 0 and a result line with no error, its RSS probe (the
+     resident and shared sizes after each import and the device's set-up)
+     and the big row's peak RSS by stage printed. Then the repeat
      genome at 200k (the bench's input file, bench.py's seed 11) through the
      port's CLI on the card and on the CPU: byte-identical archives, an exact
      decode, kernels launched;
@@ -2183,8 +2185,9 @@ class SweepSpy:
         self.real = real = g.find_overlaps
         depth = [0]
 
-        def spy(codes, coef=1.0, init_active=None, *, device, mesh=None):
-            n, sharded = codes.shape[0], active(mesh) is not None
+        def spy(codes, coef=1.0, init_active=None, *, device, mesh=None, rows=None):
+            n = codes.shape[0] if rows is None else len(rows)
+            sharded = active(mesh) is not None
             if (n > g._HOST_SWEEP_MAX or (sharded and n > 1)) and not (
                     n > g._SWEEP_MAX_ROWS and init_active is None):
                 # (a rank's rows: the largest table of any rank, init, sharded)
@@ -2194,8 +2197,9 @@ class SweepSpy:
             try:
                 if self.dispatch and depth[0] == 1:
                     with self._log():
-                        return real(codes, coef, init_active, device=device, mesh=mesh)
-                return real(codes, coef, init_active, device=device, mesh=mesh)
+                        return real(codes, coef, init_active, device=device, mesh=mesh,
+                                    rows=rows)
+                return real(codes, coef, init_active, device=device, mesh=mesh, rows=rows)
             finally:
                 depth[0] -= 1
 
@@ -2704,9 +2708,9 @@ def phase_modes(work: str, timings: dict) -> int:
     parts, take_launches = [], 0
     real_partitioned = greedy_scs._find_overlaps_partitioned
 
-    def partitioned(codes_, coef, *, device, mesh=None):
-        parts.append(codes_.shape[0])
-        return real_partitioned(codes_, coef, device=device, mesh=mesh)
+    def partitioned(codes_, coef, *, device, mesh=None, rows=None):
+        parts.append(codes_.shape[0] if rows is None else len(rows))
+        return real_partitioned(codes_, coef, device=device, mesh=mesh, rows=rows)
 
     for label, argv_t, kind, capped in MODE_CASES:
         argv = [{"{s}": src, "{p}": pair}.get(a, a) for a in argv_t]
@@ -2826,8 +2830,15 @@ def phase_bench_torch(work: str, src: str, pair: str) -> None:
     except (IndexError, ValueError):
         got = {"error": f"no result line: {p.stdout[-300:]!r} {p.stderr[-1500:]!r}"}
     say(f"[bench_torch] {json.dumps(got)}")
+    probe, stages = got.get("rss_probe") or {"error": "missing"}, got.get("big_stage_rss_mb")
+    say(f"[bench_torch] rss probe (statm after each step, MB): {json.dumps(probe)}")
+    say(f"[bench_torch] big row ({BENCH_TORCH_ENV['PGRC_BENCH_BIG_READS']} reads): each "
+        f"stage's own peak RSS {json.dumps(stages)} MB; after the set-up "
+        f"{got.get('big_init_rss_mb')} MB, the encode's peak {got.get('big_peak_rss_mb')} MB")
     require(p.returncode == 0 and "error" not in got,
             f"bench_torch.py failed (rc {p.returncode}): {got.get('error')}")
+    require("error" not in probe and isinstance(stages, dict) and "match" in stages,
+            f"bench_torch.py gave no RSS probe or stage peaks: {probe.get('error')}")
 
     label, ref_bpb = BENCH_REPEAT
     rep_src = os.path.join(bench_dir, f"bench_rep_{n}.fastq")

@@ -7,7 +7,9 @@ field (`_POS_BITS`, :148), the probe offsets (`probe_offsets`,
 `_spread_offsets`, :354-395), `MatchResult` (:398-402), the interleaved-anchor
 rescue of reads both device passes missed (:763-849) and the batch sizing
 (`_pow2_floor`, `_batch_cap`, `_probe_bucket`, :852-870). The device probe
-lives in `matcher.py` beside this module.
+lives in `matcher.py` beside this module. The window hashes are made in
+blocks of 2^21 symbols, and the rescue index keeps only the sampled
+hashes (`_window_hashes(..., step)`), never the half-length hash array.
 """
 from __future__ import annotations
 
@@ -56,24 +58,30 @@ class KmerIndex:
         return self.pos_sorted
 
 
-_HASH_BLOCK = 1 << 23
+_HASH_BLOCK = 1 << 21
 
 
-def _window_hashes(codes: np.ndarray, k: int) -> np.ndarray:
+def _window_hashes(codes: np.ndarray, k: int, step: int = 1) -> np.ndarray:
     """Rolling polynomial hash of every k-window of a 1-D code array:
     H(i) = sum codes[i+t] * B^(k-1-t) mod 2^32, computed via prefix sums of
     codes[j] * B^(-j). Processed in blocks (k-1 overlap) so the transient
-    working set stays ~4x the block size instead of ~16 bytes per pg symbol
-    (a 54M-symbol pg cost ~0.9 GB of temporaries, twice concurrently with
-    the stage-7 worker thread)."""
+    working set stays ~20 bytes per symbol of one block instead of ~16 bytes
+    per pg symbol (a 54M-symbol pg cost ~0.9 GB of temporaries, twice
+    concurrently with the stage-7 worker thread). With `step`, only the
+    hashes of windows 0, step, 2 * step, ... are kept."""
     n = codes.shape[0]
     if n < k:
         return np.zeros(0, dtype=np.uint32)
-    out = np.empty(n - k + 1, dtype=np.uint32)
-    step = _HASH_BLOCK
-    for lo in range(0, n - k + 1, step):
-        hi = min(lo + step + k - 1, n)
-        _window_hashes_block(codes[lo:hi], k, out[lo : hi - k + 1])
+    out = np.empty(-(-(n - k + 1) // step), dtype=np.uint32)
+    block = _HASH_BLOCK // step * step
+    for lo in range(0, n - k + 1, block):
+        hi = min(lo + block + k - 1, n)
+        if step == 1:
+            _window_hashes_block(codes[lo:hi], k, out[lo : hi - k + 1])
+            continue
+        h = np.empty(hi - k + 1 - lo, dtype=np.uint32)
+        _window_hashes_block(codes[lo:hi], k, h)
+        out[lo // step : lo // step + -(-h.size // step)] = h[::step]
     return out
 
 
@@ -194,9 +202,10 @@ def _build_rescue_index(pg_codes: np.ndarray, k: int, k1: int = 2,
     span = 2 * k
     n_s = max(pg_codes.size - span + 1, 0)
     if k1 % 2 == 0:
-        half0 = _window_hashes(pg_codes[0::2], k)
-        sampled = np.arange(0, n_s, k1, dtype=np.int64)
-        hs = half0[:: k1 // 2][: sampled.size]
+        # only the sampled windows' hashes are kept, and the sampled
+        # position of entry j is j * k1
+        sampled = None
+        hs = _window_hashes(pg_codes[0::2], k, k1 // 2)[: len(range(0, n_s, k1))]
     else:
         half = [_window_hashes(pg_codes[0::2], k),
                 _window_hashes(pg_codes[1::2], k)]
@@ -207,10 +216,12 @@ def _build_rescue_index(pg_codes: np.ndarray, k: int, k1: int = 2,
                                       max(half[1].size - 1, 0))])
     hb = (hs >> np.uint32(32 - bits)).astype(np.int32)
     order = np.argsort(hb, kind="stable")
-    counts = np.bincount(hb[order], minlength=1 << bits)
+    counts = np.bincount(hb, minlength=1 << bits)
+    del hb
     starts = np.zeros((1 << bits) + 1, dtype=np.int64)
     np.cumsum(counts, out=starts[1:])
-    return sampled[order], np.ascontiguousarray(hs)[order], starts, bits
+    pos = order * k1 if sampled is None else sampled[order]
+    return pos, hs[order], starts, bits
 
 
 def _interleaved_rescue(read_codes: np.ndarray, pg_codes: np.ndarray,

@@ -220,7 +220,8 @@ def probe_pass(lanes, nmask, L: int, take, offs, args: tuple, n_verify: int, bat
 def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
                 max_mismatches: int, cap: int = DEFAULT_CAP, k2: int = DEFAULT_K2,
                 accept_mis: int = 0, *, force_wide: bool = False,
-                index_block: int | None = None, device, mesh=None) -> MatchResult:
+                index_block: int | None = None, device, mesh=None,
+                rows=None) -> MatchResult:
     """Match every read against the indexed pg, both strands.
 
     With accept_mis <= 0 (the NORMAL level's default) one full-fan-out pass
@@ -233,11 +234,13 @@ def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
     probe, which `force_wide` selects on any input; `index_block` overrides
     the entries per index block. With a `mesh` of more than one rank every
     rank calls this on the same input, probes on `mesh.device`, and returns
-    the one-device result (the module docstring)."""
+    the one-device result (the module docstring). The reads are the rows
+    of `read_codes`, or with `rows` ([n] ids) read_codes[rows]: they are
+    packed through the ids, and only the rescue's few rows are gathered."""
     mesh = active(mesh)
     if mesh is not None:
         device = mesh.device
-    n, L = read_codes.shape
+    n, L = read_codes.shape[0] if rows is None else len(rows), read_codes.shape[1]
     out_pos = np.full(n, -1, dtype=np.int64)
     out_rc = np.zeros(n, dtype=bool)
     out_mis = np.full(n, 255, dtype=np.uint8)
@@ -255,7 +258,7 @@ def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
     offs_p1 = offs_full if single_pass else _spread_offsets(offs_full, index.k1)
     n_verify2 = max(2, min(cap, 6))
     with span(f"match pack n={n}"):
-        lanes, nmask = state.lanes_to_device(*packed.pack_lanes(read_codes),
+        lanes, nmask = state.lanes_to_device(*packed.pack_lanes(read_codes, rows=rows),
                                              pg_lanes.device)
     args = (index, blocks, pg_lanes, wide, L, max_mismatches)
     # rows [0, n) forward, [n, 2n) reverse complement (kernel I)
@@ -269,41 +272,43 @@ def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
     # pass 2: the full fan-out on both strands of the reads pass 1 did not
     # accept (matcher.py:696-724); kernel I's take form is the reference's
     # p2gather: [rows forward; rows reverse complement]
-    rows = (np.zeros(0, dtype=np.int64) if single_pass
-            else np.nonzero(np.minimum(fm, rm) > accept_mis)[0])
-    if rows.size:
-        k = rows.size
-        take = torch.from_numpy(rows).to(pg_lanes.device)
+    p2 = (np.zeros(0, dtype=np.int64) if single_pass
+          else np.nonzero(np.minimum(fm, rm) > accept_mis)[0])
+    if p2.size:
+        k = p2.size
+        take = torch.from_numpy(p2).to(pg_lanes.device)
         with span(f"match pass2 rows={2 * k}"):
             mis_t, pos_t = probe_pass(lanes, nmask, L, take, offs_full, args, n_verify2,
                                       _batch_cap(i_pad, len(offs_full)), mesh)
-        better_f = mis_t[:k] < fm[rows]
-        fm[rows] = np.where(better_f, mis_t[:k], fm[rows])
-        fp[rows] = np.where(better_f, pos_t[:k], fp[rows])
-        better_r = mis_t[k:] < rm[rows]
-        rm[rows] = np.where(better_r, mis_t[k:], rm[rows])
-        rp[rows] = np.where(better_r, pos_t[k:], rp[rows])
+        better_f = mis_t[:k] < fm[p2]
+        fm[p2] = np.where(better_f, mis_t[:k], fm[p2])
+        fp[p2] = np.where(better_f, pos_t[:k], fp[p2])
+        better_r = mis_t[k:] < rm[p2]
+        rm[p2] = np.where(better_r, mis_t[k:], rm[p2])
+        rp[p2] = np.where(better_r, pos_t[k:], rp[p2])
 
     # interleaved-anchor rescue for reads both strands missed (host, the
     # reference's own pass 3, matcher.py:726-752)
-    rows = np.nonzero(np.minimum(fm, rm) == 255)[0]
+    missed = np.nonzero(np.minimum(fm, rm) == 255)[0]
     k_resc = min(index.k, 16)
     k1_r = 2 if index.pg_len < (4 << 20) else 4 if index.pg_len < (32 << 20) else 8
-    if rows.size >= 16 and L >= 2 * k_resc and pg_codes.size >= 2 * k_resc:
-        with span(f"match rescue-index rows={rows.size} k1={k1_r}"):
+    if missed.size >= 16 and L >= 2 * k_resc and pg_codes.size >= 2 * k_resc:
+        with span(f"match rescue-index rows={missed.size} k1={k1_r}"):
             ridx = _build_rescue_index(pg_codes, k_resc, k1=k1_r)
-        im, ip = _interleaved_rescue(read_codes[rows], pg_codes, k_resc,
+        resc = read_codes[missed if rows is None else rows[missed]]
+        im, ip = _interleaved_rescue(resc, pg_codes, k_resc,
                                      max_mismatches, k1=k1_r, ridx=ridx)
-        better = im < fm[rows]
-        fm[rows] = np.where(better, im, fm[rows])
-        fp[rows] = np.where(better, ip, fp[rows])
-        rc_sub = packed.revcomp_codes_matrix(read_codes[rows])
+        better = im < fm[missed]
+        fm[missed] = np.where(better, im, fm[missed])
+        fp[missed] = np.where(better, ip, fp[missed])
+        rc_sub = packed.revcomp_codes_matrix(resc)
+        del resc
         rc_sub[rc_sub > 3] = 0
         im, ip = _interleaved_rescue(rc_sub, pg_codes, k_resc, max_mismatches,
                                      ridx=ridx)
-        better = im < rm[rows]
-        rm[rows] = np.where(better, im, rm[rows])
-        rp[rows] = np.where(better, ip, rp[rows])
+        better = im < rm[missed]
+        rm[missed] = np.where(better, im, rm[missed])
+        rp[missed] = np.where(better, ip, rp[missed])
 
     take_r = rm < fm  # strict: forward wins ties (deterministic)
     out_mis[:] = np.where(take_r, rm, fm)

@@ -15,7 +15,7 @@ from __future__ import annotations
 import io
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -28,7 +28,7 @@ from ..overlap import greedy_scs
 from ..pg.reconstruct import extract_mismatches
 from ..streams import props
 from ..streams.container import write_streams
-from ..utils import dna
+from ..utils import dna, rss
 from ..utils.trace import span
 from ..utils.varint import write_varint
 from . import chain
@@ -73,6 +73,9 @@ class EncodeStats:
     n_pg_len: int = 0
     archive_bytes: int = 0
     stage_times: dict = None
+    # each stage's own peak RSS in MB, under PGRC_TPU_RSS_TRACE (else None)
+    stage_rss_mb: dict = None
+    peaks: rss.StagePeaks = field(default=None, repr=False, compare=False)
 
 
 # checkpoint persistence delegates to the chain module, which owns the
@@ -82,18 +85,15 @@ _save_ckpt = chain.save_ckpt
 _load_ckpt = chain.load_ckpt
 
 
-def _stage_done(t: dict, key: str, t0: float) -> None:
-    """Record a stage's wall time; with PGRC_TPU_RSS_TRACE=1, also print
-    the process high-water RSS after the stage (memory observability)."""
-    import os
-    import time as _time
-
-    t[key] = _time.time() - t0
-    if os.environ.get("PGRC_TPU_RSS_TRACE"):
-        import resource
-
-        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024
-        print(f"[rss] after {key}: {rss} MB", flush=True)
+def _stage_done(stats: EncodeStats, key: str, t0: float) -> None:
+    """Record a stage's wall time; with PGRC_TPU_RSS_TRACE=1, also its own
+    peak RSS (`utils.rss.StagePeaks`, from the encode's start or the last
+    stage's end), printed beside the resident size at its end."""
+    stats.stage_times[key] = time.time() - t0
+    if stats.peaks is not None:
+        peak = stats.stage_rss_mb[key] = stats.peaks.take()
+        print(f"[rss] {key}: peak {peak} MB, at its end {rss.rss_now_mb():.1f} MB",
+              flush=True)
 
 
 def _submit_self_match(params, hq_pg):
@@ -120,7 +120,17 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device,
     input: the sweeps (stages 2, 3 and 5) and the matcher (stage 4) run
     sharded over the ranks, the host stages run on every rank, and every
     rank writes the archive it is given, byte-identical to the one-device
-    archive (pgrc_tpu/archive/encoder.py:102-107)."""
+    archive (pgrc_tpu/archive/encoder.py:102-107). With PGRC_TPU_RSS_TRACE
+    set, each stage's own peak RSS goes to `stage_rss_mb` and is printed."""
+    peaks = rss.StagePeaks() if os.environ.get("PGRC_TPU_RSS_TRACE") else None
+    try:
+        return _encode(params, out_path, device=device, mesh=mesh, peaks=peaks)
+    finally:
+        if peaks is not None:
+            peaks.close()
+
+
+def _encode(params: PgRCParams, out_path, *, device, mesh, peaks) -> EncodeStats:
     if params.end_stage == 6:
         # the chain has no stage-6 checkpoint, and an archive cut after
         # stage 6 lacks the stage-7 pg streams and cannot be decoded (the
@@ -138,7 +148,8 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device,
         from ..utils import logchan
 
         logchan.set_verbosity(params.verbosity)
-    stats = EncodeStats(stage_times=t)
+    stats = EncodeStats(stage_times=t, stage_rss_mb=None if peaks is None else {},
+                        peaks=peaks)
     B, E = params.begin_stage, params.end_stage
     ck = _load_ckpt(params, B - 1) if B > 1 else {}
 
@@ -153,7 +164,7 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device,
         raise ValueError("constant-length reads up to 255 bp supported (reference parity)")
     n_total = reads.count
     stats.reads_total, stats.read_len = n_total, L
-    _stage_done(t, "input", t0)
+    _stage_done(stats, "input", t0)
 
     # ---- stage 1: quality division ----
     t0 = time.time()
@@ -175,7 +186,7 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device,
         hq_idx = ck.get("hq_idx", empty)
         lq_idx = ck.get("lq_idx", empty)
         n_idx = ck.get("n_idx", empty)
-    _stage_done(t, "div", t0)
+    _stage_done(stats, "div", t0)
     if E == 1:
         _save_ckpt(params, 1, hq_idx=hq_idx, lq_idx=lq_idx, n_idx=n_idx)
         return stats
@@ -187,18 +198,18 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device,
     if B <= 2:
         if params.gen_quality_coef > 0 and hq_idx.size > 1:
             if E >= 3:
-                keep, f_pg, f_order, f_pos = greedy_scs.divide_and_generate(
-                    codes[hq_idx], params.gen_quality_coef, device=device, mesh=mesh)
-                fused = (f_pg, f_order, f_pos)
+                keep, *fused = greedy_scs.divide_and_generate(
+                    codes, params.gen_quality_coef, device=device, mesh=mesh,
+                    rows=hq_idx)
             else:
                 res = greedy_scs.find_overlaps(
-                    codes[hq_idx], coef=params.gen_quality_coef, device=device,
-                    mesh=mesh)
+                    codes, coef=params.gen_quality_coef, device=device,
+                    mesh=mesh, rows=hq_idx)
                 keep = greedy_scs.both_sides_overlapped(res)
             lq_idx = np.concatenate([lq_idx, hq_idx[~keep]])
             lq_idx.sort()
             hq_idx = hq_idx[keep]
-    _stage_done(t, "pgdiv", t0)
+    _stage_done(stats, "pgdiv", t0)
     _dump_validation(params, "stage2", hq_idx=hq_idx, lq_idx=lq_idx,
                      n_idx=n_idx)
     if E == 2:
@@ -208,17 +219,19 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device,
     # ---- stage 3: HQ pg generation ----
     t0 = time.time()
     if fused is not None:
-        hq_pg, hq_order, hq_pos = fused
+        (hq_pg, hq_order, hq_pos), fused = fused, None
         hq_org = hq_idx[hq_order] if hq_idx.size else np.zeros(0, dtype=np.int64)
+        del hq_order
     elif B <= 3:
         hq_pg, hq_order, hq_pos = greedy_scs.generate_pseudogenome(
-            codes[hq_idx], device=device, mesh=mesh)
+            codes, device=device, mesh=mesh, rows=hq_idx)
         hq_org = hq_idx[hq_order] if hq_idx.size else np.zeros(0, dtype=np.int64)
+        del hq_order
     else:
         hq_pg = ck["hq_pg"]
         hq_org = ck.get("hq_org", np.zeros(0, dtype=np.int64))
         hq_pos = ck.get("hq_pos", np.zeros(0, dtype=np.int64))
-    _stage_done(t, "good", t0)
+    _stage_done(stats, "good", t0)
     _dump_validation(params, "stage3", hq_pg=hq_pg)
     if E == 3:
         _save_ckpt(params, 3, hq_idx=hq_idx, lq_idx=lq_idx, n_idx=n_idx,
@@ -253,20 +266,22 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device,
     if cand_idx.size and hq_pg.size >= L:
         k = params.seed_k + matching_chars_correction(len(hq_pg))
         k = min(k, L)
-        with span(f"stage4 cand gather n={cand_idx.size}"):
-            cand_codes = codes[cand_idx]
-        has_n = (cand_codes == dna.N).any(axis=1)
+        # the candidates stay ids into `codes`: the matcher packs them
+        # through the ids, and each step below gathers only its own rows
+        with span(f"stage4 cand N scan n={cand_idx.size}"):
+            has_n = packed.rows_with_n(codes, cand_idx)
         max_mis = L // params.min_chars_per_mismatch
         index = align_matcher.build_index(hq_pg, k=k, device_sort=True)
         # reads with N probe with N->A (2-bit packing collapses N); their true
         # mismatch count is restored by an exact re-verify below
         mres = align_matcher.match_reads(
-            cand_codes, index, hq_pg,
+            codes, index, hq_pg,
             max_mismatches=max_mis,
             cap=params.match_cap,
             accept_mis=params.prematch_accept_mis,
             device=device,
             mesh=mesh,
+            rows=cand_idx,
         )
         if has_n.any():
             rows = np.nonzero(has_n & (mres.pos >= 0))[0]
@@ -274,7 +289,7 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device,
                 win = hq_pg[mres.pos[rows, None] + np.arange(L, dtype=np.int64)[None, :]].copy()
                 rc = mres.rc[rows]
                 win[rc] = packed.revcomp_codes_matrix(win[rc])
-                true_mis = (cand_codes[rows] != win).sum(axis=1)
+                true_mis = (codes[cand_idx[rows]] != win).sum(axis=1)
                 bad = true_mis > max_mis
                 mres.pos[rows[bad]] = -1
                 mres.mis[rows[bad]] = 255
@@ -288,8 +303,6 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device,
             np.full(cand_idx.size, 255, np.uint8),
         )
     stats.matched_count = int(matched.sum())
-    if cand_idx.size and hq_pg.size >= L:
-        cand_codes = None  # matched rows re-gather below
 
     # build combined hq reads-list entries: base reads + matched reads
     _t4 = span("stage4 entries merge")
@@ -303,21 +316,23 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device,
         m_rc_out = m_rc_stored ^ odd
     else:
         m_rc_out = m_rc_stored.copy()
-    # target read in final-output orientation
-    m_codes_out = codes[m_org].copy()
-    if params.revcomp_pair_file and m_org.size:
-        odd_rows = (m_org & 1) == 1
-        m_codes_out[odd_rows] = packed.revcomp_codes_matrix(m_codes_out[odd_rows])
-    # window in decoder orientation
+    # the target read in final-output orientation (a pair-file read of -r
+    # reverse complemented) against its window in decoder orientation; the
+    # native pass reads the rows of `codes` through m_org and flips the
+    # odd ones itself, so the matched rows are never copied out
     if m_pos.size:
         from .. import native
 
         fast = native.extract_mismatches(
-            hq_pg, m_pos, m_rc_out, m_codes_out,
-            L // params.min_chars_per_mismatch)
+            hq_pg, m_pos, m_rc_out, codes, L // params.min_chars_per_mismatch,
+            rows=m_org, flip_odd=params.revcomp_pair_file)
         if fast is not None:
             m_cnt, m_sym, m_off = fast
         else:
+            m_codes_out = codes[m_org]
+            if params.revcomp_pair_file:
+                odd_rows = (m_org & 1) == 1
+                m_codes_out[odd_rows] = packed.revcomp_codes_matrix(m_codes_out[odd_rows])
             win = hq_pg[m_pos[:, None] + np.arange(L, dtype=np.int64)[None, :]].copy()
             if m_rc_out.any():
                 win[m_rc_out] = packed.revcomp_codes_matrix(win[m_rc_out])
@@ -328,7 +343,6 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device,
         m_cnt = np.zeros(0, np.uint8)
         m_sym = np.zeros(0, np.uint8)
         m_off = np.zeros(0, np.uint8)
-    m_codes_out = None  # free the matched-row gather before the merge
 
     # merge base + matched entries
     base_cnt = hq_org.size
@@ -338,27 +352,33 @@ def encode(params: PgRCParams, out_path: str | None = None, *, device,
         base_rc = (hq_org & 1) == 1
     else:
         base_rc = np.zeros(base_cnt, bool)
+    # entry order: by position, matched before base at equal pos (a stable
+    # sort); each entry column is gathered in that order and its
+    # concatenation dropped at once, so at most one column is held twice
+    n_matched = m_org.size
     all_pos = np.concatenate([hq_pos, m_pos])
-    all_org = np.concatenate([hq_org, m_org])
-    all_rc = np.concatenate([base_rc, m_rc_out])
-    all_mis_cnt = np.concatenate([np.zeros(base_cnt, np.uint8), m_cnt])
-    is_base = np.concatenate([np.ones(base_cnt, np.uint8), np.zeros(m_org.size, np.uint8)])
-    perm = np.lexsort((is_base, all_pos))  # matched before base at equal pos
-    hq_entries = dict(
-        pos=all_pos[perm], org=all_org[perm], rc=all_rc[perm], mis_cnt=all_mis_cnt[perm]
-    )
+    is_base = np.concatenate([np.ones(base_cnt, np.uint8), np.zeros(n_matched, np.uint8)])
+    perm = np.lexsort((is_base, all_pos))
+    del is_base, hq_pos, m_pos
+    hq_entries = dict(pos=all_pos[perm])
+    del all_pos
+    hq_entries["org"] = np.concatenate([hq_org, m_org])[perm]
+    del hq_org, m_org
+    hq_entries["rc"] = np.concatenate([base_rc, m_rc_out])[perm]
+    hq_entries["mis_cnt"] = np.concatenate([np.zeros(base_cnt, np.uint8), m_cnt])[perm]
     # reorder flat mismatch streams to entry order (base rows contribute 0)
-    mis_src_cum = np.zeros(base_cnt + m_org.size + 1, dtype=np.int64)
+    mis_src_cum = np.zeros(base_cnt + n_matched + 1, dtype=np.int64)
     np.cumsum(np.concatenate([np.zeros(base_cnt, np.uint8), m_cnt]), out=mis_src_cum[1:])
     hq_entries["mis_sym"], hq_entries["mis_off"] = _gather_flat_mismatches(
         perm, hq_entries["mis_cnt"], mis_src_cum, m_sym, m_off
     )
-    stats.hq_count = base_cnt + m_org.size
+    del perm, mis_src_cum
+    stats.hq_count = base_cnt + n_matched
     _t4.__exit__()
     unmatched = ~matched
     lq_un = cand_idx[unmatched & (np.arange(cand_idx.size) < n_begin)]
     n_un = cand_idx[unmatched & (np.arange(cand_idx.size) >= n_begin)]
-    _stage_done(t, "match", t0)
+    _stage_done(stats, "match", t0)
     if params.dump_validation_files and cand_idx.size:
         _dump_validation(
             params, "stage4",
@@ -403,7 +423,7 @@ def _encode_tail(params, stats, t, lq_codes, n_codes, hq_pg, hq_entries,
         n_org = n_un[n_order] if n_un.size else np.zeros(0, dtype=np.int64)
     stats.lq_count, stats.n_count = lq_org.size, n_org.size
     stats.hq_pg_len, stats.lq_pg_len, stats.n_pg_len = len(hq_pg), len(lq_pg), len(n_pg)
-    _stage_done(t, "bad", t0)
+    _stage_done(stats, "bad", t0)
     if params.end_stage == 5:
         _save_ckpt(params, 5, lq_pg=lq_pg, lq_org=lq_org, lq_pos=lq_pos,
                    n_pg=n_pg, n_org=n_org, n_pos=n_pos, hq_pg=hq_pg,
@@ -469,14 +489,14 @@ def _encode_tail(params, stats, t, lq_codes, n_codes, hq_pg, hq_entries,
             order_enc.encode_positions_pe(out, pos_by_org)
         else:
             order_enc.encode_positions_se(out, pos_by_org)
-    _stage_done(t, "order", t0)
+    _stage_done(stats, "order", t0)
 
     # ---- stage 7: pg sequences (compressed concurrently above) ----
     t0 = time.time()
     if s7_write is not None:
         s7_write.result()
         out.write(s7_buf.getvalue())
-    _stage_done(t, "pgseq", t0)
+    _stage_done(stats, "pgseq", t0)
 
     blob = out.getvalue()
     stats.archive_bytes = len(blob)
@@ -515,14 +535,16 @@ def _append_report(params: PgRCParams, stats: EncodeStats) -> None:
 
 
 def _gather_flat_mismatches(perm, mis_cnt_perm, src_cum, m_sym, m_off):
-    """Reorder flat mismatch streams to the permuted entry order."""
+    """Reorder flat mismatch streams to the permuted entry order; only the
+    entries with mismatches are indexed."""
     if m_sym.size == 0:
         return np.zeros(0, np.uint8), np.zeros(0, np.uint8)
     # for each permuted entry with mismatches, gather its src slice
-    counts = mis_cnt_perm.astype(np.int64)
+    rows = np.nonzero(mis_cnt_perm)[0]
+    counts = mis_cnt_perm[rows].astype(np.int64)
     total = int(counts.sum())
-    starts_src = src_cum[perm]
-    out_row = np.repeat(np.arange(perm.size), counts)
+    starts_src = src_cum[perm[rows]]
+    out_row = np.repeat(np.arange(rows.size), counts)
     within = np.arange(total) - np.repeat(np.cumsum(counts) - counts, counts)
     src_flat = starts_src[out_row] + within
     return m_sym[src_flat], m_off[src_flat]

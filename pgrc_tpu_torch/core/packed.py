@@ -14,7 +14,8 @@ import torch
 
 from ..utils.uint import U32_MASK, i32_to_u32, u32_to_i32
 from .packed_host import (SYMS_PER_LANE, num_lanes, pack_2bit, pack_lanes,  # noqa: F401
-                          pack_text_2bit, revcomp_codes_matrix, unpack_2bit)
+                          pack_text_2bit, revcomp_codes_matrix, row_chunks, rows_with_n,
+                          unpack_2bit)
 
 
 def popcount_u32(x: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,12 @@
 packers — `num_lanes`, `pack_2bit`, `unpack_2bit`, `pack_text_2bit`,
 `pack_lanes` (native C++ fast path) and `revcomp_codes_matrix` — with only
 the imports changed; the reference's jax.numpy branch of `_xp` is not
-carried, so they take numpy arrays only. This module imports no torch, so
-the decoder and the validator, which use only these, run without it
-(`core.packed` re-exports them beside the device ops).
+carried, so they take numpy arrays only. `pack_lanes` also takes row ids
+(`rows=`), and finds whether a row holds an N without an [n, L]
+temporary (`rows_with_n`, `row_chunks`), so that the encoder packs the
+rows of its one code matrix without a gathered copy. This module imports
+no torch, so the decoder and the validator, which use only these, run
+without it (`core.packed` re-exports them beside the device ops).
 """
 from __future__ import annotations
 
@@ -69,43 +72,86 @@ def pack_text_2bit(codes_1d):
     return (c << shifts).sum(axis=1).astype(xp.uint32)
 
 
-def pack_lanes(codes: np.ndarray, n_pad: int | None = None):
+# rows a chunk of the numpy packers and the N scans gather at once
+CHUNK_ROWS = 1 << 16
+
+
+def row_chunks(codes: np.ndarray, rows=None, chunk: int = CHUNK_ROWS):
+    """(lo, codes[rows][lo:lo + chunk]) over every row of `codes`, or of
+    the rows `rows` ([n] ids), one chunk gathered at a time."""
+    n = codes.shape[0] if rows is None else len(rows)
+    for lo in range(0, n, chunk):
+        yield lo, codes[lo:lo + chunk] if rows is None else codes[rows[lo:lo + chunk]]
+
+
+def rows_with_n(codes: np.ndarray, rows=None) -> np.ndarray:
+    """[n] bool: which rows of `codes` (or of `rows`, [n] ids) hold an N,
+    without an [n, L] temporary."""
+    n = codes.shape[0] if rows is None else len(rows)
+    out = np.zeros(n, dtype=bool)
+    for lo, c in row_chunks(codes, rows):
+        out[lo:lo + c.shape[0]] = (c > 3).any(axis=1)
+    return out
+
+
+def pack_lanes(codes: np.ndarray, n_pad: int | None = None, rows=None):
     """Host-side packing of an ACGTN code matrix for the packed overlap/match
     kernels: returns (lanes [n_pad, W+1] uint32, nmask [n_pad, Wn+1] uint32
     or None). lanes hold 2-bit symbols (N packed as A) with one zero pad
     lane for cross-lane shifts; nmask holds N-position bits (bit 31-j%32 of
     lane j//32) and is None when the matrix has no N. Rows past n are zero.
+    With `rows` ([n] ids) row r packs codes[rows[r]]: the rows are gathered
+    while they are packed, never copied out as a matrix.
 
-    Native C++ fast path (native/packcodes.cpp); numpy fallback below.
+    Native C++ fast path (native/packcodes.cpp), which also counts the rows
+    with an N, so the mask is made only when there is one; numpy fallback
+    below, a chunk of rows at a time.
     """
-    n, L = codes.shape
+    n = codes.shape[0] if rows is None else len(rows)
+    L = codes.shape[1]
     if n_pad is None:
         n_pad = n
     W = (L + 15) // 16
     Wn = (L + 31) // 32
-    has_n = bool((codes > 3).any())
     from .. import native
 
     lanes = np.zeros((n_pad, W + 1), dtype=np.uint32)
-    nmask = np.zeros((n_pad, Wn + 1), dtype=np.uint32) if has_n else None
-    packed_ok = native.pack_lanes(codes, lanes[:n], nmask[:n] if has_n else None)
-    if not packed_ok:
-        pad = W * SYMS_PER_LANE - L
-        c = codes & 0x3
-        if pad:
-            c = np.concatenate([c, np.zeros((n, pad), dtype=np.uint8)], axis=1)
-        shifts = np.arange(SYMS_PER_LANE - 1, -1, -1, dtype=np.uint32) * np.uint32(2)
-        lanes[:n, :W] = (
-            c.astype(np.uint32).reshape(n, W, SYMS_PER_LANE) << shifts
-        ).sum(axis=2, dtype=np.uint32)
-        if has_n:
-            padn = Wn * 32 - L
-            nb = (codes > 3).astype(np.uint32)
-            if padn:
-                nb = np.concatenate([nb, np.zeros((n, padn), dtype=np.uint32)], axis=1)
-            shifts_n = np.arange(31, -1, -1, dtype=np.uint32)
-            nmask[:n, :Wn] = (nb.reshape(n, Wn, 32) << shifts_n).sum(axis=2, dtype=np.uint32)
+    with_n = native.pack_lanes(codes, lanes[:n], None, rows=rows)
+    if with_n is None:
+        with_n = 0
+        for lo, c in row_chunks(codes, rows):
+            lanes[lo:lo + c.shape[0], :W] = _pack_chunk(c, W)
+            with_n += int((c > 3).any())
+    if not with_n:
+        return lanes, None
+    nmask = np.zeros((n_pad, Wn + 1), dtype=np.uint32)
+    if native.pack_lanes(codes, None, nmask[:n], rows=rows) is None:
+        for lo, c in row_chunks(codes, rows):
+            nmask[lo:lo + c.shape[0], :Wn] = _mask_chunk(c, Wn)
     return lanes, nmask
+
+
+def _pack_chunk(c: np.ndarray, W: int) -> np.ndarray:
+    """[m, L] codes -> [m, W] 2-bit lanes (N packed as A)."""
+    m, L = c.shape
+    pad = W * SYMS_PER_LANE - L
+    c = c & 0x3
+    if pad:
+        c = np.concatenate([c, np.zeros((m, pad), dtype=np.uint8)], axis=1)
+    shifts = np.arange(SYMS_PER_LANE - 1, -1, -1, dtype=np.uint32) * np.uint32(2)
+    return (c.astype(np.uint32).reshape(m, W, SYMS_PER_LANE) << shifts).sum(
+        axis=2, dtype=np.uint32)
+
+
+def _mask_chunk(c: np.ndarray, Wn: int) -> np.ndarray:
+    """[m, L] codes -> [m, Wn] N-position bits."""
+    m, L = c.shape
+    padn = Wn * 32 - L
+    nb = (c > 3).astype(np.uint32)
+    if padn:
+        nb = np.concatenate([nb, np.zeros((m, padn), dtype=np.uint32)], axis=1)
+    shifts_n = np.arange(31, -1, -1, dtype=np.uint32)
+    return (nb.reshape(m, Wn, 32) << shifts_n).sum(axis=2, dtype=np.uint32)
 
 
 def revcomp_codes_matrix(codes):

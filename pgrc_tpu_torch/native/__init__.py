@@ -85,13 +85,15 @@ def get_lib():
         lib.cut_cycles.argtypes = [i32p, i32p, ctypes.c_int64]
         lib.chain_walk_assemble.restype = ctypes.c_int64
         lib.chain_walk_assemble.argtypes = [
-            i32p, i32p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-            ctypes.c_int64, ctypes.POINTER(ctypes.c_int64), i32p,
-            ctypes.POINTER(ctypes.c_uint8),
+            i32p, i32p, ctypes.POINTER(ctypes.c_uint8),
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_uint8),
         ]
-        lib.pack_lanes_u32.restype = None
+        lib.pack_lanes_u32.restype = ctypes.c_int64
         lib.pack_lanes_u32.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64, ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64,
             ctypes.POINTER(ctypes.c_uint32),
         ]
@@ -133,8 +135,8 @@ def get_lib():
             u8p, i64p, u8p, u8p, u8p, u8p]
         lib.extract_mismatches_mt.restype = ctypes.c_int64
         lib.extract_mismatches_mt.argtypes = [
-            u8p, i64p, u8p, u8p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, u8p, u8p, u8p]
+            u8p, i64p, u8p, u8p, i64p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64, u8p, u8p, u8p]
         lib.pg_find_matches.restype = ctypes.c_int64
         lib.pg_find_matches.argtypes = [
             u8p, ctypes.c_int64, u8p, ctypes.c_int64, ctypes.c_int64,
@@ -147,6 +149,21 @@ def get_lib():
 
 def _u8p(arr):
     return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _ids(rows, n_rows: int):
+    """(int64 array or None, its pointer or NULL) for an optional row-id
+    argument of the native gathers, whose matrix has n_rows rows; an id out
+    of range raises before any native code reads through it."""
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    if rows is None:
+        return None, ctypes.cast(None, i64p)
+    import numpy as np
+
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    if rows.size and (rows.min() < 0 or rows.max() >= n_rows):
+        raise IndexError(f"row ids outside [0, {n_rows})")
+    return rows, rows.ctypes.data_as(i64p)
 
 
 def fastq_parse(buf: bytes):
@@ -347,31 +364,38 @@ def pair_walk_decode(offs):
     return out
 
 
-def pack_lanes(codes, lanes_out, nmask_out) -> bool:
-    """Pack [n, L] u8 codes into pre-allocated u32 lane matrices (see
-    core/packed.pack_lanes). Returns False when native is unavailable."""
+def pack_lanes(codes, lanes_out, nmask_out, rows=None):
+    """Pack [n, L] u8 codes, or the rows `rows` ([n] ids) of a [*, L]
+    matrix, into pre-allocated u32 lane matrices (see
+    core/packed_host.pack_lanes); either output may be None. Returns the
+    number of packed rows holding an N, or None when native is
+    unavailable."""
     import numpy as np
 
     lib = get_lib()
     if lib is None:
-        return False
+        return None
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
-    n, L = codes.shape
-    lib.pack_lanes_u32(
-        _u8p(codes), n, L, lanes_out.shape[1],
-        lanes_out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+    rows, rows_p = _ids(rows, codes.shape[0])
+    n = codes.shape[0] if rows is None else rows.size
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    return int(lib.pack_lanes_u32(
+        _u8p(codes), rows_p, n, codes.shape[1],
+        lanes_out.shape[1] if lanes_out is not None else 0,
+        lanes_out.ctypes.data_as(u32p) if lanes_out is not None
+        else ctypes.cast(None, u32p),
         nmask_out.shape[1] if nmask_out is not None else 0,
-        nmask_out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
-        if nmask_out is not None else None,
-    )
-    return True
+        nmask_out.ctypes.data_as(u32p) if nmask_out is not None
+        else ctypes.cast(None, u32p),
+    ))
 
 
-def chain_walk_assemble(succ, ovl, codes):
+def chain_walk_assemble(succ, ovl, codes, rows=None):
     """Cycle removal + chain layout + pg assembly (sequential native pass,
-    the reference's assemblePseudoGenomeTemplate role). Returns
-    (pos [n] i64, order [n] i32, pg u8) or None when native is unavailable
-    or the links are corrupt. succ/ovl are not mutated (copies passed)."""
+    the reference's assemblePseudoGenomeTemplate role); read x is row x of
+    `codes`, or row rows[x] with `rows`. Returns (pos [n] i64 in pg order,
+    order [n] i64, pg u8) or None when native is unavailable or the links
+    are corrupt. succ/ovl are not mutated (copies passed)."""
     import numpy as np
 
     lib = get_lib()
@@ -380,19 +404,20 @@ def chain_walk_assemble(succ, ovl, codes):
     succ = np.ascontiguousarray(succ, dtype=np.int32).copy()
     ovl = np.ascontiguousarray(ovl, dtype=np.int32).copy()
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
-    n, L = codes.shape
+    rows, rows_p = _ids(rows, codes.shape[0])
+    n, L = succ.size, codes.shape[1]
     i32p = ctypes.POINTER(ctypes.c_int32)
     cuts = lib.cut_cycles(succ.ctypes.data_as(i32p), ovl.ctypes.data_as(i32p), n)
     if cuts < 0:
         return None
     pg_len = int(n * L - ovl[succ >= 0].sum(dtype=np.int64))
     pos = np.empty(n, dtype=np.int64)
-    order = np.empty(n, dtype=np.int32)
+    order = np.empty(n, dtype=np.int64)
     pg = np.empty(pg_len, dtype=np.uint8)
     got = lib.chain_walk_assemble(
         succ.ctypes.data_as(i32p), ovl.ctypes.data_as(i32p), _u8p(codes),
-        n, L, pos.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        order.ctypes.data_as(i32p), _u8p(pg),
+        rows_p, n, L, pos.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        order.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), _u8p(pg),
     )
     if got != pg_len:
         return None
@@ -462,8 +487,16 @@ def rc_decode(data: bytes, count: int, order: int, period: int, nsym: int) -> by
     return out.raw[:count]
 
 
-def extract_mismatches(pg, pos, rc, codes, max_mis: int):
+# rows of one call of the native mismatch extractor
+EXTRACT_CHUNK_ROWS = 1 << 20
+
+
+def extract_mismatches(pg, pos, rc, codes, max_mis: int, rows=None,
+                       flip_odd: bool = False):
     """Native matched-read mismatch extraction (window rebuild + compare).
+    Read r is row r of `codes`, or row rows[r] with `rows`; with flip_odd
+    a read of odd id is reverse complemented first (the final-output
+    orientation of a -r matrix's pair-file reads).
 
     Returns (mis_cnt uint8 [n], sym flat uint8, off flat uint8) or None."""
     import numpy as np
@@ -471,7 +504,8 @@ def extract_mismatches(pg, pos, rc, codes, max_mis: int):
     lib = get_lib()
     if lib is None:
         return None
-    n, L = codes.shape
+    rows, _ = _ids(rows, codes.shape[0])
+    n, L = codes.shape[0] if rows is None else rows.size, codes.shape[1]
     if n == 0:
         z = np.zeros(0, dtype=np.uint8)
         return z, z.copy(), z.copy()
@@ -479,13 +513,24 @@ def extract_mismatches(pg, pos, rc, codes, max_mis: int):
     rc_a = np.ascontiguousarray(rc, dtype=np.uint8)
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
     cnt = np.zeros(n, dtype=np.uint8)
-    sym2 = np.empty((n, max_mis), dtype=np.uint8)
-    off2 = np.empty((n, max_mis), dtype=np.uint8)
+    # a chunk of rows at a time, so the [rows, max_mis] buffers stay small
+    chunk = min(n, EXTRACT_CHUNK_ROWS)
+    sym2 = np.empty((chunk, max_mis), dtype=np.uint8)
+    off2 = np.empty((chunk, max_mis), dtype=np.uint8)
+    slots = np.arange(max_mis, dtype=np.int64)[None, :]
     i64p = ctypes.POINTER(ctypes.c_int64)
-    total = lib.extract_mismatches_mt(
-        _u8p(pg), pos.ctypes.data_as(i64p), _u8p(rc_a), _u8p(codes),
-        n, L, max_mis, _u8p(cnt), _u8p(sym2), _u8p(off2))
-    if total < 0:
-        return None
-    keep = np.arange(max_mis, dtype=np.int64)[None, :] < cnt[:, None]
-    return cnt, sym2[keep], off2[keep]
+    syms, offs = [], []
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        total = lib.extract_mismatches_mt(
+            _u8p(pg), pos[lo:hi].ctypes.data_as(i64p), _u8p(rc_a[lo:hi]),
+            _u8p(codes[lo:hi] if rows is None else codes),
+            ctypes.cast(None, i64p) if rows is None else rows[lo:hi].ctypes.data_as(i64p),
+            1 if flip_odd else 0, hi - lo, L, max_mis,
+            _u8p(cnt[lo:hi]), _u8p(sym2), _u8p(off2))
+        if total < 0:
+            return None
+        keep = slots < cnt[lo:hi, None]
+        syms.append(sym2[:hi - lo][keep])
+        offs.append(off2[:hi - lo][keep])
+    return cnt, np.concatenate(syms), np.concatenate(offs)

@@ -45,11 +45,15 @@ int64_t cut_cycles(int32_t *succ, int32_t *ovl, int64_t n) {
 }
 
 // succ/ovl: [n] int32 ACYCLIC links (run cut_cycles first). codes: [n, L]
-// uint8. Outputs: pos [n] int64, order [n] int32 (read ids in pg order),
-// pg [exactly n*L - sum(linked overlaps)] uint8. Returns pg length or -1.
+// uint8, or with `rows` any [*, L] matrix whose row rows[x] is read x (a
+// gather by id, so the caller needs no gathered copy). Outputs: order [n]
+// int64 (read ids in pg order), pos [n] int64 (the pg position of
+// order[i], so already in pg order), pg [exactly n*L - sum(linked
+// overlaps)] uint8. Returns pg length or -1.
 int64_t chain_walk_assemble(const int32_t *succ, const int32_t *ovl,
-                            const uint8_t *codes, int64_t n, int64_t L,
-                            int64_t *pos, int32_t *order, uint8_t *pg) {
+                            const uint8_t *codes, const int64_t *rows,
+                            int64_t n, int64_t L,
+                            int64_t *pos, int64_t *order, uint8_t *pg) {
     if (n == 0) return 0;
     std::vector<uint8_t> has_pred(n, 0);
     for (int64_t i = 0; i < n; i++)
@@ -65,12 +69,12 @@ int64_t chain_walk_assemble(const int32_t *succ, const int32_t *ovl,
         int64_t prev = -1;
         for (int64_t x = head; x >= 0; x = succ[x]) {
             if (prev >= 0) p += L - ovl[prev];
-            pos[x] = p;
-            order[emitted++] = (int32_t)x;
+            pos[emitted] = p;
+            order[emitted++] = x;
             // write only the non-overlapped suffix bytes (earlier bytes
             // already agree by construction)
             int64_t skip = (prev >= 0) ? ovl[prev] : 0;
-            std::memcpy(pg + p + skip, codes + (int64_t)x * L + skip, L - skip);
+            std::memcpy(pg + p + skip, codes + (rows ? rows[x] : x) * L + skip, L - skip);
             prev = x;
         }
         pg_len = p + L;

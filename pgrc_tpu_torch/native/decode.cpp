@@ -93,12 +93,17 @@ int64_t reconstruct_lines_mt(const uint8_t *pg, int64_t pg_len,
 // ((pg_value<<4)|read_value) + offsets. One threaded pass instead of the
 // numpy gather + revcomp + nonzero chain.
 //
-// codes: [n, L] read codes in final orientation; pg/pos/rc as above.
+// codes: [n, L] read codes in final orientation, or with `rows` any
+// [*, L] matrix whose row rows[r] is read r (a gather by id, so the caller
+// needs no gathered copy); with flip_odd, a read of odd id is stored
+// reverse complemented (a -r matrix) and is flipped here. pg/pos/rc as
+// above.
 // mis_cnt: [n] uint8 out; sym/off: [n * max_mis] uint8 out (flat, packed
 // contiguously per row at r*max_mis; caller compacts via mis_cnt).
 // Returns total mismatches, or -1 if a row exceeds max_mis.
 int64_t extract_mismatches_mt(const uint8_t *pg, const int64_t *pos,
                               const uint8_t *rc, const uint8_t *codes,
+                              const int64_t *rows, int64_t flip_odd,
                               int64_t n, int64_t L, int64_t max_mis,
                               uint8_t *mis_cnt, uint8_t *sym, uint8_t *off) {
     if (L > 4096) return -1;
@@ -109,7 +114,7 @@ int64_t extract_mismatches_mt(const uint8_t *pg, const int64_t *pos,
     std::vector<int64_t> totals((size_t)nthreads, 0);
 
     auto work = [&](int64_t t, int64_t lo, int64_t hi) {
-        uint8_t buf[4096];
+        uint8_t buf[4096], rbuf[4096];
         int64_t total = 0;
         for (int64_t r = lo; r < hi; r++) {
             const uint8_t *w = pg + pos[r];
@@ -121,7 +126,17 @@ int64_t extract_mismatches_mt(const uint8_t *pg, const int64_t *pos,
             } else {
                 std::memcpy(buf, w, (size_t)L);
             }
-            const uint8_t *c = codes + r * L;
+            const int64_t id = rows ? rows[r] : r;
+            const uint8_t *c = codes + id * L;
+            if (flip_odd && (id & 1)) {
+                // the target read in final-output orientation: an odd
+                // (pair-file) row of a -r matrix is stored reverse complemented
+                for (int64_t i = 0; i < L; i++) {
+                    uint8_t v = c[L - 1 - i];
+                    rbuf[i] = v < 4 ? COMPL_D[v] : v;
+                }
+                c = rbuf;
+            }
             int64_t m = 0;
             for (int64_t i = 0; i < L; i++) {
                 if (buf[i] != c[i]) {

@@ -152,12 +152,15 @@ def _round_sharded(i: int, L: int, t: dict, succ_g, ovl_g, mesh) -> None:
 
 
 def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
-                  device, mesh=None) -> OverlapResult:
+                  device, mesh=None, rows=None) -> OverlapResult:
     """Duplicate linking + overlap rounds on `device`; successor links.
 
-    `coef` limits the rounds to overlap lengths L-1 .. L-(int(L*coef)-1);
-    `init_active` = (active_s, active_p) skips the init and runs the rounds
-    with only those ends active (repair mode). With a `mesh`
+    The reads are the rows of `codes`, or with `rows` ([n] ids) the rows
+    codes[rows], packed and checked through the ids without a gathered
+    copy (read x of the links is row rows[x]). `coef` limits the rounds to
+    overlap lengths L-1 .. L-(int(L*coef)-1); `init_active` = (active_s,
+    active_p) skips the init and runs the rounds with only those ends
+    active (repair mode). With a `mesh`
     (`parallel.mesh.Mesh`) of more than one rank, every rank calls this on
     the same input and the rounds run sharded on each rank's `mesh.device`
     (the module docstring); every rank returns the one-device links. Port of
@@ -165,27 +168,29 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
     mesh = active(mesh)
     if mesh is not None:
         device = mesh.device
-    n, L = codes.shape
+    n, L = codes.shape[0] if rows is None else len(rows), codes.shape[1]
     if n == 0:
         return OverlapResult(np.zeros(0, np.int32), np.zeros(0, np.int32), L)
     if n == 1:
         return OverlapResult(np.full(1, -1, np.int32), np.zeros(1, np.int32), L)
     # under a mesh small inputs take the device rounds too (greedy_scs.py:717)
     if mesh is None and n <= _HOST_SWEEP_MAX:
+        sub = codes if rows is None else codes[rows]
         if init_active is None:
-            return _find_overlaps_host(codes, coef)
+            return _find_overlaps_host(sub, coef)
         a_s0, a_p0 = init_active
         return _find_overlaps_host(
-            codes, coef, init_state=(np.full(n, -1, np.int32), np.zeros(n, np.int32),
-                                     a_s0.copy(), a_p0.copy()))
+            sub, coef, init_state=(np.full(n, -1, np.int32), np.zeros(n, np.int32),
+                                   a_s0.copy(), a_p0.copy()))
     if n > _SWEEP_MAX_ROWS and init_active is None:
-        return _find_overlaps_partitioned(codes, coef, device=device, mesh=mesh)
+        return _find_overlaps_partitioned(codes, coef, device=device, mesh=mesh, rows=rows)
     if n >= (1 << 30):
         raise NotImplementedError("overlap rounds index reads with 31-bit ids")
     with span(f"sweep pack+upload n={n}"):
         # the table's lanes column-major ([W+1, n]): a round reads two
         # columns of every row, each coalesced (kernel D)
-        lanes, nmask = state.sweep_lanes_to_device(*packed.pack_lanes(codes), device)
+        lanes, nmask = state.sweep_lanes_to_device(*packed.pack_lanes(codes, rows=rows),
+                                                   device)
     if init_active is None:
         h0, h0b, succ_g, ovl_g, a_s, a_p = _init_links(lanes, nmask, L)
     else:
@@ -231,7 +236,7 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
             # kept rows to the front of new arrays and counts the kept rows
             # and both active sides, the segment end's one host read; the
             # entry buffers go first, so they are not held through it
-            rows = t["ids"].numel()
+            n_rows = t["ids"].numel()
             del t["entries"]
             new, counts = sweep_compact(*(t[k] for k in _TABLE))
             kept, n_suf, n_pref = counts.tolist()
@@ -242,7 +247,7 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
                 rows_max, n_suf, n_pref = mesh.all_reduce(counts.clone(), "max").tolist()
             if n_suf == 0 or n_pref == 0:
                 break
-            if kept < rows:
+            if kept < n_rows:
                 # the kept rows: the head of each array, and of each lane
                 # and N-mask column (a view; the kernels take its stride)
                 t.update((k, None if v is None else v[..., :kept]) for k, v in zip(_TABLE, new))
@@ -250,7 +255,7 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
             t["entries"] = _entry_buffers(rows_max, device, mesh)
     res = OverlapResult(succ_g.cpu().numpy(), ovl_g.cpu().numpy(), L)
     with span("sweep verify_links"):
-        _verify_links(res, codes)
+        _verify_links(res, codes, rows)
     return res
 
 
@@ -267,32 +272,37 @@ def _entry_buffers(rows_max: int, device, mesh):
 
 
 def _find_overlaps_partitioned(codes: np.ndarray, coef: float, *,
-                               device, mesh=None) -> OverlapResult:
+                               device, mesh=None, rows=None) -> OverlapResult:
     """Inputs past `_SWEEP_MAX_ROWS` rows (port of
     greedy_scs._find_overlaps_partitioned, :1070-1094): equal row parts
     swept one after another, then a repair sweep across the parts with only
-    the free suffix/prefix ends active."""
-    n, L = codes.shape
+    the free suffix/prefix ends active. Each part is a range of row ids
+    into `codes` (into `rows` with `rows`), not a copy."""
+    n, L = codes.shape[0] if rows is None else len(rows), codes.shape[1]
+    ids = np.arange(n, dtype=np.int64) if rows is None else rows
     parts = -(-n // _SWEEP_MAX_ROWS)
     per = -(-n // parts)
     res = OverlapResult(np.full(n, -1, dtype=np.int32), np.zeros(n, dtype=np.int32), L)
     for p in range(parts):
         lo, hi = p * per, min((p + 1) * per, n)
         with span(f"sweep part {p + 1}/{parts} rows={hi - lo}"):
-            sub = find_overlaps(codes[lo:hi], coef=coef, device=device, mesh=mesh)
+            sub = find_overlaps(codes, coef=coef, device=device, mesh=mesh,
+                                rows=ids[lo:hi])
         has = sub.succ >= 0
         res.succ[lo:hi][has] = sub.succ[has] + np.int32(lo)
         res.overlap[lo:hi][has] = sub.overlap[has]
     with span("sweep cross-part repair"):
-        repair_links(codes, res, coef=coef, device=device, mesh=mesh)
+        repair_links(codes, res, coef=coef, device=device, mesh=mesh, rows=rows)
     return res
 
 
 def repair_links(codes: np.ndarray, res: OverlapResult, coef: float = 1.0, *,
-                 device, mesh=None) -> None:
+                 device, mesh=None, rows=None) -> None:
     """Re-match the free suffix/prefix ends of a link set, in place, in
     tables of at most `_SWEEP_MAX_ROWS` rows (port of
-    greedy_scs.repair_links, :1097-1124)."""
+    greedy_scs.repair_links, :1097-1124). Read x of `res` is row x of
+    `codes`, or row rows[x] with `rows`; each table's reads are handed to
+    the sweep as ids, not as a copy of their rows."""
     n = res.succ.shape[0]
     if n <= 1:
         return
@@ -301,26 +311,30 @@ def repair_links(codes: np.ndarray, res: OverlapResult, coef: float = 1.0, *,
     has_pred[s[s >= 0]] = True
     a_s = s < 0
     a_p = ~has_pred
-    rows = np.nonzero(a_s | a_p)[0]
-    if rows.size <= 1:
+    free = np.nonzero(a_s | a_p)[0]
+    if free.size <= 1:
         return
-    for lo in range(0, rows.size, _SWEEP_MAX_ROWS):
-        r = rows[lo : lo + _SWEEP_MAX_ROWS]
-        sub = find_overlaps(codes[r], coef=coef, init_active=(a_s[r], a_p[r]),
-                            device=device, mesh=mesh)
+    for lo in range(0, free.size, _SWEEP_MAX_ROWS):
+        r = free[lo : lo + _SWEEP_MAX_ROWS]
+        sub = find_overlaps(codes, coef=coef, init_active=(a_s[r], a_p[r]),
+                            device=device, mesh=mesh, rows=r if rows is None else rows[r])
         new = sub.succ >= 0
         res.succ[r[new]] = r[sub.succ[new]].astype(np.int32)
         res.overlap[r[new]] = sub.overlap[new]
 
 
-def divide_and_generate(codes: np.ndarray, coef: float, *, device, mesh=None):
+def divide_and_generate(codes: np.ndarray, coef: float, *, device, mesh=None,
+                        rows=None):
     """Fused stages 2+3 (port of greedy_scs.divide_and_generate, :1127-1184):
     one full-depth sweep gives the generator-based division and, after the
     links touching dropped reads are cut and the weakest re-cut, a repair
-    sweep relinks the free ends. Returns (keep [n], pg, order, pos)."""
-    n, L = codes.shape
+    sweep relinks the free ends. Returns (keep [n], pg, order, pos). The
+    reads are the rows of `codes`, or with `rows` ([n] ids) codes[rows];
+    the kept reads go to the repair sweep and the assembly as ids, so no
+    stage copies the code rows."""
+    n, L = codes.shape[0] if rows is None else len(rows), codes.shape[1]
     with span(f"fused full sweep n={n}"):
-        resf = find_overlaps(codes, coef=1.0, device=device, mesh=mesh)
+        resf = find_overlaps(codes, coef=1.0, device=device, mesh=mesh, rows=rows)
     iters = int(L * coef)
     thr = L - iters + 1  # minimum overlap reachable by rounds [1, iters)
     part = resf.overlap >= thr
@@ -347,15 +361,20 @@ def divide_and_generate(codes: np.ndarray, coef: float, *, device, mesh=None):
         good = good & (ovl_k >= relink_thr)
     res_k = OverlapResult(np.where(good, remap[sk], -1).astype(np.int32),
                           np.where(good, ovl_k, 0).astype(np.int32), L)
-    sub_codes = codes[kept]
-    with span(f"repair sweep kept={kept.size}"):
-        repair_links(sub_codes, res_k, device=device, mesh=mesh)
+    # the full sweep's per-row arrays are not needed past here
+    del resf, part, snap, remap, sk, good, ovl_k
+    sub_rows = kept if rows is None else rows[kept]
+    del kept
+    with span(f"repair sweep kept={sub_rows.size}"):
+        repair_links(codes, res_k, device=device, mesh=mesh, rows=sub_rows)
     with span("chainwalk+assemble"):
-        pg, order, pos = _layout_and_assemble(res_k, sub_codes)
+        pg, order, pos = _layout_and_assemble(res_k, codes, sub_rows)
     return keep, pg, order, pos
 
 
-def generate_pseudogenome(codes: np.ndarray, coef: float = 1.0, *, device, mesh=None):
-    """Overlaps -> cycle removal -> layout -> pg: (pg_codes, order, pos_sorted)."""
-    res = find_overlaps(codes, coef, device=device, mesh=mesh)
-    return _layout_and_assemble(res, codes)
+def generate_pseudogenome(codes: np.ndarray, coef: float = 1.0, *, device, mesh=None,
+                          rows=None):
+    """Overlaps -> cycle removal -> layout -> pg: (pg_codes, order, pos_sorted).
+    The reads are the rows of `codes`, or with `rows` ([n] ids) codes[rows]."""
+    res = find_overlaps(codes, coef, device=device, mesh=mesh, rows=rows)
+    return _layout_and_assemble(res, codes, rows)

@@ -6,12 +6,16 @@ their power table (`_pow_table64`, :134-141), the segment plan (:545-548), the n
 take (`_find_overlaps_host`, :568-680), the exact link check
 (`_verify_links`, :866-888) and the post-processing after the rounds —
 cycle removal, chain layout and pg assembly (:924-1057). The device rounds
-live in `greedy_scs.py` beside this module.
+live in `greedy_scs.py` beside this module. The link check and the
+assembly also take the reads as row ids into a larger matrix (`rows=`),
+so that the encoder hands them its one code matrix and no gathered copy.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 import numpy as np
+
+from ..core.packed_host import row_chunks
 
 HASH_BASE = np.uint32(0x9E3779B1)  # odd -> invertible mod 2^32
 
@@ -183,8 +187,10 @@ def _find_overlaps_host(codes: np.ndarray, coef: float = 1.0,
     return res
 
 
-def _verify_links(res: OverlapResult, codes: np.ndarray) -> None:
+def _verify_links(res: OverlapResult, codes: np.ndarray, rows=None) -> None:
     """One exact host-side verification of the final links (in place).
+    Read x is row x of `codes`, or row rows[x] with `rows` ([n] ids): the
+    overlaps are gathered through the ids, a chunk at a time.
 
     Round pairing (and init duplicate-linking) accepts on two independent
     64-bit hash matches; this pass compares the actual overlap bytes and
@@ -200,10 +206,13 @@ def _verify_links(res: OverlapResult, codes: np.ndarray) -> None:
     for o in np.unique(ovl):
         rows_all = has[ovl == o]
         for lo in range(0, rows_all.size, chunk):
-            rows = rows_all[lo : lo + chunk]
-            bad = (codes[rows, L - o:] != codes[res.succ[rows], :o]).any(axis=1)
+            sel = rows_all[lo : lo + chunk]
+            a, b = sel, res.succ[sel]
+            if rows is not None:
+                a, b = rows[a], rows[b]
+            bad = (codes[a, L - o:] != codes[b, :o]).any(axis=1)
             if bad.any():
-                cut = rows[bad]
+                cut = sel[bad]
                 res.succ[cut] = -1
                 res.overlap[cut] = 0
 
@@ -312,20 +321,22 @@ def layout_chains(res: OverlapResult) -> ChainLayout:
     return ChainLayout(order=order.astype(np.int64), pos=pos, pg_len=pg_len)
 
 
-def assemble_pg(codes: np.ndarray, layout: ChainLayout) -> np.ndarray:
+def assemble_pg(codes: np.ndarray, layout: ChainLayout, rows=None) -> np.ndarray:
     """Materialise the pseudogenome sequence: every read scatters its full
-    content at its position (overlapping bytes agree by construction)."""
-    n, L = codes.shape
+    content at its position (overlapping bytes agree by construction).
+    Read x is row x of `codes`, or row rows[x] with `rows` ([n] ids),
+    scattered a chunk of reads at a time."""
+    L = codes.shape[1]
     pg = np.zeros(layout.pg_len, dtype=np.uint8)
-    if n == 0:
-        return pg
-    flat = (layout.pos[:, None] + np.arange(L, dtype=np.int64)[None, :]).ravel()
-    pg[flat] = codes.ravel()
+    cols = np.arange(L, dtype=np.int64)[None, :]
+    for lo, c in row_chunks(codes, rows):
+        pg[layout.pos[lo:lo + c.shape[0], None] + cols] = c
     return pg
 
 
-def _layout_and_assemble(res: OverlapResult, codes: np.ndarray):
-    """Chain layout + pg materialisation for a final link set.
+def _layout_and_assemble(res: OverlapResult, codes: np.ndarray, rows=None):
+    """Chain layout + pg materialisation for a final link set; read x is
+    row x of `codes`, or row rows[x] with `rows` ([n] ids).
 
     Normally one sequential native pass (native/chainwalk.cpp — the
     reference's chain-walk assembly, AbstractOverlapPseudoGenomeGenerator
@@ -334,11 +345,11 @@ def _layout_and_assemble(res: OverlapResult, codes: np.ndarray):
     if res.succ.size:
         from .. import native
 
-        fast = native.chain_walk_assemble(res.succ, res.overlap, codes)
+        fast = native.chain_walk_assemble(res.succ, res.overlap, codes, rows)
         if fast is not None:
             pos, order, pg = fast
-            return pg, order.astype(np.int64), pos[order]
+            return pg, order, pos
     remove_cycles(res)
     layout = layout_chains(res)
-    pg = assemble_pg(codes, layout)
+    pg = assemble_pg(codes, layout, rows)
     return pg, layout.order, layout.pos[layout.order]

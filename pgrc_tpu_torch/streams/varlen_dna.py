@@ -114,8 +114,19 @@ def _get_luts(codebook_id: int):
     return _LUT_CACHE[codebook_id]
 
 
+# positions whose tokens one step of `encode` finds and marks at once: the
+# working set is a few 4-byte words a position of one block, not six 8-byte
+# words a position of the whole stream (a pg of tens of millions of symbols)
+_BLOCK = 1 << 20
+
+
 def encode(data: bytes, codebook_id: int = 0) -> bytes:
-    """data: value-code bytes (0..5) -> one byte per greedy token."""
+    """data: value-code bytes (0..5) -> one byte per greedy token.
+
+    The stream is parsed a block of `_BLOCK` positions at a time: the
+    parse enters a block where the last token of the block before it ends,
+    and within the block it is marked by pointer doubling, as over the
+    whole stream; the tokens are the same, so are the bytes."""
     code_lut, len_lut, _, _, maxlen = _get_luts(codebook_id)
     vals = np.frombuffer(data, dtype=np.uint8)
     n = vals.size
@@ -123,47 +134,71 @@ def encode(data: bytes, codebook_id: int = 0) -> bytes:
         return b""
     if vals.max() >= NSYM:
         raise ValueError("varlen_dna input must be value codes 0..5")
-    # maxlen-gram key at every position (tail padded with 0s)
-    pad = np.concatenate([vals.astype(np.int64),
-                          np.zeros(maxlen - 1, dtype=np.int64)])
-    key = pad[:n].copy()
+    entries = _CODEBOOKS[codebook_id]
+    by_str = {e: i for i, e in enumerate(entries)}
+    out = []
+    start = 0   # where the parse's next token starts
+    for lo in range(0, n, _BLOCK):
+        hi = min(lo + _BLOCK, n)
+        if start >= hi:
+            continue
+        tok_len, tok_code = _block_tokens(vals, lo, hi, code_lut, len_lut, maxlen, by_str)
+        vis = _parse_marks(tok_len, start - lo)
+        out.append(tok_code[vis])
+        start = lo + int(vis[-1]) + int(tok_len[vis[-1]])
+    return b"".join(a.tobytes() for a in out)
+
+
+def _block_tokens(vals, lo: int, hi: int, code_lut, len_lut, maxlen: int, by_str):
+    """(tok_len int32, tok_code uint8) of the greedy token at every position
+    lo..hi-1: the maxlen-gram key (past the stream's end padded with 0s)
+    through the LUTs."""
+    n, m = vals.size, hi - lo
+    seg = np.zeros(m + maxlen - 1, dtype=np.int32)
+    tail = vals[lo:min(hi + maxlen - 1, n)]
+    seg[:tail.size] = tail
+    key = seg[:m].copy()
     for j in range(1, maxlen):
         key *= NSYM
-        key += pad[j : j + n]
-    tok_len = len_lut[key].astype(np.int64)
+        key += seg[j : j + m]
+    tok_len = len_lut[key].astype(np.int32)
     tok_code = code_lut[key]
     # Tail fix-up: the last <maxlen positions may have matched an entry that
     # runs past the end (their keys include padding). Re-parse them greedily
     # against the codebook dict (all singles are present, so a parse always
     # exists).
-    entries = _CODEBOOKS[codebook_id]
-    by_str = {e: i for i, e in enumerate(entries)}
-    for i in range(max(0, n - maxlen + 1), n):
+    for i in range(max(lo, n - maxlen + 1), hi):
         room = n - i
-        if tok_len[i] <= room:
+        if tok_len[i - lo] <= room:
             continue
         for ln in range(min(maxlen, room), 0, -1):
             e = vals[i : i + ln].tobytes()
             if e in by_str:
-                tok_len[i] = ln
-                tok_code[i] = by_str[e]
+                tok_len[i - lo] = ln
+                tok_code[i - lo] = by_str[e]
                 break
-    nxt = np.minimum(np.arange(n) + tok_len, n)
-    # pointer doubling: mark positions visited by the parse chain from 0
-    visited = np.zeros(n + 1, dtype=bool)
-    visited[0] = True
-    jump = np.concatenate([nxt, [n]])
+    return tok_len, tok_code
+
+
+def _parse_marks(tok_len, s: int):
+    """Positions of a block visited by the greedy parse that enters it at
+    position s (block-local), ascending: pointer doubling, positions past
+    the block folded into a sentinel."""
+    m = tok_len.size
+    jump = np.empty(m + 1, dtype=np.int32)
+    np.minimum(np.arange(m, dtype=np.int32) + tok_len, m, out=jump[:m])
+    jump[m] = m
+    visited = np.zeros(m + 1, dtype=bool)
+    visited[s] = True
     while True:
-        new = np.zeros(n + 1, dtype=bool)
-        vis_idx = np.nonzero(visited)[0]
-        new[jump[vis_idx]] = True
+        new = np.zeros(m + 1, dtype=bool)
+        new[jump[np.nonzero(visited)[0]]] = True
         grew = new & ~visited
         visited |= new
-        if not grew[:n].any():
+        if not grew[:m].any():
             break
         jump = jump[jump]
-    out_pos = np.nonzero(visited[:n])[0]
-    return tok_code[out_pos].tobytes()
+    return np.nonzero(visited[:m])[0]
 
 
 def decode(data: bytes, raw_len: int, codebook_id: int = 0) -> bytes:

@@ -22,7 +22,7 @@ from pgrc_tpu_torch import synth
 from pgrc_tpu_torch.archive import decoder, encoder
 from pgrc_tpu_torch.config import PgRCParams
 from pgrc_tpu_torch.overlap import greedy_scs as port_scs
-from pgrc_tpu_torch.utils import dna
+from pgrc_tpu_torch.utils import dna, rss
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_R05 = os.path.join(ROOT, "BENCH_r05.json")
@@ -100,6 +100,12 @@ def test_main_prints_bench_keys_and_device_fields(tmp_path, monkeypatch, capsys)
     # each child's own peak RSS, not the parent's that ru_maxrss carries
     assert got["big_validate_rss_mb"] <= got["big_validate_ru_maxrss_mb"]
     assert got["big_trace"]["device_s"] is None
+    # each stage's own peak in the warm child, none above the child's peak
+    assert list(got["big_stage_rss_mb"]) == list(got["big_stage_times_s"])
+    assert 0 < max(got["big_stage_rss_mb"].values()) <= got["big_peak_rss_mb"]
+    assert got["big_init_memory"]["statm_rss_mb"] > 0
+    assert [s["step"] for s in got["rss_probe"]["steps"]] == [
+        "start", "import numpy", "import torch", "device.resolve"]
 
 
 def test_peak_rss_sampler_sees_an_allocation(monkeypatch):
@@ -107,7 +113,7 @@ def test_peak_rss_sampler_sees_an_allocation(monkeypatch):
     a 256 MB array touched and freed between two reads shows in the peak."""
     import time
 
-    monkeypatch.setattr(bench_torch, "vm_hwm_mb", lambda: None)
+    monkeypatch.setattr(rss, "vm_hwm_mb", lambda: None)
     peak = bench_torch.PeakRss(every=0.005)
     assert peak.source == "statm every 5 ms"
     before = bench_torch.rss_now_mb()
@@ -115,6 +121,24 @@ def test_peak_rss_sampler_sees_an_allocation(monkeypatch):
     time.sleep(0.1)
     del a
     assert peak.mb() >= before + 200 > bench_torch.rss_now_mb() + 100
+
+
+def test_rss_probe_on_cpu():
+    """`bench_torch.py --rss-probe --device cpu` in a fresh process: statm
+    after each step (no CUDA steps on the CPU), the status fields the
+    kernel has, the mapped libraries by group (torch's own among them) and
+    a plain `import torch` child's resident size."""
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py"), "--rss-probe",
+                        "--device", "cpu"], capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    steps = {s["step"]: s for s in got["steps"]}
+    assert list(steps) == ["start", "import numpy", "import torch", "device.resolve"]
+    assert steps["import torch"]["rss_mb"] > steps["start"]["rss_mb"] > 0
+    assert all(0 <= s["shared_mb"] <= s["rss_mb"] for s in got["steps"])
+    assert set(got["status"]) | set(got["status_missing"]) == set(rss.STATUS_FIELDS)
+    assert got["libs"]["torch"]["files"] > 0 and got["libs"]["torch"]["file_mb"] > 10
+    assert got["plain_import_torch"]["rss_mb"] > 0
 
 
 VALIDATE_CHILD = r"""

@@ -408,9 +408,9 @@ def small_sweep_cap(monkeypatch):
     calls = []
     real = port._find_overlaps_partitioned
 
-    def spy(codes, coef, *, device, mesh=None):
-        calls.append(codes.shape[0])
-        return real(codes, coef, device=device, mesh=mesh)
+    def spy(codes, coef, *, device, mesh=None, rows=None):
+        calls.append(codes.shape[0] if rows is None else len(rows))
+        return real(codes, coef, device=device, mesh=mesh, rows=rows)
 
     monkeypatch.setattr(port, "_find_overlaps_partitioned", spy)
     return calls
