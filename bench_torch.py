@@ -499,7 +499,7 @@ def big_row(phase: str, src_b: str, out_b: str, peak: PeakRss, device: str = "cu
             run.reset_peak()
             res["init_rss_mb"] = peak.mb()
             res["init_memory"] = memory_fields()
-            # each stage's own peak RSS (encoder._stage_done), in stats
+            # each stage's own peak RSS (encoder._stage), in stats
             os.environ["PGRC_TPU_RSS_TRACE"] = "1"
             if phase == "trace":
                 res.update(traced_encode(run, src_b, out_b))

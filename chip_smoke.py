@@ -2259,8 +2259,9 @@ TRACED_GROUPS = (("A", "verify_best"), ("B", "index_kmer_hash"), ("C", "probe_km
 
 
 def profiled(fn, label, banned=(), sweep=False):
-    """Run fn() under torch.profiler, with the port's trace spans on (their
-    `[trace]` lines give the host wall of each span): print the wall, the
+    """Run fn() under torch.profiler, inside a recorder of the port's spans
+    (`utils.trace.record(label)`): print the `[trace]` line of every span it
+    and the encodes inside it recorded (the host wall of each), the wall, the
     device time (sum of the kernels' and copies' self time), the busy share,
     the eight largest device items and the TRACED_GROUPS; fail if a kernel
     named in `banned` or an aten::cummax op ran, or if the join's sort
@@ -2282,16 +2283,16 @@ def profiled(fn, label, banned=(), sweep=False):
     torch.cuda.synchronize()
     before = dict(kernels.launches)
     t0 = time.time()
-    was, trace._ON = trace._ON, True
-    try:
-        with JoinOps() as join_ops, ProbeGap() as gap, SweepSpy(dispatch=sweep) as sweep_spy, \
-                StrandOps() as strand, \
-                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            res = fn()
-            torch.cuda.synchronize()
-    finally:
-        trace._ON = was
+    with JoinOps() as join_ops, ProbeGap() as gap, SweepSpy(dispatch=sweep) as sweep_spy, \
+            StrandOps() as strand, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            trace.record(label) as rec:
+        res = fn()
+        torch.cuda.synchronize()
     wall = time.time() - t0
+    for r in [rec] + [r for r in trace.recent() if r.encode_id > rec.encode_id]:
+        for s in r.spans:
+            say(trace.line(r, s))
     events = prof.key_averages()
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
     self_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(

@@ -250,19 +250,19 @@ def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
     if index.pg_len > (1 << 35):
         raise NotImplementedError("pg longer than 2^35 symbols exceeds the "
                                   "35-bit position field of the join")
-    with span(f"match device_index pg={index.pg_len}"):
+    with span("match.device_index", pg=index.pg_len):
         blocks, pg_lanes, i_pad = device_index(index, pg_codes, device, wide,
                                                index_block)
     offs_full = probe_offsets(L, index.k, k2)
     single_pass = accept_mis <= 0 and not os.environ.get("PGRC_TPU_TWO_PASS")
     offs_p1 = offs_full if single_pass else _spread_offsets(offs_full, index.k1)
     n_verify2 = max(2, min(cap, 6))
-    with span(f"match pack n={n}"):
+    with span("match.pack", rows=n):
         lanes, nmask = state.lanes_to_device(*packed.pack_lanes(read_codes, rows=rows),
                                              pg_lanes.device)
     args = (index, blocks, pg_lanes, wide, L, max_mismatches)
     # rows [0, n) forward, [n, 2n) reverse complement (kernel I)
-    with span(f"match pass1 rows=2x{n} offs={len(offs_p1)} blocks={len(blocks)}"):
+    with span("match.pass1", rows=2 * n, offs=len(offs_p1), blocks=len(blocks)):
         bm, bp = probe_pass(lanes, nmask, L, None, offs_p1, args,
                             n_verify2 if single_pass else 1,
                             _batch_cap(i_pad, len(offs_p1)), mesh)
@@ -276,8 +276,8 @@ def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
           else np.nonzero(np.minimum(fm, rm) > accept_mis)[0])
     if p2.size:
         k = p2.size
-        take = torch.from_numpy(p2).to(pg_lanes.device)
-        with span(f"match pass2 rows={2 * k}"):
+        with span("match.pass2", rows=2 * k, offs=len(offs_full), blocks=len(blocks)):
+            take = state.to_device(p2, pg_lanes.device)
             mis_t, pos_t = probe_pass(lanes, nmask, L, take, offs_full, args, n_verify2,
                                       _batch_cap(i_pad, len(offs_full)), mesh)
         better_f = mis_t[:k] < fm[p2]
@@ -293,22 +293,23 @@ def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
     k_resc = min(index.k, 16)
     k1_r = 2 if index.pg_len < (4 << 20) else 4 if index.pg_len < (32 << 20) else 8
     if missed.size >= 16 and L >= 2 * k_resc and pg_codes.size >= 2 * k_resc:
-        with span(f"match rescue-index rows={missed.size} k1={k1_r}"):
+        with span("match.rescue_index", k1=k1_r):
             ridx = _build_rescue_index(pg_codes, k_resc, k1=k1_r)
-        resc = read_codes[missed if rows is None else rows[missed]]
-        im, ip = _interleaved_rescue(resc, pg_codes, k_resc,
-                                     max_mismatches, k1=k1_r, ridx=ridx)
-        better = im < fm[missed]
-        fm[missed] = np.where(better, im, fm[missed])
-        fp[missed] = np.where(better, ip, fp[missed])
-        rc_sub = packed.revcomp_codes_matrix(resc)
-        del resc
-        rc_sub[rc_sub > 3] = 0
-        im, ip = _interleaved_rescue(rc_sub, pg_codes, k_resc, max_mismatches,
-                                     ridx=ridx)
-        better = im < rm[missed]
-        rm[missed] = np.where(better, im, rm[missed])
-        rp[missed] = np.where(better, ip, rp[missed])
+        with span("match.rescue", rows=missed.size):
+            resc = read_codes[missed if rows is None else rows[missed]]
+            im, ip = _interleaved_rescue(resc, pg_codes, k_resc,
+                                         max_mismatches, k1=k1_r, ridx=ridx)
+            better = im < fm[missed]
+            fm[missed] = np.where(better, im, fm[missed])
+            fp[missed] = np.where(better, ip, fp[missed])
+            rc_sub = packed.revcomp_codes_matrix(resc)
+            del resc
+            rc_sub[rc_sub > 3] = 0
+            im, ip = _interleaved_rescue(rc_sub, pg_codes, k_resc, max_mismatches,
+                                         ridx=ridx)
+            better = im < rm[missed]
+            rm[missed] = np.where(better, im, rm[missed])
+            rp[missed] = np.where(better, ip, rp[missed])
 
     take_r = rm < fm  # strict: forward wins ties (deterministic)
     out_mis[:] = np.where(take_r, rm, fm)

@@ -21,6 +21,7 @@ from ..streams.container import StreamReader
 from ..streams.varlen_dna import MARK
 from ..utils import dna
 from ..utils.errors import PgtcFormatError
+from ..utils.trace import span
 from ..utils.varint import encode_varints, decode_varints, write_varint, read_varint
 
 # copMEM sampling guarantee (CopMEMMatcher.cpp:111-137): with coprime strides
@@ -153,16 +154,31 @@ def _mark_and_remove(
     # (an index of a src shorter than one anchor has no entry)
     if dest_len < min_len or src.shape[0] < ANCHOR_K:
         return dest, np.zeros(0, np.int64), np.zeros(0, np.int64)
-    query = dna.COMPL_VAL[dest[::-1]]  # revcomp(dest)
-    from .. import native
+    with span(_SCAN[self_match], dest=dest_len):
+        query = dna.COMPL_VAL[dest[::-1]]  # revcomp(dest)
+        from .. import native
 
-    m = native.pg_find_matches(
-        src, query, min_len, ANCHOR_K, SRC_STRIDE, DEST_STRIDE, CAP * 4
-    )
-    if m is None:
-        m = _find_matches(src, index or src_index(src), query, min_len)
+        m = native.pg_find_matches(
+            src, query, min_len, ANCHOR_K, SRC_STRIDE, DEST_STRIDE, CAP * 4
+        )
+        if m is None:
+            m = _find_matches(src, index or src_index(src), query, min_len)
     if m.size == 0:
         return dest, np.zeros(0, np.int64), np.zeros(0, np.int64)
+    with span(_SELECT[self_match], matches=m.shape[0]):
+        return _select(dest, m, min_len, self_match)
+
+
+# span names of a mark & remove's two parts, by self_match: the native or
+# numpy scan for matches, and the Python selection of the marks
+_SCAN = ("pgmatch.scan", "selfmatch.scan")
+_SELECT = ("pgmatch.select", "selfmatch.select")
+
+
+def _select(dest, m, min_len: int, self_match: bool):
+    """The greedy non-overlapping selection of `_mark_and_remove`'s matches
+    m [M, 3] (src_pos, query_pos, length): -> (new_dest, offsets, lengths)."""
+    dest_len = dest.shape[0]
     # convert query coords back to dest coords (reference
     # correctDestPositionDueToRevComplMatching, SimplePgMatcher.cpp:58-61)
     sposs = m[:, 0]
@@ -230,8 +246,9 @@ def self_match_precompute(hq, target_len: int):
     None and holds no memory through stages 4-7."""
     from .. import native
 
-    index = src_index(hq) if native.get_lib() is None else None
-    return index, _mark_and_remove(hq, index, hq, target_len, True)
+    with span("selfmatch", pg=len(hq)):
+        index = src_index(hq) if native.get_lib() is None else None
+        return index, _mark_and_remove(hq, index, hq, target_len, True)
 
 
 def match_pgs_in_pg(hq, lq, npg, target_len: int, pre=None):
@@ -243,8 +260,9 @@ def match_pgs_in_pg(hq, lq, npg, target_len: int, pre=None):
     if pre is None:
         pre = self_match_precompute(hq, target_len)
     index, (hq_new, hq_off, hq_len) = pre
-    lq_new, lq_off, lq_len = _mark_and_remove(hq, index, lq, target_len, False)
-    n_new, n_off, n_len = _mark_and_remove(hq, index, npg, target_len, False)
+    with span("pgseq.match_lq_n", lq=len(lq), n=len(npg)):
+        lq_new, lq_off, lq_len = _mark_and_remove(hq, index, lq, target_len, False)
+        n_new, n_off, n_len = _mark_and_remove(hq, index, npg, target_len, False)
     streams = []
     for name, offs, lens in (
         ("lq", lq_off, lq_len), ("n", n_off, n_len), ("hq", hq_off, hq_len)

@@ -14,12 +14,19 @@ import numpy as np
 
 from ..streams import props
 from ..streams.container import StreamReader, write_streams
+from ..utils.trace import span
 from ..utils.varint import write_varint, read_varint
 from ..streams.varlen_dna import MARK
 
 
 def write_pg_sequences(out, hq_pg, lq_pg, n_pg, target_match_len: int,
                        level: int, self_match_pre=None) -> None:
+    with span("pgseq.write", pg=len(hq_pg) + len(lq_pg) + len(n_pg)):
+        _write_pg_sequences(out, hq_pg, lq_pg, n_pg, target_match_len, self_match_pre)
+
+
+def _write_pg_sequences(out, hq_pg, lq_pg, n_pg, target_match_len: int,
+                        self_match_pre) -> None:
     from . import pg_match
 
     header = bytearray()
@@ -35,16 +42,17 @@ def write_pg_sequences(out, hq_pg, lq_pg, n_pg, target_match_len: int,
     write_varint(header, len(lq_pg))
     write_varint(header, len(n_pg))
     out.write(bytes(header))
-    joined = np.concatenate([hq_pg, lq_pg, n_pg]) if len(hq_pg) or len(lq_pg) or len(n_pg) \
-        else np.zeros(0, dtype=np.uint8)
-    # per-stream codebook selection over the three tuned VarLenDNA books
-    # (the selector probes a prefix with each and keeps the smallest — the
-    # reference hard-assigns one of its three books per call site,
-    # VarLenDNACoder.cpp:200-254; probing is strictly better)
-    jobs = [props.job("joined_pg", "joined pg", joined.tobytes())]
-    if matched:
-        jobs.extend(streams)
-    write_streams(out, jobs)
+    with span("pgseq.code"):
+        joined = np.concatenate([hq_pg, lq_pg, n_pg]) if len(hq_pg) or len(lq_pg) or len(n_pg) \
+            else np.zeros(0, dtype=np.uint8)
+        # per-stream codebook selection over the three tuned VarLenDNA books
+        # (the selector probes a prefix with each and keeps the smallest — the
+        # reference hard-assigns one of its three books per call site,
+        # VarLenDNACoder.cpp:200-254; probing is strictly better)
+        jobs = [props.job("joined_pg", "joined pg", joined.tobytes())]
+        if matched:
+            jobs.extend(streams)
+        write_streams(out, jobs)
 
 
 def read_pg_sequences(reader: StreamReader, orig_hq_len: int):

@@ -16,8 +16,10 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
+from .. import state
 from ..overlap.host import HASH_BASE
 from ..utils.uint import U32_MASK, i32_to_u32, u32_to_i32
 from . import check, launch, launches, on_cpu, ptr
@@ -103,7 +105,7 @@ def offsets_tensor(offs: tuple, device: torch.device) -> torch.Tensor:
     """Probe offsets (a tuple of ints) as an int32 tensor on `device`, made
     once per offsets and device (kernels C and A of a probe read the same
     tensor: a probe makes no upload of its offsets)."""
-    return torch.tensor(offs, dtype=torch.int32, device=device)
+    return state.to_device(np.array(offs, dtype=np.int32), device)
 
 
 def probe_kmer_hash_plain(read_lanes, offs: tuple, k: int):

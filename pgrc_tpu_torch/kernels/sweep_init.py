@@ -8,8 +8,10 @@ positions.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .. import state
 from ..core.packed import col_vals
 from ..overlap.host import HASH_BASE64, HASH_BASE64B
 from ..utils.uint import SIGN64, s64
@@ -40,8 +42,9 @@ def table_tensor(device) -> torch.Tensor:
     device = torch.device(device)
     if device not in _tables:
         (ta, tna), (tb, tnb) = chunk_tables(_A), chunk_tables(_B)
-        _tables[device] = torch.tensor([[s64(a), s64(b)] for a, b in zip(ta + tna, tb + tnb)],
-                                       dtype=torch.int64, device=device)
+        _tables[device] = state.to_device(
+            np.array([[s64(a), s64(b)] for a, b in zip(ta + tna, tb + tnb)], dtype=np.int64),
+            device)
     return _tables[device]
 
 

@@ -13,6 +13,8 @@ import os
 import subprocess
 import threading
 
+from ..utils import trace
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SO = os.path.join(_HERE, "libpgrc_native.so")
 _SOURCES = [os.path.join(_HERE, "rangecoder.cpp"),
@@ -29,28 +31,45 @@ _lib_handle = None
 _lib_failed = False
 
 
-def _build() -> bool:
-    srcs_mtime = max(os.path.getmtime(s) for s in _SOURCES)
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= srcs_mtime:
-        return True
-    try:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-             "-pthread",
-             "-o", _SO + ".tmp", *_SOURCES],
-            check=True, capture_output=True, timeout=120,
-        )
-        os.replace(_SO + ".tmp", _SO)
-        return True
-    except Exception:
-        return False
+def _build(so: str = _SO, sources=_SOURCES) -> bool:
+    """Make `so` from `sources` unless it is newer than all of them. One
+    process at a time checks and builds (an flock on `so`.lock), into a
+    file of its own that is renamed into place, so no process ever loads a
+    half-written library, and one that waited finds it built."""
+    import fcntl
+
+    with open(so + ".lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        srcs_mtime = max(os.path.getmtime(s) for s in sources)
+        if os.path.exists(so) and os.path.getmtime(so) >= srcs_mtime:
+            return True
+        tmp = f"{so}.{os.getpid()}.tmp"
+        try:
+            subprocess.run(
+                ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+                 "-pthread", "-o", tmp, *sources],
+                check=True, capture_output=True, timeout=120,
+            )
+            os.replace(tmp, so)
+            return True
+        except Exception:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            return False
 
 
 def get_lib():
-    """The loaded shared object, or None when native is unavailable."""
+    """The loaded shared object, or None when native is unavailable; each
+    None inside an encode counts as one of its `native_fallbacks` (the
+    caller runs its Python fallback)."""
+    lib = _lib_handle if _lib_handle is not None or _lib_failed else _load()
+    if lib is None:
+        trace.count("native_fallbacks")
+    return lib
+
+
+def _load():
     global _lib_handle, _lib_failed
-    if _lib_handle is not None or _lib_failed:
-        return _lib_handle
     with _lock:
         if _lib_handle is not None or _lib_failed:
             return _lib_handle

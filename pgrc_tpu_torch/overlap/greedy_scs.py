@@ -107,7 +107,7 @@ def round_order(keys, ent, count):
     compaction keeps row order), stably sorted by key, which keeps the
     reference's (key, side|gid) order. Reading m is the round's one host
     sync. -> (ks, ent), or None when no entry is active."""
-    m = int(count)
+    m = state.host_int(count)
     if m == 0:
         return None
     ks, perm = torch.sort(keys[:m], stable=True)
@@ -186,37 +186,38 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
         return _find_overlaps_partitioned(codes, coef, device=device, mesh=mesh, rows=rows)
     if n >= (1 << 30):
         raise NotImplementedError("overlap rounds index reads with 31-bit ids")
-    with span(f"sweep pack+upload n={n}"):
+    with span("sweep.pack_upload", rows=n):
         # the table's lanes column-major ([W+1, n]): a round reads two
         # columns of every row, each coalesced (kernel D)
         lanes, nmask = state.sweep_lanes_to_device(*packed.pack_lanes(codes, rows=rows),
                                                    device)
-    if init_active is None:
-        h0, h0b, succ_g, ovl_g, a_s, a_p = _init_links(lanes, nmask, L)
-    else:
-        h0, h0b = sweep_full_hashes(lanes, nmask, L)
-        succ_g = torch.full((n,), -1, dtype=torch.int32, device=device)
-        ovl_g = torch.zeros((n,), dtype=torch.int32, device=device)
-        a_s, a_p = (torch.from_numpy(np.ascontiguousarray(a, dtype=bool)).to(device)
-                    for a in init_active)
-    lo, hi = (0, n) if mesh is None else mesh.block(n)
-    if mesh is not None:
-        # the rank's shard: its block of rows (the init's links, in succ_g
-        # and ovl_g, are every rank's)
-        lanes, nmask, h0, h0b, a_s, a_p = (None if v is None else _block(v, lo, hi)
-                                           for v in (lanes, nmask, h0, h0b, a_s, a_p))
-    # the largest table of any rank decides the segments, the same on all,
-    # and sizes every rank's send buffer
-    rows_max = hi - lo if mesh is None else max(mesh.splits(n))
-    # the round kernel rolls h, p, h2, p2 in place: four distinct buffers;
-    # the table holds its rounds' entry buffers (kernel D's outputs)
-    t = dict(lanes=lanes, nmask=nmask,
-             ids=torch.arange(lo, hi, dtype=torch.int32, device=device),
-             h=h0, p=h0.clone(), h2=h0b, p2=h0b.clone(), a_s=a_s, a_p=a_p, gids=(lo, hi),
-             entries=_entry_buffers(rows_max, device, mesh))
+    with span("sweep.init"):
+        if init_active is None:
+            h0, h0b, succ_g, ovl_g, a_s, a_p = _init_links(lanes, nmask, L)
+        else:
+            h0, h0b = sweep_full_hashes(lanes, nmask, L)
+            succ_g = torch.full((n,), -1, dtype=torch.int32, device=device)
+            ovl_g = torch.zeros((n,), dtype=torch.int32, device=device)
+            a_s, a_p = (state.to_device(np.ascontiguousarray(a, dtype=bool), device)
+                        for a in init_active)
+        lo, hi = (0, n) if mesh is None else mesh.block(n)
+        if mesh is not None:
+            # the rank's shard: its block of rows (the init's links, in succ_g
+            # and ovl_g, are every rank's)
+            lanes, nmask, h0, h0b, a_s, a_p = (None if v is None else _block(v, lo, hi)
+                                               for v in (lanes, nmask, h0, h0b, a_s, a_p))
+        # the largest table of any rank decides the segments, the same on all,
+        # and sizes every rank's send buffer
+        rows_max = hi - lo if mesh is None else max(mesh.splits(n))
+        # the round kernel rolls h, p, h2, p2 in place: four distinct buffers;
+        # the table holds its rounds' entry buffers (kernel D's outputs)
+        t = dict(lanes=lanes, nmask=nmask,
+                 ids=torch.arange(lo, hi, dtype=torch.int32, device=device),
+                 h=h0, p=h0.clone(), h2=h0b, p2=h0b.clone(), a_s=a_s, a_p=a_p, gids=(lo, hi),
+                 entries=_entry_buffers(rows_max, device, mesh))
     iters = int(L * coef)
     i, seg_idx = 1, 0
-    with span(f"sweep rounds n={n}"):
+    with span("sweep.rounds") as sp:
         while i < iters:
             seg = _SEG_PLAN[seg_idx] if seg_idx < len(_SEG_PLAN) else _SEG_TAIL
             seg_idx += 1
@@ -228,6 +229,7 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
                     _round(r, L, t, succ_g, ovl_g)
                 else:
                     _round_sharded(r, L, t, succ_g, ovl_g, mesh)
+            sp.attrs["rounds"], sp.attrs["segments"] = i1 - 1, seg_idx
             i = i1
             if i >= iters:
                 break
@@ -239,12 +241,12 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
             n_rows = t["ids"].numel()
             del t["entries"]
             new, counts = sweep_compact(*(t[k] for k in _TABLE))
-            kept, n_suf, n_pref = counts.tolist()
+            kept, n_suf, n_pref = state.host_ints(counts)
             rows_max = kept
             if mesh is not None:
                 # the ranks' largest table, and whether any rank keeps an
                 # active suffix and an active prefix
-                rows_max, n_suf, n_pref = mesh.all_reduce(counts.clone(), "max").tolist()
+                rows_max, n_suf, n_pref = state.host_ints(mesh.all_reduce(counts.clone(), "max"))
             if n_suf == 0 or n_pref == 0:
                 break
             if kept < n_rows:
@@ -253,8 +255,9 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
                 t.update((k, None if v is None else v[..., :kept]) for k, v in zip(_TABLE, new))
             del new
             t["entries"] = _entry_buffers(rows_max, device, mesh)
-    res = OverlapResult(succ_g.cpu().numpy(), ovl_g.cpu().numpy(), L)
-    with span("sweep verify_links"):
+    with span("sweep.download"):
+        res = OverlapResult(state.to_host(succ_g).numpy(), state.to_host(ovl_g).numpy(), L)
+    with span("sweep.verify_links"):
         _verify_links(res, codes, rows)
     return res
 
@@ -285,13 +288,13 @@ def _find_overlaps_partitioned(codes: np.ndarray, coef: float, *,
     res = OverlapResult(np.full(n, -1, dtype=np.int32), np.zeros(n, dtype=np.int32), L)
     for p in range(parts):
         lo, hi = p * per, min((p + 1) * per, n)
-        with span(f"sweep part {p + 1}/{parts} rows={hi - lo}"):
+        with span("sweep.part", part=p + 1, parts=parts, rows=hi - lo):
             sub = find_overlaps(codes, coef=coef, device=device, mesh=mesh,
                                 rows=ids[lo:hi])
         has = sub.succ >= 0
         res.succ[lo:hi][has] = sub.succ[has] + np.int32(lo)
         res.overlap[lo:hi][has] = sub.overlap[has]
-    with span("sweep cross-part repair"):
+    with span("sweep.cross_repair"):
         repair_links(codes, res, coef=coef, device=device, mesh=mesh, rows=rows)
     return res
 
@@ -333,7 +336,7 @@ def divide_and_generate(codes: np.ndarray, coef: float, *, device, mesh=None,
     the kept reads go to the repair sweep and the assembly as ids, so no
     stage copies the code rows."""
     n, L = codes.shape[0] if rows is None else len(rows), codes.shape[1]
-    with span(f"fused full sweep n={n}"):
+    with span("sweep.full", rows=n):
         resf = find_overlaps(codes, coef=1.0, device=device, mesh=mesh, rows=rows)
     iters = int(L * coef)
     thr = L - iters + 1  # minimum overlap reachable by rounds [1, iters)
@@ -365,9 +368,9 @@ def divide_and_generate(codes: np.ndarray, coef: float, *, device, mesh=None,
     del resf, part, snap, remap, sk, good, ovl_k
     sub_rows = kept if rows is None else rows[kept]
     del kept
-    with span(f"repair sweep kept={sub_rows.size}"):
+    with span("sweep.repair", rows=sub_rows.size):
         repair_links(codes, res_k, device=device, mesh=mesh, rows=sub_rows)
-    with span("chainwalk+assemble"):
+    with span("sweep.assemble"):
         pg, order, pos = _layout_and_assemble(res_k, codes, sub_rows)
     return keep, pg, order, pos
 
@@ -376,5 +379,7 @@ def generate_pseudogenome(codes: np.ndarray, coef: float = 1.0, *, device, mesh=
                           rows=None):
     """Overlaps -> cycle removal -> layout -> pg: (pg_codes, order, pos_sorted).
     The reads are the rows of `codes`, or with `rows` ([n] ids) codes[rows]."""
-    res = find_overlaps(codes, coef, device=device, mesh=mesh, rows=rows)
-    return _layout_and_assemble(res, codes, rows)
+    with span("sweep.full", rows=codes.shape[0] if rows is None else len(rows)):
+        res = find_overlaps(codes, coef, device=device, mesh=mesh, rows=rows)
+    with span("sweep.assemble"):
+        return _layout_and_assemble(res, codes, rows)

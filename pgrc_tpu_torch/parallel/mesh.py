@@ -35,6 +35,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import state
+
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 # seconds a rank waits in one collective before the backend gives up
 COLLECTIVE_TIMEOUT_S = 600
@@ -72,7 +74,7 @@ class Mesh:
         the gathered rows)."""
         out = torch.empty((self.size, *t.shape), dtype=t.dtype, device=t.device)
         dist.all_gather(list(out.unbind(0)), t.contiguous())
-        return out.cpu().numpy(), out
+        return state.to_host(out).numpy(), out
 
     def all_gather_rows(self, t: torch.Tensor, rows: int) -> torch.Tensor:
         """Every rank's first `rows` rows of t, in rank order: one gather ->

@@ -5,6 +5,14 @@ the host layer produces and consumes) and a tensor form on a device (what
 the port's kernels take). These functions move each one across, bit for
 bit, in both directions; the parity tests feed the same state through both
 packages with them.
+
+Every upload and every device read of the port goes through `to_device`,
+`to_host`, `host_int` or `host_ints` (a copy, `int()`, `.tolist()`: the
+reads the port makes, each counted where it is made). A copy that crosses
+between the host and a CUDA device adds to the open encode's counters
+(`utils.trace`): `h2d_bytes` and `h2d_copies` up, `d2h_bytes` and
+`device_syncs` down — a read of the card waits for its stream, so each is
+one host sync. The helpers add no copy and no sync of their own.
 """
 from __future__ import annotations
 
@@ -12,7 +20,51 @@ import numpy as np
 import torch
 
 from .core import packed
-from .utils import uint
+from .utils import trace, uint
+
+
+_HOST = torch.device("cpu")
+
+
+def crosses(src: torch.device, dst: torch.device) -> bool:
+    """Whether a copy from `src` to `dst` crosses between the host and a
+    CUDA device (what the counters count)."""
+    return (src.type == "cuda") != (dst.type == "cuda")
+
+
+def _count_read(t: torch.Tensor) -> None:
+    if crosses(t.device, _HOST):
+        trace.count("d2h_bytes", t.nbytes)
+        trace.count("device_syncs")
+
+
+def to_device(a: np.ndarray | torch.Tensor, device) -> torch.Tensor:
+    """A host array (as it lies, no copy on the host) or a tensor, on
+    `device`."""
+    t = torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+    out = t.to(device)
+    if crosses(t.device, out.device):
+        trace.count("h2d_bytes", t.nbytes)
+        trace.count("h2d_copies")
+    return out
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """`t` on the host: a device read, which waits for the device."""
+    _count_read(t)
+    return t.cpu()
+
+
+def host_int(t: torch.Tensor) -> int:
+    """The one value of `t`, read to the host."""
+    _count_read(t)
+    return int(t)
+
+
+def host_ints(t: torch.Tensor) -> list:
+    """The values of `t`, read to the host as Python numbers."""
+    _count_read(t)
+    return t.tolist()
 
 
 def lanes_to_device(lanes: np.ndarray, nmask: np.ndarray | None, device):
@@ -95,14 +147,15 @@ def index_to_device(ihash: np.ndarray, ipos: np.ndarray, device, wide: bool = Fa
     if not wide and ipos.size and int(ipos.max()) >= (1 << 31):
         raise ValueError("index positions past 2^31 need the wide probe")
     return (uint.np_u32_to_tensor(ihash.astype(np.uint32), device),
-            torch.from_numpy(ipos.astype(np.int64 if wide else np.int32)).to(device))
+            to_device(ipos.astype(np.int64 if wide else np.int32), device))
 
 
 def index_from_device(ihash_t: torch.Tensor, ipos_t: torch.Tensor):
-    return uint.tensor_to_np_u32(ihash_t), ipos_t.cpu().numpy()
+    return uint.tensor_to_np_u32(ihash_t), to_host(ipos_t).numpy()
 
 
 def match_from_device(mis_t: torch.Tensor, pos_t: torch.Tensor):
     """Probe outputs (uint8 mismatches, 255 = none; int32 or int64
     positions, -1 = none) -> the reference's host dtypes (uint8, int64)."""
-    return mis_t.cpu().numpy().astype(np.uint8), pos_t.cpu().numpy().astype(np.int64)
+    return (to_host(mis_t).numpy().astype(np.uint8),
+            to_host(pos_t).numpy().astype(np.int64))

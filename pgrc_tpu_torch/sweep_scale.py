@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .overlap import greedy_scs
+from .utils import trace
 
 L = 100
 
@@ -81,9 +82,11 @@ def main(argv=None) -> int:
     greedy_scs.find_overlaps = timed
     try:
         t0 = time.time()
-        # past the cap the parts and the repair are the tables; below it, one
-        res = (real if args.reads > greedy_scs._SWEEP_MAX_ROWS else timed)(
-            codes, 1.0, device=dev)
+        # one recorder: with PGRC_TPU_TRACE=1 each part's spans print
+        with trace.record("sweep_scale"):
+            # past the cap the parts and the repair are the tables; below it, one
+            res = (real if args.reads > greedy_scs._SWEEP_MAX_ROWS else timed)(
+                codes, 1.0, device=dev)
         wall = time.time() - t0
     finally:
         greedy_scs.find_overlaps = real

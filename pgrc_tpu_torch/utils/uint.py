@@ -60,7 +60,8 @@ def from_order_key64(k: torch.Tensor) -> torch.Tensor:
     return k ^ SIGN64
 
 
-# numpy <-> carrier views (bit-exact, no copies beyond the device transfer)
+# numpy <-> carrier views (bit-exact, no copies beyond the device transfer,
+# which `state.to_device` / `state.to_host` make and count)
 
 def _expect(dtype_ok: bool, got) -> None:
     if not dtype_ok:
@@ -68,20 +69,28 @@ def _expect(dtype_ok: bool, got) -> None:
 
 
 def np_u32_to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    from .. import state
+
     _expect(a.dtype == np.uint32, a.dtype)
-    return torch.from_numpy(np.require(a, requirements="CW").view(np.int32)).to(device)
+    return state.to_device(np.require(a, requirements="CW").view(np.int32), device)
 
 
 def tensor_to_np_u32(t: torch.Tensor) -> np.ndarray:
+    from .. import state
+
     _expect(t.dtype == torch.int32, t.dtype)
-    return t.cpu().numpy().view(np.uint32)
+    return state.to_host(t).numpy().view(np.uint32)
 
 
 def np_u64_to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    from .. import state
+
     _expect(a.dtype == np.uint64, a.dtype)
-    return torch.from_numpy(np.require(a, requirements="CW").view(np.int64)).to(device)
+    return state.to_device(np.require(a, requirements="CW").view(np.int64), device)
 
 
 def tensor_to_np_u64(t: torch.Tensor) -> np.ndarray:
+    from .. import state
+
     _expect(t.dtype == torch.int64, t.dtype)
-    return t.cpu().numpy().view(np.uint64)
+    return state.to_host(t).numpy().view(np.uint64)
