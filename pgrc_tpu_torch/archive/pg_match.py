@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..align import host as align_matcher
 from ..streams import props
 from ..streams.container import StreamReader
@@ -146,7 +147,8 @@ def _extend(src, query, spos, qpos, direction: int) -> np.ndarray:
 def _mark_and_remove(
     src: np.ndarray, index, dest: np.ndarray, min_len: int, self_match: bool
 ):
-    """Replace matches of revcomp(dest) vs src with MARK tokens.
+    """Replace matches of revcomp(dest) vs src, found through `index` (a
+    `scan_index` of src), with MARK tokens.
 
     Returns (new_dest, offsets int64 array, lengths int64 array).
     """
@@ -154,15 +156,10 @@ def _mark_and_remove(
     # (an index of a src shorter than one anchor has no entry)
     if dest_len < min_len or src.shape[0] < ANCHOR_K:
         return dest, np.zeros(0, np.int64), np.zeros(0, np.int64)
-    with span(_SCAN[self_match], dest=dest_len):
+    with span(_SCAN[self_match], dest=dest_len) as sp:
         query = dna.COMPL_VAL[dest[::-1]]  # revcomp(dest)
-        from .. import native
-
-        m = native.pg_find_matches(
-            src, query, min_len, ANCHOR_K, SRC_STRIDE, DEST_STRIDE, CAP * 4
-        )
-        if m is None:
-            m = _find_matches(src, index or src_index(src), query, min_len)
+        m, sp.attrs["threads"] = _scan(src, index, query, min_len)
+        sp.attrs["runs"] = m.shape[0]
     if m.size == 0:
         return dest, np.zeros(0, np.int64), np.zeros(0, np.int64)
     with span(_SELECT[self_match], matches=m.shape[0]):
@@ -173,6 +170,15 @@ def _mark_and_remove(
 # numpy scan for matches, and the Python selection of the marks
 _SCAN = ("pgmatch.scan", "selfmatch.scan")
 _SELECT = ("pgmatch.select", "selfmatch.select")
+
+
+def _scan(src, index, query, min_len: int):
+    """The matches of query vs src through `index` (a `scan_index`) and the
+    threads the scan took: -> ([M, 3] (src_pos, query_pos, length), n)."""
+    if isinstance(index, native.PgIndex):
+        threads = native.scan_threads(query.size, ANCHOR_K, DEST_STRIDE)
+        return index.find_matches(query, min_len, DEST_STRIDE, CAP * 4, threads), threads
+    return _find_matches(src, index, query, min_len), 1
 
 
 def _select(dest, m, min_len: int, self_match: bool):
@@ -234,20 +240,25 @@ def src_index(src):
     return align_matcher.build_index(src, k=ANCHOR_K, k1=SRC_STRIDE)
 
 
+def scan_index(src):
+    """The index of a source pg that `_mark_and_remove` scans through, built
+    once and shared by every scan against src: the native `PgIndex`, or
+    without the native library the numpy scanner's (`src_index`)."""
+    index = native.pg_index(src, ANCHOR_K, SRC_STRIDE)
+    return index if index is not None else src_index(src)
+
+
 def self_match_precompute(hq, target_len: int):
     """The hq-self part of stage 7 (index build + hq-vs-hq mark&remove).
 
     Depends only on the stage-3 pg, so the encoder runs it in a worker
     thread concurrently with the device-bound stage-4 matcher (the native
     scanner releases the GIL); the reference runs the whole of stage 7
-    serially at the end (SimplePgMatcher.cpp:175-257). The index is built
-    only for the numpy scanner (`_mark_and_remove` builds it where it is
-    None): the native one samples the pg itself, so with it the index is
-    None and holds no memory through stages 4-7."""
-    from .. import native
-
+    serially at the end (SimplePgMatcher.cpp:175-257). The index
+    (`scan_index`) is returned with the marks, for `match_pgs_in_pg`'s LQ
+    and N scans against the same pg, which free it."""
     with span("selfmatch", pg=len(hq)):
-        index = src_index(hq) if native.get_lib() is None else None
+        index = scan_index(hq)
         return index, _mark_and_remove(hq, index, hq, target_len, True)
 
 
@@ -263,6 +274,8 @@ def match_pgs_in_pg(hq, lq, npg, target_len: int, pre=None):
     with span("pgseq.match_lq_n", lq=len(lq), n=len(npg)):
         lq_new, lq_off, lq_len = _mark_and_remove(hq, index, lq, target_len, False)
         n_new, n_off, n_len = _mark_and_remove(hq, index, npg, target_len, False)
+    if isinstance(index, native.PgIndex):
+        index.close()  # the last scan against hq
     streams = []
     for name, offs, lens in (
         ("lq", lq_off, lq_len), ("n", n_off, n_len), ("hq", hq_off, hq_len)

@@ -9,9 +9,11 @@ that remains the fallback when no compiler is available.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import os
 import subprocess
 import threading
+import weakref
 
 from ..utils import trace
 
@@ -156,12 +158,18 @@ def _load():
         lib.extract_mismatches_mt.argtypes = [
             u8p, i64p, u8p, u8p, i64p, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64, ctypes.c_int64, u8p, u8p, u8p]
-        lib.pg_find_matches.restype = ctypes.c_int64
-        lib.pg_find_matches.argtypes = [
-            u8p, ctypes.c_int64, u8p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            i64p, i64p, i64p, ctypes.c_int64,
+        lib.pg_index_build.restype = ctypes.c_void_p
+        lib.pg_index_build.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64,
+                                       ctypes.c_int64]
+        lib.pg_index_free.restype = None
+        lib.pg_index_free.argtypes = [ctypes.c_void_p]
+        lib.pg_scan.restype = ctypes.c_void_p
+        lib.pg_scan.argtypes = [
+            ctypes.c_void_p, u8p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, i64p,
         ]
+        lib.pg_runs_take.restype = None
+        lib.pg_runs_take.argtypes = [ctypes.c_void_p, i64p]
         _lib_handle = lib
     return _lib_handle
 
@@ -443,33 +451,81 @@ def chain_walk_assemble(succ, ovl, codes, rows=None):
     return pos, order, pg
 
 
-def pg_find_matches(src, query, min_len: int, k: int, k1: int, k2: int,
-                    max_bucket: int = 16):
-    """Maximal exact matches (>= min_len) of query vs src (sequential native
-    MEM scan; see pgmatch.cpp). Returns [M, 3] (src_pos, query_pos, length)
-    int64 or None when native is unavailable."""
-    import numpy as np
+# a stage-7 scan's threads: at most SCAN_THREADS_MAX (decode.cpp's cap),
+# and one for every SCAN_MIN_PROBES probes of its query
+SCAN_THREADS_MAX = 16
+SCAN_MIN_PROBES = 1 << 18
 
+
+def scan_threads(nq: int, k: int, k2: int) -> int:
+    """The threads a scan of an nq-symbol query probed every k2 takes: the
+    CPUs this process may run on less one for the main thread, capped by
+    SCAN_THREADS_MAX and by the query's probes over SCAN_MIN_PROBES, and at
+    least one."""
+    probes = (nq - k) // k2 + 1 if nq >= k else 0
+    cpus = len(os.sched_getaffinity(0)) - 1
+    return max(1, min(cpus, SCAN_THREADS_MAX, probes // SCAN_MIN_PROBES))
+
+
+class PgIndex:
+    """pgmatch.cpp's sampled k-mer index of one source pg (its CSR bucket
+    table of the k-mers at every k1-th position), built once and scanned by
+    any number of queries (`find_matches`, from any thread). It reads
+    through `src`, which it holds until `close()` (or its collection)
+    frees the native table. Each build counts `pgmatch.index_builds`, each
+    scan after its first `pgmatch.index_reuses`."""
+
+    def __init__(self, lib, src, k: int, k1: int):
+        import numpy as np
+
+        self.src = np.ascontiguousarray(src, dtype=np.uint8)
+        handle = lib.pg_index_build(_u8p(self.src), self.src.size, k, k1)
+        if not handle:
+            raise MemoryError("pg index build: out of memory")
+        self._lib, self._handle = lib, handle
+        self._scans = itertools.count()
+        self._free = weakref.finalize(self, lib.pg_index_free, handle)
+        trace.count("pgmatch.index_builds")
+
+    def close(self) -> None:
+        self._free()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    def find_matches(self, query, min_len: int, k2: int, max_bucket: int,
+                     threads: int):
+        """Maximal exact matches (>= min_len) of query vs the index's src
+        through the anchors probed every k2 (at most max_bucket candidates a
+        probe), over `threads` slices of the probes (`scan_threads`).
+        -> [M, 3] (src_pos, query_pos, length) int64, sorted and unique:
+        the same rows at any thread count."""
+        import numpy as np
+
+        if not self._free.alive:
+            raise ValueError("scan of a closed pg index")
+        query = np.ascontiguousarray(query, dtype=np.uint8)
+        if next(self._scans):
+            trace.count("pgmatch.index_reuses")
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        count = ctypes.c_int64(0)
+        runs = self._lib.pg_scan(self._handle, _u8p(query), query.size, min_len,
+                                 k2, max_bucket, threads, ctypes.byref(count))
+        if not runs:
+            raise MemoryError("pg scan: out of memory")
+        out = np.empty((count.value, 3), dtype=np.int64)
+        self._lib.pg_runs_take(runs, out.ctypes.data_as(i64p))
+        return out
+
+
+def pg_index(src, k: int, k1: int):
+    """A `PgIndex` of src, or None when native is unavailable."""
     lib = get_lib()
-    if lib is None:
-        return None
-    src = np.ascontiguousarray(src, dtype=np.uint8)
-    query = np.ascontiguousarray(query, dtype=np.uint8)
-    cap = 4096
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    while True:
-        spos = np.empty(cap, dtype=np.int64)
-        qpos = np.empty(cap, dtype=np.int64)
-        lens = np.empty(cap, dtype=np.int64)
-        m = lib.pg_find_matches(
-            _u8p(src), src.size, _u8p(query), query.size,
-            min_len, k, k1, k2, max_bucket,
-            spos.ctypes.data_as(i64p), qpos.ctypes.data_as(i64p),
-            lens.ctypes.data_as(i64p), cap,
-        )
-        if m >= 0:
-            return np.stack([spos[:m], qpos[:m], lens[:m]], axis=1)
-        cap *= 4
+    return None if lib is None else PgIndex(lib, src, k, k1)
 
 
 def rcx_encode(data: bytes, nsym: int, order: int) -> bytes | None:
