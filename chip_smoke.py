@@ -11,7 +11,7 @@ Phases, each printed with its times; the first failure exits nonzero:
      the main path's shapes — outputs must be bit-equal — and both timed
      (device time of each call, with the L2 cache evicted before it; the
      card is kept busy while the host queues the timed calls); kernel A
-     (verify_best) on 20 edge cases (every window width, its batch of 6
+     (verify_best) on 21 edge cases (every window width, its batch of 6
      and of 4 windows, more slots than a 64-bit mask, n_verify 1, 6 and
      12, rows with few or no in-range slots, a pg shorter than the read,
      start residues 0 and 15, the pg's first and last lane, equal
@@ -36,16 +36,18 @@ Phases, each printed with its times; the first failure exits nonzero:
      own tile (n on it and one off, a ragged last tile, each output base
      residue mod 4, rows too wide for its tile), G and G2 on theirs
      (one row, rows off the block, more tiles than resident blocks, L 37,
-     99 and 255, rows all N, one long run of equal keys; G2 also with no
+     99, 150 and 255, rows all N, one long run of equal keys; G2 also with no
      tie, every position tied, h0b changing inside runs of equal keys,
      tied pairs across a warp's and a block's edge, ties at the first and
      last positions), and the init (`_init_links`: G, the sort, G2) on the
      card against its CPU run, each over 10 launches; kernel I
-     (strand_rows) in its prep and take forms on 34 edge cases (every lane
+     (strand_rows) in its prep and take forms on 36 edge cases (every lane
      count's ends from L 16 to 255, rows off the block, no N, N in 3%, rows
      all N, N at a read's first and last position, a take that repeats
      rows, one row, one row taken 3000 times, random lanes and masks), each
-     over 10 launches; then the port's graft entry
+     over 10 launches; kernels A, G, G2, D, H and I at L 150 (W 10 lanes a
+     row) at an SE 2M encode's sizes (the 2x150 bp cell's 2M reads), each
+     bit-equal and timed beside its bound; then the port's graft entry
      (__graft_entry_torch__.entry) on the card against its CPU run;
   4. SE 200k (bench.py's headline input): compress through the port's CLI
      on the card, decode with the port's decoder, require an exact multiset
@@ -155,6 +157,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 L = 100
+# the 2x150 bp cell's read length: W 10 lanes a row, 149 sweep rounds a table
+L150 = 150
 # ranks of phase 9, all on the one card
 MESH_RANKS = 4
 SE_RUNS = (  # label, reads, genome, seed, bits/base gate, pgrc_tpu's archive
@@ -270,7 +274,7 @@ OPS_A_LANE, OPS_A_SLOT, OPS_HASH_SYM, OPS_HASH_KMER, OPS_SCAN = 8, 7, 4, 2, 8
 OPS_D_ENTRY, OPS_G_BYTE, OPS_G_NIBBLE, OPS_G_ROW, OPS_G2_POS, OPS_G2_TIED = 18, 10, 8, 2, 2, 6
 OPS_I_LANE, OPS_I_N_LANE = 8, 8 + 1 + 14 + 2
 # the read lengths of kernel I's edge cases: every lane count's ends
-STRAND_LENGTHS = (16, 17, 31, 32, 33, 37, 63, 64, 65, 80, 100, 128, 129, 200, 255)
+STRAND_LENGTHS = (16, 17, 31, 32, 33, 37, 63, 64, 65, 80, 100, 128, 129, 150, 200, 255)
 # launches of E and F held against one plain result on each input: a race
 # in a look-back scan shows only now and then
 CHECK_LAUNCHES = 10
@@ -795,23 +799,24 @@ def sweep_table(dev, n, rng, act, n_frac=0.05, dup_frac=0.1, read_len=L):
     return (lanes, nmask, ids, *hs, *flags)
 
 
-def roll_args(table, i=3):
-    """Kernel D's arguments for round i on a table, with fresh buffers."""
+def roll_args(table, i=3, L_=L):
+    """Kernel D's arguments for round i on a table of L_-symbol reads, with
+    fresh buffers."""
     from pgrc_tpu_torch.kernels import sweep
 
     lanes, nmask, ids, h, p, h2, p2, a_s, a_p = table
-    return (lanes, nmask, a_s, a_p, i, L, h, p, h2, p2,
+    return (lanes, nmask, a_s, a_p, i, L_, h, p, h2, p2,
             *sweep.round_buffers(ids.numel(), ids.device))
 
 
-def links_args(lanes, nmask):
-    """Kernel G2's arguments on these rows: G's key sorted stably, as the
-    init does."""
+def links_args(lanes, nmask, L_=L):
+    """Kernel G2's arguments on these rows of L_ symbols: G's key sorted
+    stably, as the init does."""
     from pgrc_tpu_torch.kernels import sweep_init
 
-    h0, h0b, key = sweep_init.sweep_full_hashes_plain(lanes, nmask, L, with_key=True)
+    h0, h0b, key = sweep_init.sweep_full_hashes_plain(lanes, nmask, L_, with_key=True)
     ks, sidx = torch.sort(key, stable=True)
-    return ks, sidx, h0b, L
+    return ks, sidx, h0b, L_
 
 
 def synthetic_links_args(dev, runs, hb_of=None):
@@ -938,6 +943,7 @@ def sweep_edge_cases(dev) -> int:
         check_links(synthetic_links_args(dev, runs, hb_of), label, 0, timed=False)
         cases.append(f"G2 {label}")
     for read_len, n_sym, with_key in ((37, 5, False), (99, 5, True), (99, 4, False),
+                                      (150, 5, True), (150, 4, False),
                                       (255, 5, True), (255, 4, False)):
         codes = rng.integers(0, n_sym, size=(5000, read_len), dtype=np.uint8)
         lanes, nmask = state.sweep_lanes_to_device(*packed.pack_lanes(codes), dev)
@@ -1024,9 +1030,9 @@ def verify_edge_cases(dev) -> int:
     windows verified in batches of 6 up to W 8, of 4 from W 9, each window
     read as the aligned 16-byte chunks of the pg that hold it) where it
     can go wrong: every window width (W 1, 7 at L 100 and 112, 8 and 9 on
-    either side of the batch's switch, 16 with and without a full last
-    lane), more slots than a 64-bit mask, n_verify 1, 6 and 12 (a batch
-    fills inside an 8-anchor step), rows with fewer in-range slots than
+    either side of the batch's switch, 10 at L 150, 16 with and without a
+    full last lane), more slots than a 64-bit mask, n_verify 1, 6 and 12
+    (a batch fills inside an 8-anchor step), rows with fewer in-range slots than
     n_verify and rows with none, a pg shorter than the read, start residues
     0 and 15, chunks at the pg's first and last lane, equal mismatches at
     two starts (the lower wins), int64 starts from 2^31 + 48, and R off
@@ -1056,7 +1062,7 @@ def verify_edge_cases(dev) -> int:
     pg = rng.integers(0, 4, size=16 * 4000 + 7, dtype=np.uint8)
     pg_lanes = state.pg_lanes_to_device(pg, dev)
     R = 4096 + 37                   # off the block (128 threads) and off a warp
-    for L_ in (16, 100, 112, 113, 129, 255, 256):
+    for L_ in (16, 100, 112, 113, 129, 150, 255, 256):
         near = rng.integers(0, pg.size - L_ + 1, R)
         offs = tuple(range(0, max(L_ - 24, 1), 4))[:23]
         case(f"L {L_} (W {(L_ + 15) // 16})", pg_lanes, pg.size, L_, sampled(pg, L_, near),
@@ -1819,6 +1825,8 @@ def phase_kernels(dev) -> dict:
                       20)
         del table, half
 
+    phase_kernels_l150(dev)
+
     # B and C at the edges of their tiles and lanes; E, F, D and H on their
     # scan edge cases, G and G2 on theirs (E's and F's main-path shapes come
     # in phases 5, 6)
@@ -1844,6 +1852,50 @@ def phase_kernels(dev) -> dict:
     say(f"[kernel] sweep_roll_entries.sharded, sweep_pair_claim.keys, sweep_pair_claim.sharded: "
         f"{cases} edge cases bit-equal in {time.time() - t0:.1f} s")
     return out
+
+
+def phase_kernels_l150(dev) -> None:
+    """Kernels A, G, G2, D, H and I at L 150 (W 10 lanes a
+    row; A verifies in batches of 4 from W 9), at the shapes of an SE 2M
+    encode's first probe, init, round, compaction and strand prep (the
+    2x150 bp cell encodes 2M reads): each against its plain version on the
+    card, bit-equal, and timed beside its bound."""
+    from pgrc_tpu_torch import state
+    from pgrc_tpu_torch.core import packed
+
+    rng = np.random.default_rng(150)
+    # A: SE 2M's first probe, R 1,690,146 reads, 18.3% of the slots in
+    # range, on a 10M-symbol pg; max_mis L // 3
+    pg_len, R = 10_000_000, 1_690_146
+    offs = probe_offsets_l(L150)
+    pg = rng.integers(0, 4, size=pg_len, dtype=np.uint8)
+    pg_lanes = state.pg_lanes_to_device(pg, dev)
+    true_st = rng.integers(0, pg_len - L150 + 1, size=R)
+    reads = pg[true_st[:, None] + np.arange(L150)[None, :]]
+    err_mask = rng.random(reads.shape) < 0.02
+    reads[err_mask] = (reads[err_mask] + 1) % 4
+    lanes, _ = state.lanes_to_device(*packed.pack_lanes(reads), dev)
+    res = torch.from_numpy(anchors(rng, R, offs, pg_len, L150, 0.183, true_st)).to(dev)
+    check_verify((lanes, res, offs, pg_lanes, pg_len, L150, L150 // 3, 6, False),
+                 f"L {L150}: R={R} S={len(offs)} n_verify=6", 20)
+    del res, lanes, pg_lanes, reads, err_mask
+    # I: SE 2M's strand prep, 845,073 reads, no N mask
+    codes = rng.integers(0, 4, size=(845_073, L150), dtype=np.uint8)
+    lanes, _ = state.lanes_to_device(*packed.pack_lanes(codes), dev)
+    check_strand((lanes, None, L150, None), f"L {L150}: {codes.shape[0]} reads, no N", 20)
+    del lanes, codes
+    # G, G2, D and H: SE 2M's first table, n 1.76M rows without N; D's
+    # round 1 with 0.96 of the entries active (3.39M of 3.52M), H keeping
+    # 0.81 of the rows (1.42M of 1.76M)
+    n = 1_760_000
+    table = sweep_table(dev, n, rng, 0.96, n_frac=0.0, read_len=L150)
+    check_hashes((table[0], None, L150, True), f"L {L150}: n={n} key=True", 20)
+    check_links(links_args(table[0], None, L150), f"L {L150}: n={n}", 20)
+    check_roll(roll_args(table, 1, L150), f"L {L150}: n={n} round 1, 0.96 active", 20)
+    half = list(table)
+    half[7], half[8] = (torch.from_numpy(rng.random(n) < 0.56).to(dev) for _ in range(2))
+    check_compact(tuple(half), f"L {L150}: n={n}, {int((half[7] | half[8]).sum())} kept", 20)
+    del table, half
 
 
 class FirstCall:

@@ -21,6 +21,7 @@ import numpy as np
 
 from ..streams import props
 from ..streams.container import StreamReader
+from ..utils import trace
 from ..utils.varint import encode_varints, decode_varints
 
 
@@ -39,33 +40,42 @@ def encode_pair_order(out, org_idxs: np.ndarray, store_file_flags: bool) -> None
     """org_idxs: [R] original index of each read in joined pg order (R even).
 
     Streams: u8flag bitmap, u8 values, u32 fallback values, and (unless
-    ignore-pair-order) a base-file flag per pair.
+    ignore-pair-order) a base-file flag per pair. Recorded as the span
+    `order.pair_order` (attrs `pairs`, `full`: the offsets past 255) with
+    children `order.pair_offsets` and `order.pair_streams`, and the
+    counters `pair.pairs` and `pair.offsets_full`.
     """
-    r = org_idxs.shape[0]
-    rev = np.empty(r, dtype=np.int64)
-    rev[org_idxs] = np.arange(r, dtype=np.int64)
-    i1 = np.arange(r, dtype=np.int64)
-    partner_org = org_idxs ^ 1
-    i2 = rev[partner_org]
-    is_base = i1 < i2                      # first occurrence of the pair
-    base_rows = np.nonzero(is_base)[0]     # ordered by list position
-    offs = (i2 - i1)[base_rows]
-    in_u8 = offs <= 255
-    flags = in_u8.astype(np.uint8)
-    vals8 = offs[in_u8].astype(np.uint8)
-    full = offs[~in_u8].astype(np.uint32)
-    jobs = [
-        _u8_jobs("pair offset u8 flags", flags),
-        _u8_jobs("pair offset u8 values", vals8, period=2),
-        _u32_job("pair offset full values", full),
-    ]
-    if store_file_flags:
-        # 1 = base read came from the pair (second) file
-        file_flag = (org_idxs[base_rows] & 1).astype(np.uint8)
-        jobs.append(_u8_jobs("pair base file flags", file_flag))
     from ..streams.container import write_streams
 
-    write_streams(out, jobs)
+    r = org_idxs.shape[0]
+    with trace.span("order.pair_order", pairs=r // 2) as sp:
+        with trace.span("order.pair_offsets"):
+            rev = np.empty(r, dtype=np.int64)
+            rev[org_idxs] = np.arange(r, dtype=np.int64)
+            i1 = np.arange(r, dtype=np.int64)
+            partner_org = org_idxs ^ 1
+            i2 = rev[partner_org]
+            is_base = i1 < i2                      # first occurrence of the pair
+            base_rows = np.nonzero(is_base)[0]     # ordered by list position
+            offs = (i2 - i1)[base_rows]
+            in_u8 = offs <= 255
+            flags = in_u8.astype(np.uint8)
+            vals8 = offs[in_u8].astype(np.uint8)
+            full = offs[~in_u8].astype(np.uint32)
+        sp.attrs["full"] = full.size
+        trace.count("pair.pairs", r // 2)
+        trace.count("pair.offsets_full", full.size)
+        with trace.span("order.pair_streams"):
+            jobs = [
+                _u8_jobs("pair offset u8 flags", flags),
+                _u8_jobs("pair offset u8 values", vals8, period=2),
+                _u32_job("pair offset full values", full),
+            ]
+            if store_file_flags:
+                # 1 = base read came from the pair (second) file
+                file_flag = (org_idxs[base_rows] & 1).astype(np.uint8)
+                jobs.append(_u8_jobs("pair base file flags", file_flag))
+            write_streams(out, jobs)
 
 
 def decode_pair_order(reader: StreamReader, store_file_flags: bool) -> np.ndarray:

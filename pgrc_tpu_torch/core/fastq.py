@@ -12,7 +12,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..utils import dna
+from ..utils import dna, trace
 
 
 @dataclass
@@ -274,7 +274,8 @@ def _read_divided_native(path: str, pair_path: str | None, revcomp_pair: bool,
     fused rev-compl), quality reduced to the single classifier byte per
     read during the parse — the full quality matrix never exists. On this
     host memory bandwidth is the encode bottleneck, so the win over the
-    generic chunked path is ~4x at 2M reads."""
+    generic chunked path is ~4x at 2M reads. The mate file's parse (and
+    reverse complement) is the span `input.mate` (attrs `rows`, `revcomp`)."""
     import os as _os
 
     L = _probe_fastq_read_len(path)
@@ -309,9 +310,11 @@ def _read_divided_native(path: str, pair_path: str | None, revcomp_pair: bool,
     # path's q2[:, ::-1]); the classifier byte therefore comes from the
     # mirrored column of the raw quality line
     qcol2 = (L - 1 - qcol) if revcomp_pair else qcol
-    n2 = _parse_divided_file_native(
-        pair_path, L, qcol2, codes, hq2, nf2, 1, 2, revcomp_pair,
-        window_bytes)
+    with trace.span("input.mate", revcomp=revcomp_pair) as sp:
+        n2 = _parse_divided_file_native(
+            pair_path, L, qcol2, codes, hq2, nf2, 1, 2, revcomp_pair,
+            window_bytes)
+        sp.attrs["rows"] = n2
     if n2 is None:
         return None
     if n1 != n2:

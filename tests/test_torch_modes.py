@@ -36,14 +36,12 @@ def write_fastq(path, codes, qual):
                                             qual[i].tobytes()))
 
 
-@pytest.fixture(scope="module")
-def pair_input(tmp_path_factory):
-    """Mates 150-450 symbols apart on one genome at ~48x, half of each file
-    on the reverse strand, 1% substitutions, N in 3% of reads, 20% of reads
-    with low-quality tails."""
-    d = str(tmp_path_factory.mktemp("modes"))
+def make_pair_input(d, L, genome_len):
+    """N_PAIRS mates of L symbols 150-450 symbols apart on one genome of
+    genome_len, half of each file on the reverse strand, 1% substitutions, N
+    in 3% of reads, 20% of reads with low-quality tails."""
     rng = np.random.default_rng(41)
-    genome = rng.integers(0, 4, size=4000, dtype=np.uint8)
+    genome = rng.integers(0, 4, size=genome_len, dtype=np.uint8)
     starts = rng.integers(0, genome.size - L - 450, N_PAIRS)
     codes = []
     for st in (starts, starts + rng.integers(150, 450, N_PAIRS)):
@@ -60,6 +58,19 @@ def pair_input(tmp_path_factory):
         qual[rng.random(N_PAIRS) < 0.2, L // 2:] = ord("#")
         write_fastq(path, c, qual)
     return d, paths, codes
+
+
+@pytest.fixture(scope="module")
+def pair_input(tmp_path_factory):
+    """The input of every case: reads of 80 symbols at ~48x."""
+    return make_pair_input(str(tmp_path_factory.mktemp("modes")), L, 4000)
+
+
+@pytest.fixture(scope="module")
+def pair_input_150(tmp_path_factory):
+    """2x150 bp at ~48x: 10 lanes a read, 149 sweep rounds a table, 50
+    mismatches a match; 2,400 reads, so the numpy sweep mirror runs."""
+    return make_pair_input(str(tmp_path_factory.mktemp("modes150")), 150, 7500)
 
 
 CASES = {
@@ -137,7 +148,18 @@ def read_dump(path, numbered):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_mode_archive_equals_reference(pair_input, case):
-    d, paths, codes = pair_input
+    check_mode(pair_input, case)
+
+
+@pytest.mark.parametrize("case", ["PE", "MIN_PE", "PE_ORD"])
+def test_pair_mode_at_150_equals_reference(pair_input_150, case):
+    check_mode(pair_input_150, case)
+
+
+def check_mode(inputs, case):
+    """The case's archive through both CLIs: equal bytes, equal dumps, an
+    exact decode."""
+    d, paths, codes = inputs
     argv_t, kind = CASES[case]
     argv = [a.format(None, *paths) for a in argv_t]
     ref, port = (os.path.join(d, f"{case}.{who}.pgtc") for who in ("ref", "port"))
