@@ -45,7 +45,12 @@ Phases, each printed with its times; the first failure exits nonzero:
      count's ends from L 16 to 255, rows off the block, no N, N in 3%, rows
      all N, N at a read's first and last position, a take that repeats
      rows, one row, one row taken 3000 times, random lanes and masks), each
-     over 10 launches; kernels A, G, G2, D, H and I at L 150 (W 10 lanes a
+     over 10 launches; kernel J (sweep_verify_links) at SE 2M's full
+     sweep (1.76M reads of L 100 at 40x, N in 5% of the rows, 4% of the
+     links bad) and on 9 edge cases (L 37, 64, 150 and 255, rows off the
+     block, one row, N against A inside overlaps, a third of the links bad,
+     a table at the head of wider storage), each over 10 launches; kernels
+     A, G, G2, D, H, I and J at L 150 (W 10 lanes a
      row) at an SE 2M encode's sizes (the 2x150 bp cell's 2M reads), each
      bit-equal and timed beside its bound; then the port's graft entry
      (__graft_entry_torch__.entry) on the card against its CPU run;
@@ -53,10 +58,11 @@ Phases, each printed with its times; the first failure exits nonzero:
      on the card, decode with the port's decoder, require an exact multiset
      round trip, every kernel launched, and bits/base <= 0.1412;
   5. SE 2M (bench.py's scale input): the same, with bits/base <= 0.1384;
-     A, E, F, G, G2 (and its fill), D, H and I against their plain
+     A, E, F, G, G2 (and its fill), D, H, I and J against their plain
      versions on the inputs of
-     this encode's first probe, first join, first init, first sweep round
-     and first compaction (and its share of tied init positions) and its
+     this encode's first probe, first join, first init, first sweep round,
+     first compaction and first link check (and its share of tied init
+     positions) and its
      strand prep (I's take form also on a seeded half of those reads), the
      init on the card against its CPU run there; the same first sweep round
      cut into MESH_RANKS simulated shards (SimRound: the port's own
@@ -124,7 +130,7 @@ Phases, each printed with its times; the first failure exits nonzero:
      run across ranks, every entry on one rank, send buffers filled to
      their last word, one run over 80 tiles), each over 10 launches.
 "Kernels launched" is each run's expected set, no more and no fewer among
-the sweep's: the matcher's A, B, C, E and I; G, D and F wherever a device
+the sweep's: the matcher's A, B, C, E and I; G, D, F and J wherever a device
 sweep ran (inputs past 3072 reads; any input under a mesh, where D and F
 run their sharded forms, and the key layout), G2 and its fill (sweep_link_defaults)
 where one ran its init (not a repair), and H where a device sweep table
@@ -191,6 +197,8 @@ REPLACES = {
                       "pgrc_tpu/overlap/greedy_scs.py:488"),
     "strand_rows": ("pgrc_tpu_torch/kernels/csrc/strand_rows.cu",
                     "pgrc_tpu/align/matcher.py:654, pgrc_tpu/core/packed.py:205"),
+    "sweep_verify_links": ("pgrc_tpu_torch/kernels/csrc/sweep_verify.cu",
+                           "pgrc_tpu/overlap/greedy_scs.py:866"),
 }
 # variants: JSON name -> (kernel, the launch counter of the path that runs it)
 VARIANTS = {
@@ -214,7 +222,8 @@ MATCH_KERNELS = ("verify_best", "index_kmer_hash", "probe_kmer_hash", "join_carr
                  "strand_rows")
 SWEEP_KERNELS = ("sweep_full_hashes", "sweep_link_defaults", "sweep_init_links",
                  "sweep_roll_entries", "sweep_pair_claim", "sweep_compact",
-                 "sweep_roll_entries.sharded", "sweep_pair_claim.sharded", "sweep_pair_claim.keys")
+                 "sweep_roll_entries.sharded", "sweep_pair_claim.sharded", "sweep_pair_claim.keys",
+                 "sweep_verify_links")
 LARGE_PGS = (  # label, pg symbols, seed, lane_off of the kernel B block checked
     ("pg 300M", 300_000_007, 21, 1 << 24),
     ("pg 2.3G", 2_300_000_003, 22, 1 << 27),
@@ -269,10 +278,14 @@ INT_OPS_S = 132 * 64 * 1.98e9
 # complement lane (NOT, bit reversal, the pair swap's two shifts, two ands
 # and or, the funnel shift), and with N its mask word's reversal and shift
 # (half a lane each), the 16-bit spread (four shift-or-and steps and the
-# last shift-or) and the and-not
+# last shift-or) and the and-not; J per word of a link's successor it
+# compares (the funnel shift, the XOR, the mask's shift and select, the and,
+# the or), in the 2-bit stream and the N mask alike, and per link its
+# start and the test of its result
 OPS_A_LANE, OPS_A_SLOT, OPS_HASH_SYM, OPS_HASH_KMER, OPS_SCAN = 8, 7, 4, 2, 8
 OPS_D_ENTRY, OPS_G_BYTE, OPS_G_NIBBLE, OPS_G_ROW, OPS_G2_POS, OPS_G2_TIED = 18, 10, 8, 2, 2, 6
 OPS_I_LANE, OPS_I_N_LANE = 8, 8 + 1 + 14 + 2
+OPS_J_WORD, OPS_J_LINK = 6, 3
 # the read lengths of kernel I's edge cases: every lane count's ends
 STRAND_LENGTHS = (16, 17, 31, 32, 33, 37, 63, 64, 65, 80, 100, 128, 129, 150, 200, 255)
 # launches of E and F held against one plain result on each input: a race
@@ -779,6 +792,101 @@ def check_compact(args, note, reps, timed=True):
                   OPS_SCAN * n, err=err)
 
 
+def verify_links_work(lanes, nmask, L_, succ, ovl):
+    """Bytes and operations of kernel J on these links: succ of every row;
+    of each linked row its overlap o, the lane words that hold its last o
+    symbols and its successor's first ceil(o / 16), 4 bytes each (each row
+    of a link is read; the successor's words are a gather, counted at the
+    4 bytes it uses), and with an N mask its words the same at 32 symbols a
+    word; J's two counts written."""
+    n = succ.numel()
+    o = ovl[succ >= 0].to(torch.int64)
+    s = L_ - o
+    words = lambda per: int(((s % per + o + per - 1) // per + (o + per - 1) // per).sum())
+    syms = (16,) + ((32,) if nmask is not None else ())
+    succ_words = sum(int(((o + per - 1) // per).sum()) for per in syms)
+    return (4 * n + 4 * o.numel() + 4 * sum(words(per) for per in syms) + 8,
+            OPS_J_WORD * succ_words + OPS_J_LINK * o.numel())
+
+
+def verify_links_outputs(fn, args):
+    """A callable that runs kernel J (or its plain version) on its own
+    copies of the links (lanes, nmask, L, succ, ovl, counts: J cuts in
+    place) -> (succ, ovl, counts)."""
+    def run():
+        succ, ovl, counts = (t.clone() for t in args[3:6])
+        fn(*args[:3], succ, ovl, counts)
+        return succ, ovl, counts
+    return run
+
+
+def check_verify_links(args, note, reps, timed=True):
+    """Kernel J against its plain version on (lanes, nmask, L, succ, ovl,
+    counts), each launch on its own copies of the links: every one of
+    CHECK_LAUNCHES launches bit-equal, the cut links and the counts. Timed:
+    J checking one copy again and again, so from the second call on the
+    links it kept (the links a sweep hands it are nearly all good); bytes
+    and operations of those links."""
+    from pgrc_tpu_torch.kernels import sweep_verify as kv
+
+    want = verify_links_outputs(kv.sweep_verify_links_plain, args)()
+    err = max(max_abs_err(verify_links_outputs(kv.sweep_verify_links, args)(), want)
+              for _ in range(CHECK_LAUNCHES))
+    checked, cut = want[2].tolist()
+    require(err == 0, f"sweep_verify_links {note}: kernel differs from its plain version")
+    say(f"[kernel] sweep_verify_links {note}: {checked} links checked, {cut} cut")
+    if not timed:
+        return err
+    mine = want[:2] + (torch.zeros_like(want[2]),)
+    return record("sweep_verify_links", lambda: kv.sweep_verify_links(*args[:3], *mine),
+                  lambda: kv.sweep_verify_links_plain(*args[:3], *mine), reps, note,
+                  *verify_links_work(*args[:3], *want[:2]), err=err)
+
+
+def links_table(dev, n, rng, read_len=L, step=2.5, n_frac=0.05, bad_frac=0.02, n_vs_a=0.0):
+    """A sweep table of n reads along a genome of step * n bases (a read
+    every `step` bases: 40x at L 100 and 2.5), N in a share of rows, and
+    their links as a full sweep leaves them: each read to the next along
+    the genome where they overlap (duplicates at o = L), a share bad_frac
+    of the links with the overlap shortened by 1-3 symbols and as many to a
+    random read, and a share n_vs_a with an N in the read against an A in
+    its successor inside the overlap (equal 2-bit codes); the rows in a
+    random order, as an encode's reads come, so a successor is a random row
+    -> (lanes, nmask, L, succ, ovl, counts), J's arguments, on `dev`."""
+    from pgrc_tpu_torch import state
+    from pgrc_tpu_torch.core import packed
+    from pgrc_tpu_torch.kernels import sweep_verify
+
+    glen = int(step * n) + read_len
+    genome = rng.integers(0, 4, glen, dtype=np.uint8)
+    starts = np.sort(rng.integers(0, glen - read_len + 1, n))
+    codes = genome[starts[:, None] + np.arange(read_len)[None, :]]
+    codes[rng.random(n) < n_frac, rng.integers(0, read_len)] = 4
+    gap = np.diff(starts)
+    succ = np.full(n, -1, np.int32)
+    ovl = np.zeros(n, np.int32)
+    linked = np.nonzero(gap < read_len)[0]
+    succ[linked] = linked + 1
+    ovl[linked] = read_len - gap[linked]
+    short = rng.choice(linked, int(bad_frac * linked.size), replace=False)
+    ovl[short] = np.maximum(ovl[short] - rng.integers(1, 4, short.size), 1)
+    wild = rng.choice(linked, int(bad_frac * linked.size), replace=False)
+    succ[wild] = rng.integers(0, n, wild.size)
+    pairs = rng.choice(linked, int(n_vs_a * linked.size), replace=False)
+    at = (rng.random(pairs.size) * ovl[pairs]).astype(np.int64)
+    codes[pairs, read_len - ovl[pairs] + at] = 4
+    codes[succ[pairs], at] = 0
+    perm = rng.permutation(n)          # row r of the table holds read perm[r]
+    inv = np.empty(n, np.int64)
+    inv[perm] = np.arange(n)
+    codes, ovl = codes[perm], ovl[perm]
+    succ = np.where(succ[perm] >= 0, inv[np.maximum(succ[perm], 0)], -1).astype(np.int32)
+    lanes, nmask = state.sweep_lanes_to_device(*packed.pack_lanes(codes), dev)
+    on = lambda a: torch.from_numpy(a).to(dev)
+    return (lanes, nmask, read_len, on(succ), on(ovl),
+            torch.zeros(sweep_verify.COUNTS, dtype=torch.int32, device=dev))
+
+
 def sweep_table(dev, n, rng, act, n_frac=0.05, dup_frac=0.1, read_len=L):
     """A sweep table of n random reads of read_len symbols (a share
     duplicated, N in a share of rows), random 64-bit hashes and active flags
@@ -955,6 +1063,28 @@ def sweep_edge_cases(dev) -> int:
     lanes, nmask = state.sweep_lanes_to_device(*packed.pack_lanes(codes), dev)
     check_hashes((lanes, nmask, L, True), "rows all N", 0, timed=False)
     cases.append("G rows all N")
+    # J: lane and N-mask words off their ends (L 37, 64, 150, 255), rows off
+    # the block, one row, N against A inside overlaps (only the N mask
+    # tells them apart), links a third bad, and a table that is the head of
+    # wider storage (its column stride past its rows)
+    for label, n, read_len, kw in (
+            ("L 37 with N", 5000, 37, {}), ("L 64, no N", 5000, 64, {"n_frac": 0.0}),
+            ("L 64, rows off the block", 4097, 64, {}), ("L 150 with N", 5000, 150, {}),
+            ("L 255 with N", 3000, 255, {"step": 10.0}), ("one row", 1, L, {}),
+            ("N against A in 20% of the links", 20_000, L, {"n_vs_a": 0.2}),
+            ("a third of the links bad", 20_000, L, {"bad_frac": 0.17})):
+        args = links_table(dev, n, rng, read_len, **kw)
+        check_verify_links(args, label, 0, timed=False)
+        cases.append(f"J {label}")
+    lanes, nmask, L_, succ, ovl, counts = links_table(dev, 7000, rng)
+    wide = [packed.empty_cols(t.shape[0], 7000 + 333, dev) for t in (lanes, nmask)]
+    for w, t in zip(wide, (lanes, nmask)):
+        w[:, :7000] = t
+    view = tuple(w[:, :7000] for w in wide)
+    require(view[0].stride(0) > 7000 + 32, "the wider table's column stride is not past its rows")
+    check_verify_links((*view, L_, succ, ovl, counts), "the head of wider storage", 0,
+                       timed=False)
+    cases.append("J the head of wider storage")
     return len(cases)
 
 
@@ -1824,6 +1954,12 @@ def phase_kernels(dev) -> dict:
         check_compact(tuple(half), f"n={n} N={with_n}, {int((half[7] | half[8]).sum())} kept",
                       20)
         del table, half
+    # J at SE 2M's full sweep: 1.76M reads of L 100 at 40x, N in 5% of the
+    # rows, 2% of the links shortened and 2% to random reads; its main-path
+    # row comes from SE 2M's encode (phase 5)
+    args = links_table(dev, 1_760_000, rng)
+    check_verify_links(args, f"n={args[3].numel()} L {L} at 40x, N in 5% of the rows", 20)
+    del args
 
     phase_kernels_l150(dev)
 
@@ -1838,7 +1974,8 @@ def phase_kernels(dev) -> dict:
     say(f"[kernel] strand_rows: {cases} edge cases bit-equal in {time.time() - t0:.1f} s")
     t0 = time.time()
     cases = sweep_edge_cases(dev)
-    say(f"[kernel] sweep_full_hashes, sweep_init_links, sweep_roll_entries, sweep_compact: "
+    say(f"[kernel] sweep_full_hashes, sweep_init_links, sweep_roll_entries, sweep_compact, "
+        f"sweep_verify_links: "
         f"{cases} edge cases bit-equal in {time.time() - t0:.1f} s")
     t0 = time.time()
     cases = hash_edge_cases(dev)
@@ -1855,11 +1992,11 @@ def phase_kernels(dev) -> dict:
 
 
 def phase_kernels_l150(dev) -> None:
-    """Kernels A, G, G2, D, H and I at L 150 (W 10 lanes a
+    """Kernels A, G, G2, D, H, I and J at L 150 (W 10 lanes a
     row; A verifies in batches of 4 from W 9), at the shapes of an SE 2M
-    encode's first probe, init, round, compaction and strand prep (the
-    2x150 bp cell encodes 2M reads): each against its plain version on the
-    card, bit-equal, and timed beside its bound."""
+    encode's first probe, init, round, compaction, link check and strand
+    prep (the 2x150 bp cell encodes 2M reads): each against its plain
+    version on the card, bit-equal, and timed beside its bound."""
     from pgrc_tpu_torch import state
     from pgrc_tpu_torch.core import packed
 
@@ -1896,6 +2033,11 @@ def phase_kernels_l150(dev) -> None:
     half[7], half[8] = (torch.from_numpy(rng.random(n) < 0.56).to(dev) for _ in range(2))
     check_compact(tuple(half), f"L {L150}: n={n}, {int((half[7] | half[8]).sum())} kept", 20)
     del table, half
+    # J: the links of that table's full sweep at 30x (a read every 5 bases
+    # of L 150), no N
+    args = links_table(dev, n, rng, L150, step=5.0, n_frac=0.0)
+    check_verify_links(args, f"L {L150}: n={n} at 30x, no N", 20)
+    del args
 
 
 class FirstCall:
@@ -2114,8 +2256,12 @@ class StrandOps:
     copies and kernel I's output allocation may run (the wrapper dispatches
     nothing else on the card), and no index_select may run at all."""
 
+    # beside the upload's ops, the profiler markers of the matcher's spans
+    # (utils.trace mirrors each span as a record_function under
+    # torch.profiler), which run no device work
     ALLOWED = {"aten._to_copy", "aten.copy_", "aten.empty", "aten.lift_fresh", "aten.alias",
-               "aten.view", "aten.detach"}
+               "aten.view", "aten.detach", "profiler._record_function_enter_new",
+               "profiler._record_function_exit"}
     NAMES = ("match_reads", "probe_rows", "device_index", "strand_rows")
 
     def __enter__(self):
@@ -2265,15 +2411,16 @@ class SweepSpy:
         return False
 
     def expected(self) -> set:
-        """The sweep kernels these tables launch: G, D and F in every device
-        sweep (D's and F's sharded forms and the key layout in a sharded
-        one), G2 and its fill in one that ran its init, H in a table that
-        compacts."""
+        """The sweep kernels these tables launch: G, D, F and J in every
+        device sweep (D's and F's sharded forms and the key layout in a
+        sharded one), G2 and its fill in one that ran its init, H in a table
+        that compacts."""
         from pgrc_tpu_torch.overlap import greedy_scs as g
 
         exp = set()
         for rows, init, sharded in self.tables:
-            exp |= {"sweep_full_hashes", *(f"{k}.sharded" if sharded else k for k in (
+            exp |= {"sweep_full_hashes", "sweep_verify_links", *(
+                f"{k}.sharded" if sharded else k for k in (
                 "sweep_roll_entries", "sweep_pair_claim"))}
             if sharded:
                 exp.add("sweep_pair_claim.keys")
@@ -2306,7 +2453,8 @@ TRACED_GROUPS = (("A", "verify_best"), ("B", "index_kmer_hash"), ("C", "probe_km
                  ("G", "sweep_full_hashes"), ("G2 fill", "sweep_link_defaults"),
                  ("G2", "sweep_init_links"),
                  ("D", "sweep_roll_entries"), ("F", "sweep_pair_claim"),
-                 ("H", "sweep_compact"), ("sorts", "Sort"), ("memset", "Memset"),
+                 ("H", "sweep_compact"), ("J", "sweep_verify_links"), ("sorts", "Sort"),
+                 ("memset", "Memset"),
                  ("cat", "CatArray"), ("elementwise", "elementwise_kernel"))
 
 
@@ -2437,6 +2585,9 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
             firsts = {name: stack.enter_context(FirstCall(greedy_scs, name)) for name in (
                 "sweep_full_hashes", "sweep_init_links", "sweep_roll_entries",
                 "sweep_pair_claim", "sweep_compact")}
+            # J's first call: the full sweep's links (its table kept as it is)
+            firsts["sweep_verify_links"] = stack.enter_context(
+                FirstCall(greedy_scs, "sweep_verify_links", hold=(0, 1)))
         t0 = time.time()
         rc = cli.main(argv)
         torch.cuda.synchronize()
@@ -2536,6 +2687,10 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
         timings["sweep_compact"] = check_compact(
             args, f"{label}'s first compaction: n={args[2].numel()} rows, "
             f"{int((args[7] | args[8]).sum())} kept", 20)
+        args = firsts["sweep_verify_links"].args
+        timings["sweep_verify_links"] = check_verify_links(
+            args, f"{label}'s first sweep's links: n={args[3].numel()} rows, "
+            f"N mask {args[1] is not None}", 20)
         for fc in firsts.values():
             fc.args = None
         del args

@@ -89,23 +89,28 @@ def sweep_full_hashes(lanes: torch.Tensor, nmask: torch.Tensor | None, L: int,
     return (h0, h0b, key) if with_key else (h0, h0b)
 
 
-def link_defaults_plain(n: int, device):
+def link_defaults_plain(n: int, device, ovl=None):
     """The init's unlinked state of n rows: (succ -1, ovl 0 [n] int32,
-    active_s, active_p true [n] bool)."""
+    active_s, active_p true [n] bool); ovl written into the given [n] int32
+    tensor, where one is given."""
     return (torch.full((n,), -1, dtype=torch.int32, device=device),
-            torch.zeros((n,), dtype=torch.int32, device=device),
+            torch.zeros((n,), dtype=torch.int32, device=device) if ovl is None else ovl.zero_(),
             torch.ones((n,), dtype=torch.bool, device=device),
             torch.ones((n,), dtype=torch.bool, device=device))
 
 
-def link_defaults(n: int, device):
+def link_defaults(n: int, device, ovl=None):
     """`link_defaults_plain`; on a CUDA device written in row order by G2's
-    fill kernel (one launch, not four). G2 then patches it."""
+    fill kernel (one launch, not four). G2 then patches it. `ovl`, an [n]
+    int32 tensor or None, takes the overlaps: the sweep hands in the head of
+    a buffer whose tail holds kernel J's counts."""
     device = torch.device(device)
+    if ovl is not None:
+        check(ovl, "ovl", torch.int32, (n,))
     if device.type == "cpu":
-        return link_defaults_plain(n, device)
+        return link_defaults_plain(n, device, ovl)
     outs = (torch.empty((n,), dtype=torch.int32, device=device),
-            torch.empty((n,), dtype=torch.int32, device=device),
+            torch.empty((n,), dtype=torch.int32, device=device) if ovl is None else ovl,
             torch.empty((n,), dtype=torch.bool, device=device),
             torch.empty((n,), dtype=torch.bool, device=device))
     launch("pgrc_sweep_link_defaults", device, n, *(ptr(t) for t in outs))

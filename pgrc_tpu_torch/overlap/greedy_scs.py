@@ -6,8 +6,9 @@ then overlap rounds L-1 .. 1 in which every active suffix pairs, rank for
 rank inside its equal-hash group, with an active prefix (ranks by global
 read id), confirmed by an independent second hash; a prefix is claimed when
 a suffix of its rank exists. The table shrinks between segments of rounds.
-Host pieces (the small-input numpy mirror, the exact link check, layout and
-assembly) are the port's copy of the reference's, in `host.py`.
+Host pieces (the small-input numpy mirror with its exact link check, layout
+and assembly) are the port's copy of the reference's, in `host.py`; a
+device table's links are checked on the device (kernel J).
 
 Where the TPU shaped the reference and the GPU does not, the port differs in
 form only:
@@ -24,12 +25,15 @@ form only:
 On the card every device program of the sweep is a hand-written kernel but
 the library's stable sorts: G hashes the rows (and writes the init's sort
 key), G2 links the init's duplicates, D rolls a round's hashes and writes
-its active entries compacted, F pairs and links, H compacts the table. The
+its active entries compacted, F pairs and links, H compacts the table, J
+checks the links exactly against the table as it was uploaded (kept for
+that through the compactions) and counts what it checked and cut. The
 host reads one count a round (D's entry count, before the sort) and three
 at a segment end (H's kept rows and active sides), and nothing else until
-the links come back. The table's lanes and N mask are column-major ([W+1,
-n], `state.sweep_lanes_to_device`), so that each round reads the two
-columns it rolls coalesced; the layout stays inside the sweep.
+the links come back, checked, with J's counts behind the overlaps. The
+table's lanes and N mask are column-major ([W+1, n],
+`state.sweep_lanes_to_device`), so that each round reads the two columns
+it rolls coalesced; the layout stays inside the sweep.
 
 With a `mesh` of more than one rank (the reference's shard_map path,
 greedy_scs.py:243-263, :323-331, :381-397, :514-528) every rank runs the
@@ -64,12 +68,13 @@ from ..kernels.sweep import (record_buffers, record_chunks, round_buffers, sweep
 from ..kernels.sweep_compact import sweep_compact
 from ..kernels.sweep_init import link_defaults, sweep_full_hashes, sweep_init_links
 from ..kernels.sweep_pair_claim import sharded_keys, sweep_pair_claim, sweep_pair_records
+from ..kernels.sweep_verify import COUNTS, sweep_verify_links
 from ..parallel.mesh import active
+from ..utils import trace
 from ..utils.trace import span
 from .host import (  # noqa: F401  (re-exported host layer)
     HASH_BASE64, HASH_BASE64B, OverlapResult, _SEG_PLAN, _SEG_TAIL,
-    _find_overlaps_host, _layout_and_assemble, _verify_links,
-    both_sides_overlapped)
+    _find_overlaps_host, _layout_and_assemble, both_sides_overlapped)
 
 # inputs of at most this many reads run the reference's numpy mirror (same
 # links; a device round is launch-bound at these sizes)
@@ -88,16 +93,16 @@ _SWEEP_MAX_ROWS = 48_000_000
 _TABLE = ("lanes", "nmask", "ids", "h", "p", "h2", "p2", "a_s", "a_p")
 
 
-def _init_links(lanes, nmask, L: int):
+def _init_links(lanes, nmask, L: int, ovl=None):
     """The init (K1, greedy_scs.py:417-468): both full-read hashes and the
     init's sort key (kernel G), the library's stable sort of the keys, the
     rows' unlinked state (G2's fill) and the duplicate links of equal
-    neighbours written over it (kernel G2). -> (h0, h0b, succ, ovl,
-    active_s, active_p)."""
+    neighbours written over it (kernel G2); the overlaps into `ovl` where
+    one is given. -> (h0, h0b, succ, ovl, active_s, active_p)."""
     h0, h0b, key = sweep_full_hashes(lanes, nmask, L, with_key=True)
     ks, sidx = torch.sort(key, stable=True)
     del key
-    state = link_defaults(ks.numel(), ks.device)
+    state = link_defaults(ks.numel(), ks.device, ovl)
     return (h0, h0b, *sweep_init_links(ks, sidx, h0b, L, state))
 
 
@@ -191,13 +196,19 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
         # columns of every row, each coalesced (kernel D)
         lanes, nmask = state.sweep_lanes_to_device(*packed.pack_lanes(codes, rows=rows),
                                                    device)
+    # the table as uploaded, every row of it, for kernel J's check of the
+    # links after the rounds (the compactions and a mesh's blocks keep less)
+    full = (lanes, nmask)
+    # the overlaps' storage holds J's counts after its n links, so that they
+    # come back with the links' download
+    ovl_store = torch.empty((n + COUNTS,), dtype=torch.int32, device=device)
     with span("sweep.init"):
         if init_active is None:
-            h0, h0b, succ_g, ovl_g, a_s, a_p = _init_links(lanes, nmask, L)
+            h0, h0b, succ_g, ovl_g, a_s, a_p = _init_links(lanes, nmask, L, ovl_store[:n])
         else:
             h0, h0b = sweep_full_hashes(lanes, nmask, L)
             succ_g = torch.full((n,), -1, dtype=torch.int32, device=device)
-            ovl_g = torch.zeros((n,), dtype=torch.int32, device=device)
+            ovl_g = ovl_store[:n].zero_()
             a_s, a_p = (state.to_device(np.ascontiguousarray(a, dtype=bool), device)
                         for a in init_active)
         lo, hi = (0, n) if mesh is None else mesh.block(n)
@@ -255,11 +266,17 @@ def find_overlaps(codes: np.ndarray, coef: float = 1.0, init_active=None, *,
                 t.update((k, None if v is None else v[..., :kept]) for k, v in zip(_TABLE, new))
             del new
             t["entries"] = _entry_buffers(rows_max, device, mesh)
-    with span("sweep.download"):
-        res = OverlapResult(state.to_host(succ_g).numpy(), state.to_host(ovl_g).numpy(), L)
     with span("sweep.verify_links"):
-        _verify_links(res, codes, rows)
-    return res
+        # every link compared exactly on the table as uploaded (kernel J, in
+        # place); under a mesh every rank checks every link, replicated
+        sweep_verify_links(*full, L, succ_g, ovl_g, ovl_store[n:])
+    with span("sweep.download"):
+        succ = state.to_host(succ_g).numpy()
+        ovl = state.to_host(ovl_store).numpy()
+    checked, cut = (int(v) for v in ovl[n:])
+    trace.count("sweep.links_verified", checked)
+    trace.count("sweep.links_cut", cut)
+    return OverlapResult(succ, ovl[:n], L)
 
 
 def _block(v: torch.Tensor, lo: int, hi: int) -> torch.Tensor:

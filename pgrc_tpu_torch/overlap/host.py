@@ -3,12 +3,13 @@ device-neutral pieces, with only the imports changed.
 
 The hash bases of the rolling hashes (:36-57), `OverlapResult` (:60-72),
 their power table (`_pow_table64`, :134-141), the segment plan (:545-548), the numpy mirror of the sweep that small inputs
-take (`_find_overlaps_host`, :568-680), the exact link check
-(`_verify_links`, :866-888) and the post-processing after the rounds —
-cycle removal, chain layout and pg assembly (:924-1057). The device rounds
-live in `greedy_scs.py` beside this module. The link check and the
-assembly also take the reads as row ids into a larger matrix (`rows=`),
-so that the encoder hands them its one code matrix and no gathered copy.
+take (`_find_overlaps_host`, :568-680) with its exact link check
+(`_verify_links`, :866-888; a device table's links are checked on the
+device, kernel J) and the post-processing after the rounds — cycle
+removal, chain layout and pg assembly (:924-1057). The device rounds live
+in `greedy_scs.py` beside this module. The assembly also takes the reads
+as row ids into a larger matrix (`rows=`), so that the encoder hands it
+its one code matrix and no gathered copy.
 """
 from __future__ import annotations
 
@@ -187,10 +188,8 @@ def _find_overlaps_host(codes: np.ndarray, coef: float = 1.0,
     return res
 
 
-def _verify_links(res: OverlapResult, codes: np.ndarray, rows=None) -> None:
+def _verify_links(res: OverlapResult, codes: np.ndarray) -> None:
     """One exact host-side verification of the final links (in place).
-    Read x is row x of `codes`, or row rows[x] with `rows` ([n] ids): the
-    overlaps are gathered through the ids, a chunk at a time.
 
     Round pairing (and init duplicate-linking) accepts on two independent
     64-bit hash matches; this pass compares the actual overlap bytes and
@@ -207,10 +206,7 @@ def _verify_links(res: OverlapResult, codes: np.ndarray, rows=None) -> None:
         rows_all = has[ovl == o]
         for lo in range(0, rows_all.size, chunk):
             sel = rows_all[lo : lo + chunk]
-            a, b = sel, res.succ[sel]
-            if rows is not None:
-                a, b = rows[a], rows[b]
-            bad = (codes[a, L - o:] != codes[b, :o]).any(axis=1)
+            bad = (codes[sel, L - o:] != codes[res.succ[sel], :o]).any(axis=1)
             if bad.any():
                 cut = sel[bad]
                 res.succ[cut] = -1

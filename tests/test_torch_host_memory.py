@@ -15,11 +15,12 @@ import torch
 from pgrc_tpu.core import packed as ref_packed
 from pgrc_tpu.overlap import greedy_scs as ref_scs
 from pgrc_tpu.streams import varlen_dna as ref_varlen
-from pgrc_tpu_torch import native, synth
+from pgrc_tpu_torch import native, state, synth
 from pgrc_tpu_torch.align import matcher
 from pgrc_tpu_torch.archive import encoder
 from pgrc_tpu_torch.config import PgRCParams
 from pgrc_tpu_torch.core import packed_host
+from pgrc_tpu_torch.kernels import sweep_verify
 from pgrc_tpu_torch.overlap import greedy_scs as port_scs
 from pgrc_tpu_torch.overlap import host as overlap_host
 from pgrc_tpu_torch.streams import varlen_dna
@@ -233,16 +234,21 @@ def test_extract_mismatches_by_ids(flip_odd):
 def test_layout_verify_and_assemble_by_ids(monkeypatch, path):
     """The link check and the chain walk read the rows through ids: the
     same cut links and the same pg, order and pos as on the gathered rows,
-    natively and through the numpy fallback."""
+    natively and through the numpy fallback. The device path's check
+    (kernel J's plain version) runs on the table packed through the ids, the
+    host's on the gathered rows."""
     if path == "numpy":
         monkeypatch.setattr(native, "chain_walk_assemble", lambda *a, **k: None)
     codes, ids = hq_matrix(25)
     res = ref_scs.find_overlaps(codes[ids], 1.0)
     bad = np.nonzero(res.succ >= 0)[0][::17]
     res.overlap[bad] = np.maximum(res.overlap[bad] - 3, 1)   # links the check cuts
-    a = overlap_host.OverlapResult(res.succ.copy(), res.overlap.copy(), L)
+    succ, ovl = torch.from_numpy(res.succ.copy()), torch.from_numpy(res.overlap.copy())
+    sweep_verify.sweep_verify_links(
+        *state.sweep_lanes_to_device(*packed_host.pack_lanes(codes, rows=ids), "cpu"), L,
+        succ, ovl, torch.zeros(sweep_verify.COUNTS, dtype=torch.int32))
+    a = overlap_host.OverlapResult(succ.numpy(), ovl.numpy(), L)
     b = overlap_host.OverlapResult(res.succ.copy(), res.overlap.copy(), L)
-    overlap_host._verify_links(a, codes, ids)
     overlap_host._verify_links(b, codes[ids])
     np.testing.assert_array_equal(a.succ, b.succ)
     assert (a.succ != res.succ).sum() > 0

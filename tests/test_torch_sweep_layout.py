@@ -8,7 +8,7 @@ import torch
 from pgrc_tpu.core import packed as ref_packed
 from pgrc_tpu_torch import state
 from pgrc_tpu_torch.core import packed
-from pgrc_tpu_torch.kernels import sweep, sweep_compact, sweep_init
+from pgrc_tpu_torch.kernels import sweep, sweep_compact, sweep_init, sweep_verify
 
 
 def codes_of(n, L, with_n, seed):
@@ -114,13 +114,14 @@ def refused_tables():
             "column stride below the rows": flat.as_strided((8, 50), (49, 1))}
 
 
-KERNELS = ["sweep_roll_entries", "sweep_roll_records", "sweep_full_hashes", "sweep_compact"]
+KERNELS = ["sweep_roll_entries", "sweep_roll_records", "sweep_full_hashes", "sweep_compact",
+           "sweep_verify_links"]
 
 
 @pytest.mark.parametrize("fault", ["columns not contiguous", "column stride below the rows"])
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_wrappers_refuse_other_layouts(kernel, fault):
-    """Kernels D (both forms), G and H refuse lanes whose columns are not
+    """Kernels D (both forms), G, H and J refuse lanes whose columns are not
     contiguous (stride(1) != 1, e.g. a row-major table transposed) or whose
     column stride is below the rows: on the CPU as on the card, before any
     work. The same table in the sweep's layout is taken."""
@@ -142,6 +143,11 @@ def test_wrappers_refuse_other_layouts(kernel, fault):
                                             *sweep.record_buffers(n, "cpu"))
         if kernel == "sweep_full_hashes":
             return sweep_init.sweep_full_hashes(lanes, None, L)
+        if kernel == "sweep_verify_links":
+            return sweep_verify.sweep_verify_links(
+                lanes, None, L, torch.full((n,), -1, dtype=torch.int32),
+                torch.zeros(n, dtype=torch.int32),
+                torch.zeros(sweep_verify.COUNTS, dtype=torch.int32))
         return sweep_compact.sweep_compact(lanes, None, ids, *hashes, *flags)
 
     with pytest.raises(ValueError, match="contiguous" if "contiguous" in fault else "stride"):

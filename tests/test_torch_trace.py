@@ -17,7 +17,9 @@ from pgrc_tpu_torch import native, state
 from pgrc_tpu_torch.archive import encoder
 from pgrc_tpu_torch.config import PgRCParams
 from pgrc_tpu_torch.overlap import greedy_scs
+from pgrc_tpu_torch.overlap import host as overlap_host
 from pgrc_tpu_torch.utils import trace, uint
+from test_overlap import sample_genome_reads
 from test_roundtrip import synth_fastq
 
 STAGES = ["input", "div", "pgdiv", "good", "match", "bad", "order", "pgseq"]
@@ -353,6 +355,47 @@ def test_an_encode_counts_its_transfers(src, tmp_path, monkeypatch, encoded):
     assert rounds > 0 and c["device_syncs"] >= rounds + 2 * tables + 2
     assert c["h2d_bytes"] > 5000 * 100 // 4 and c["h2d_copies"] >= tables
     assert c["d2h_bytes"] >= 8 * rounds
+
+
+def test_the_sweeps_count_their_link_checks(src, tmp_path, encoded):
+    """Every device sweep table checks its links on the device (kernel J;
+    its plain version here) and counts the links it checked and cut, with
+    no device read of its own; the archive is the one the numpy sweep, whose
+    links the host checks, writes."""
+    c = encoded[0].counters
+    assert 0 <= c["sweep.links_cut"] <= c["sweep.links_verified"]
+    assert c["sweep.links_verified"] > 6000 // 2
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(greedy_scs, "_HOST_SWEEP_MAX", 10**9)
+        stats, got = _encode(src, str(tmp_path / "host.pgtc"), device_sweep=False)
+    assert "sweep.links_verified" not in stats.counters
+    assert got == encoded[1]
+
+
+def test_a_sweep_counts_the_links_it_cuts(monkeypatch):
+    """A device sweep's links, some of their overlaps shortened before the
+    check (as a double hash collision would leave them): the links cut are
+    the host check's, and the counters count them, outside any device read."""
+    codes = sample_genome_reads(4000, 100, 40_000, seed=5)
+    real, seen = greedy_scs.sweep_verify_links, {}
+
+    def shorten(lanes, nmask, L, succ, ovl, counts):
+        some = torch.nonzero(succ >= 0).squeeze(1)[::9]
+        ovl[some] = (ovl[some] - 2).clamp(min=1)
+        seen["res"] = overlap_host.OverlapResult(succ.numpy().copy(), ovl.numpy().copy(), L)
+        real(lanes, nmask, L, succ, ovl, counts)
+
+    monkeypatch.setattr(greedy_scs, "sweep_verify_links", shorten)
+    with trace.record("root") as rec:
+        res = greedy_scs.find_overlaps(codes, device=CPU)
+    want = seen["res"]
+    checked = int((want.succ >= 0).sum())
+    overlap_host._verify_links(want, codes)
+    np.testing.assert_array_equal(res.succ, want.succ)
+    np.testing.assert_array_equal(res.overlap, want.overlap)
+    cut = checked - int((res.succ >= 0).sum())
+    assert 0 < cut < checked and checked > 3000
+    assert rec.counters == {"sweep.links_verified": checked, "sweep.links_cut": cut}
 
 
 def test_native_fallbacks_are_counted(tmp_path, monkeypatch):
