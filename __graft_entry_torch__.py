@@ -50,7 +50,7 @@ def _example_data(n_reads=1024, read_len=100, pg_len=65536, seed=0):
     reads = pg[starts[:, None] + np.arange(read_len)[None, :]].copy()
     err = rng.random(reads.shape) < 0.01
     reads[err] = (reads[err] + rng.integers(1, 4, size=int(err.sum()))) % 4
-    index = matcher.build_index(pg, bits=16)
+    index = matcher.build_index(pg)
     offs = tuple(matcher.probe_offsets(read_len, index.k, matcher.DEFAULT_K2))
     return reads, pg, index, offs
 

@@ -5,7 +5,7 @@
 
 Phases, each printed with its times; the first failure exits nonzero:
   1. device: the card's name and power limit (nvidia-smi), torch, CUDA,
-     nvcc, and whether the host layer's native library loaded;
+     nvcc, and the host layer's native library, built and loaded;
   2. build: the CUDA kernels from pgrc_tpu_torch/kernels/csrc;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes — outputs must be bit-equal — and both timed
@@ -56,7 +56,8 @@ Phases, each printed with its times; the first failure exits nonzero:
      (__graft_entry_torch__.entry) on the card against its CPU run;
   4. SE 200k (bench.py's headline input): compress through the port's CLI
      on the card, decode with the port's decoder, require an exact multiset
-     round trip, every kernel launched, and bits/base <= 0.1412;
+     round trip, the port's validator (`-d -i`) to pass, every kernel
+     launched, and bits/base <= 0.1412;
   5. SE 2M (bench.py's scale input): the same, with bits/base <= 0.1384;
      A, E, F, G, G2 (and its fill), D, H, I and J against their plain
      versions on the inputs of
@@ -100,16 +101,12 @@ Phases, each printed with its times; the first failure exits nonzero:
      in no other mode) and held against its plain version on its pass-2
      take, timed beside one torch.index_select of the same rows;
   8. PE 2x200k and SE_ORD 200k (bench.py's inputs): exact round trips,
-     bits/base, Mbases/s, peak device memory, kernels launched;
-  8b. bench_torch.py (the port's twin of bench.py) in a child process at
-     BENCH_TORCH_ENV's sizes: 200k reads (phase 4's input and pair file),
-     the scale row off, the big row at 1M reads through its own child
-     processes; rc 0 and a result line with no error, its RSS probe (the
-     resident and shared sizes after each import and the device's set-up)
-     and the big row's peak RSS by stage printed. Then the repeat
-     genome at 200k (the bench's input file, bench.py's seed 11) through the
-     port's CLI on the card and on the CPU: byte-identical archives, an exact
-     decode, kernels launched;
+     the validator passing (PE against both files), bits/base, Mbases/s,
+     peak device memory, kernels launched;
+  8b. the repeat genome at 200k reads (bench.py's seed 11 and genome
+     length, made by `pgrc_tpu_torch.synth`) through the port's CLI on the
+     card and on the CPU: byte-identical archives, an exact decode, the
+     validator passing, kernels launched;
   9. mesh: MESH_RANKS ranks sharing the card (gloo, which takes the
      ranks' CUDA tensors; parallel.mesh.launch, after the kernels were
      built in phase 2): a rank that raises must fail the launch; gloo's
@@ -244,10 +241,10 @@ BENCH_200K = (  # label, argv, decode check, pgrc_tpu's bits/base (BENCH_r05.jso
     ("PE 2x200k", ["-i", "{s}", "{p}"], "pairs", 0.1728),
     ("SE_ORD 200k", ["-o", "-i", "{s}"], "order", 0.3052),
 )
-# phase 8b: bench_torch.py's sizes, and the repeat genome's row
-BENCH_TORCH_ENV = {"PGRC_BENCH_READS": "200000", "PGRC_BENCH_SCALE_READS": "0",
-                   "PGRC_BENCH_BIG_READS": "1000000"}
+# phase 8b: the repeat genome's row, and its input: reads, genome length
+# (bench.py's, max(reads * 100 // 40, 200k)) and seed
 BENCH_REPEAT = ("repeat 200k", 0.1339)  # label, pgrc_tpu's bits/base (BENCH_r05.json)
+REPEAT_INPUT = (200_000, 500_000, 11)
 # the card's rates for the bound: HBM3 bytes per second (the published
 # 3.35 TB/s), and 32-bit integer operations per second: 132 SMs x 64 INT32
 # operations a clock x 1.98 GHz (the SXM part's SM count and boost clock)
@@ -373,9 +370,10 @@ def phase_device() -> str:
     nvcc = subprocess.run([build.nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60, check=True)
     zstd = codecs._zstd.ZSTD_VERSION if codecs._zstd is not None else None
+    native.get_lib()  # raises when it cannot be built or loaded
     say(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"nvcc: {(nvcc.stdout.strip().splitlines() or ['?'])[-1]} | "
-        f"host native library loaded: {native.get_lib() is not None} | "
+        f"host native library loaded | "
         f"zstd {zstd} (stream coders are host code: their library versions "
         f"decide archive bytes)")
     return smi
@@ -2627,6 +2625,7 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
         f"stage s {stages}, "
         f"exact multiset round trip {same}, launches {launches}")
     require(same, f"{label}: decoded reads differ from the input")
+    validates(label, archive, [src], n_reads)
     require(cpu_same is not False, f"{label}: the card's archive differs from the CPU's")
     require(bits <= gate, f"{label}: {bits:.6f} bits/base exceeds {gate}")
     if codecs._zstd is None:
@@ -2723,6 +2722,22 @@ def unordered(a, b):
     swap = diff.any(axis=1) & (a[rows, first] > b[rows, first])
     return np.where(swap[:, None], np.concatenate([b, a], axis=1),
                     np.concatenate([a, b], axis=1))
+
+
+def validates(label: str, archive: str, srcs: list, n_reads: int) -> float:
+    """The port's validator (`-d -i`, decoder.validate: streamed
+    fingerprints, or byte compares in the order-keeping modes) on an
+    archive against its source file(s): no error, and every read seen.
+    -> seconds."""
+    from pgrc_tpu_torch.archive import decoder
+
+    t0 = time.time()
+    report = decoder.validate(archive, *srcs)
+    val_s = time.time() - t0
+    say(f"[{label}] validate against {len(srcs)} file(s): {report} in {val_s:.2f} s")
+    require(report["errors"] == 0 and report["reads"] == n_reads,
+            f"{label}: the validator reports {report}, not 0 errors in {n_reads} reads")
+    return val_s
 
 
 def decodes_exactly(archive: str, prefix: str, kind: str, inputs: list):
@@ -2985,9 +3000,10 @@ def phase_bench_200k(src: str, pair: str, codes) -> None:
     """bench.py's PE and SE_ORD rows on the card: exact round trips."""
     from pgrc_tpu_torch import cli, kernels
 
+    files = {"{s}": src, "{p}": pair}
     inputs = {"{s}": codes, "{p}": fastq_codes(pair)}
     for label, argv_t, kind, ref_bpb in BENCH_200K:
-        argv = [{"{s}": src, "{p}": pair}.get(a, a) for a in argv_t]
+        argv = [files.get(a, a) for a in argv_t]
         ins = [inputs[a] for a in argv_t if a in inputs]
         archive = os.path.join(os.path.dirname(src), label.replace(" ", "_") + ".pgtc")
         torch.cuda.synchronize()
@@ -3010,46 +3026,24 @@ def phase_bench_200k(src: str, pair: str, codes) -> None:
             f"Mbases/s, peak device memory {peak_mb:.0f} MiB, exact round trip "
             f"({kind}) {exact}, launches {launches}")
         require(exact, f"{label}: the decoded reads differ from the input")
+        validates(label, archive, [files[a] for a in argv_t if a in files],
+                  sum(c.shape[0] for c in ins))
         require_launched(label, launches, spy)
 
 
-def phase_bench_torch(work: str, src: str, pair: str) -> None:
-    """bench_torch.py at BENCH_TORCH_ENV's sizes in a child process, on phase
-    4's input (bench.py's seed and genome at 200k reads); then the repeat
-    genome's file that it wrote, compressed through the port's CLI on the
+def phase_repeat(work: str) -> None:
+    """The repeat genome at 200k reads (bench.py's seed 11 and genome
+    length), made with `synth`, compressed through the port's CLI on the
     card and on the CPU: the same bytes and an exact decode."""
-    from pgrc_tpu_torch import cli, kernels
-
-    bench_dir = os.path.join(work, "bench")
-    os.makedirs(bench_dir)
-    n = BENCH_TORCH_ENV["PGRC_BENCH_READS"]
-    for path, name in ((src, f"bench_{n}.fastq"), (pair, f"bench_{n}_2.fastq")):
-        os.link(path, os.path.join(bench_dir, name))
-    free_card()
-    t0 = time.time()
-    p = subprocess.run([sys.executable, os.path.join(HERE, "bench_torch.py")],
-                       env={**os.environ, **BENCH_TORCH_ENV, "PGRC_BENCH_TMP": bench_dir},
-                       capture_output=True, text=True, timeout=900)
-    lines = p.stdout.strip().splitlines()
-    say(f"[bench_torch] {BENCH_TORCH_ENV}: rc {p.returncode} in {time.time() - t0:.1f} s; "
-        f"its rows:\n" + "\n".join(p.stderr.strip().splitlines()[-12:]))
-    try:
-        got = json.loads(lines[-1])
-    except (IndexError, ValueError):
-        got = {"error": f"no result line: {p.stdout[-300:]!r} {p.stderr[-1500:]!r}"}
-    say(f"[bench_torch] {json.dumps(got)}")
-    probe, stages = got.get("rss_probe") or {"error": "missing"}, got.get("big_stage_rss_mb")
-    say(f"[bench_torch] rss probe (statm after each step, MB): {json.dumps(probe)}")
-    say(f"[bench_torch] big row ({BENCH_TORCH_ENV['PGRC_BENCH_BIG_READS']} reads): each "
-        f"stage's own peak RSS {json.dumps(stages)} MB; after the set-up "
-        f"{got.get('big_init_rss_mb')} MB, the encode's peak {got.get('big_peak_rss_mb')} MB")
-    require(p.returncode == 0 and "error" not in got,
-            f"bench_torch.py failed (rc {p.returncode}): {got.get('error')}")
-    require("error" not in probe and isinstance(stages, dict) and "match" in stages,
-            f"bench_torch.py gave no RSS probe or stage peaks: {probe.get('error')}")
+    from pgrc_tpu_torch import cli, kernels, synth
 
     label, ref_bpb = BENCH_REPEAT
-    rep_src = os.path.join(bench_dir, f"bench_rep_{n}.fastq")
+    n, genome_len, seed = REPEAT_INPUT
+    rep_src = os.path.join(work, f"bench_rep_{n}.fastq")
+    t0 = time.time()
+    codes = synth.synth_fastq(rep_src, n, 100, genome_len, seed=seed, repeats=True)
+    say(f"[{label}] input synth {time.time() - t0:.1f} s")
+    free_card()
     card, cpu = (os.path.join(work, f"repeat.{d}.pgtc") for d in ("card", "cpu"))
     kernels.reset_launches()
     t0 = time.time()
@@ -3065,7 +3059,6 @@ def phase_bench_torch(work: str, src: str, pair: str) -> None:
     cpu_s = time.time() - t0
     with open(card, "rb") as a, open(cpu, "rb") as b:
         same = a.read() == b.read()
-    codes = fastq_codes(rep_src)
     exact, dec_s = decodes_exactly(card, os.path.join(work, "repeat.dec"), "reads", [codes])
     size = os.path.getsize(card)
     say(f"[{label}] archive {size} B, {size * 8 / codes.size:.6f} bits/base (pgrc_tpu with "
@@ -3073,6 +3066,7 @@ def phase_bench_torch(work: str, src: str, pair: str) -> None:
         f"byte-identical to the CPU's {same}, exact decode {exact}, launches {launches}")
     require(same, f"{label}: the card's archive differs from the CPU's")
     require(exact, f"{label}: the decoded reads differ from the input")
+    validates(label, card, [rep_src], n)
     require_launched(label, launches, spy)
 
 
@@ -3444,7 +3438,7 @@ def main(argv=None) -> int:
         phase_bench_200k(src, pair, codes)
         say(f"[time] phase 8 {time.time() - t0:.1f} s")
         t0 = time.time()
-        phase_bench_torch(work, src, pair)
+        phase_repeat(work)
         say(f"[time] phase 8b {time.time() - t0:.1f} s")
         t0 = time.time()
         variant_launches.update(phase_mesh(dev, work, src, timings))

@@ -251,7 +251,8 @@ def _rows_meta(ar: Archive, joined_rows: np.ndarray):
 def _chunk_lines(ar: Archive, joined_pg: np.ndarray, pos: np.ndarray,
                  is_hq: np.ndarray, rl, flip_raw: bool):
     """Fused native reconstruction of one output chunk to ASCII line bytes;
-    returns None when native is unavailable (caller takes the numpy path).
+    returns None for u16 offsets or where the native pass rejects the
+    chunk (caller takes the numpy path).
 
     Touches the output bytes exactly once (window copy + rc + mismatches +
     ASCII in one threaded pass) — the decode analog of the reference's
@@ -281,8 +282,9 @@ def _chunk_lines(ar: Archive, joined_pg: np.ndarray, pos: np.ndarray,
 
 def iter_decoded_line_chunks(ar: Archive, chunk: int = _DECODE_CHUNK):
     """Yield (file_idx, line-bytes) chunks in output order via the fused
-    native decoder; falls back to formatting the numpy matrices."""
-    from ..core import fastq as fastq_mod
+    native decoder; a chunk it returns None for is formatted from the
+    numpy matrices."""
+    from .. import native
 
     L = ar.read_len
     joined_pg = np.concatenate([ar.hq_pg, ar.lq_pg, ar.n_pg])
@@ -307,7 +309,7 @@ def iter_decoded_line_chunks(ar: Archive, chunk: int = _DECODE_CHUNK):
                 if flip:
                     raw = rows >= ar.hq_count
                     mat[raw] = packed.revcomp_codes_matrix(mat[raw])
-                data = fastq_mod.reads_lines_bytes(mat)
+                data = native.reads_write_lines(mat)
             yield fi, data
         return
     # ORD modes: positions by original index; hq entry k = k-th hq member
@@ -333,7 +335,7 @@ def iter_decoded_line_chunks(ar: Archive, chunk: int = _DECODE_CHUNK):
                     mat[rows] = reconstruct_at(joined_pg, p[rows], L, rl)
                 if flip:
                     mat[~is_hq] = packed.revcomp_codes_matrix(mat[~is_hq])
-                data = fastq_mod.reads_lines_bytes(mat)
+                data = native.reads_write_lines(mat)
             yield fi, data
 
 

@@ -80,7 +80,7 @@ class EncodeStats:
     peaks: rss.StagePeaks = field(default=None, repr=False, compare=False)
     # the encode's recorder, exported (`utils.trace.Recorder.export`): its
     # spans, and its counters (h2d_bytes, h2d_copies, d2h_bytes,
-    # device_syncs, native_fallbacks, launch.<kernel>)
+    # device_syncs, launch.<kernel>, pgmatch.index_builds, ...)
     spans: list = field(default=None, repr=False, compare=False)
     counters: dict = field(default=None, repr=False, compare=False)
 

@@ -98,7 +98,7 @@ def decode_pair_order(reader: StreamReader, store_file_flags: bool) -> np.ndarra
     from .. import native
 
     order = native.pair_walk_decode(offs)
-    if order is None:  # pure-python fallback (no compiler in env)
+    if order is None:  # offsets the native walk refuses: the Python walk
         order = np.empty(r, dtype=np.int64)
         done = np.zeros(r, dtype=bool)
         i = 0

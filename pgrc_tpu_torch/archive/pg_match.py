@@ -7,23 +7,22 @@ on decode — the TPU-friendly equivalent of matching/SimplePgMatcher.cpp:
 69-148 (markAndRemoveExactMatches), :160-173 (self collision resolution),
 :259-351 (restore).
 
-Anchors come from the same rolling-hash CSR index as the read matcher;
-anchor pairs are extended to maximal runs with block-wise vectorized
-comparison rounds instead of per-symbol loops.
+The matches are found by the native scanner (`native.PgIndex`,
+native/pgmatch.cpp): one sampled k-mer index of the hq pg, built once and
+scanned by every query on threads.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .. import native
-from ..align import host as align_matcher
 from ..streams import props
 from ..streams.container import StreamReader
 from ..streams.varlen_dna import MARK
 from ..utils import dna
 from ..utils.errors import PgtcFormatError
 from ..utils.trace import span
-from ..utils.varint import encode_varints, decode_varints, write_varint, read_varint
+from ..utils.varint import encode_varints, decode_varints
 
 # copMEM sampling guarantee (CopMEMMatcher.cpp:111-137): with coprime strides
 # k1 (source) and k2 (query), every exact match of length >= k + k1*k2 - 1
@@ -33,121 +32,12 @@ ANCHOR_K = 24
 SRC_STRIDE = 7
 DEST_STRIDE = 3
 CAP = 4
-EXTEND_BLOCK = 64
-
-
-def _find_matches(src: np.ndarray, index, query: np.ndarray, min_len: int) -> np.ndarray:
-    """Maximal exact matches (>= min_len) of query vs src via sampled anchors.
-
-    Returns [M, 3] (src_pos, query_pos, length), deduplicated.
-    """
-    nq = query.shape[0]
-    k = index.k
-    if nq < k or index.positions.size == 0:
-        return np.zeros((0, 3), dtype=np.int64)
-    qh = align_matcher._window_hashes(query, k)
-    probes = np.arange(0, nq - k + 1, DEST_STRIDE, dtype=np.int64)
-    qh_p = qh[probes]
-    # equal-range lookup in the hash-sorted index (v2: no CSR buckets)
-    lo = np.searchsorted(index.hash_sorted, qh_p, side="left")
-    cnt = np.searchsorted(index.hash_sorted, qh_p, side="right") - lo
-    slot = np.arange(CAP, dtype=np.int64)
-    cand = lo[:, None] + slot[None, :]
-    valid = slot[None, :] < np.minimum(cnt, CAP)[:, None]
-    cand = np.clip(cand, 0, max(index.pos_sorted.size - 1, 0))
-    spos = index.pos_sorted[cand]                      # [P, C]
-    qpos = np.broadcast_to(probes[:, None], spos.shape)
-    spos = spos[valid]
-    qpos = qpos[valid]
-    if spos.size == 0:
-        return np.zeros((0, 3), dtype=np.int64)
-    # confirm the anchor k-mer is a true match (hash bucket is lossy)
-    ok = np.ones(spos.size, dtype=bool)
-    for t in range(0, k, 8):
-        w = min(8, k - t)
-        ok &= (src[spos[:, None] + np.arange(t, t + w)] ==
-               query[qpos[:, None] + np.arange(t, t + w)]).all(axis=1)
-    spos, qpos = spos[ok], qpos[ok]
-    if spos.size == 0:
-        return np.zeros((0, 3), dtype=np.int64)
-    # anchors on one diagonal inside one maximal run are redundant — extending
-    # each would redo O(run length) work per anchor (quadratic on a
-    # pg-sized repeat). Iteratively: extend only the FIRST remaining anchor
-    # per diagonal, then discard anchors covered by the found runs.
-    diag = spos - qpos
-    order = np.lexsort((qpos, diag))
-    spos, qpos, diag = spos[order], qpos[order], diag[order]
-    dedup = np.ones(spos.size, dtype=bool)
-    dedup[1:] = (diag[1:] != diag[:-1]) | (qpos[1:] != qpos[:-1])
-    spos, qpos, diag = spos[dedup], qpos[dedup], diag[dedup]
-    runs = []
-    while spos.size:
-        first = np.ones(spos.size, dtype=bool)
-        first[1:] = diag[1:] != diag[:-1]
-        fs, fq = spos[first], qpos[first]
-        left = _extend(src, query, fs, fq, direction=-1)
-        right = _extend(src, query, fs + ANCHOR_K, fq + ANCHOR_K, direction=+1)
-        q0 = fq - left
-        s0 = fs - left
-        ln = left + ANCHOR_K + right
-        runs.append(np.stack([s0, q0, ln], axis=1))
-        # drop anchors whose k-mer lies inside a run found on their diagonal
-        run_of_anchor = np.cumsum(first) - 1      # index into this pass's runs
-        covered = (qpos >= q0[run_of_anchor]) & \
-                  (qpos + ANCHOR_K <= q0[run_of_anchor] + ln[run_of_anchor])
-        spos, qpos, diag = spos[~covered], qpos[~covered], diag[~covered]
-    m = np.concatenate(runs, axis=0)
-    m = m[m[:, 2] >= min_len]
-    if m.size == 0:
-        return np.zeros((0, 3), dtype=np.int64)
-    return np.unique(m, axis=0)
-
-
-def _extend(src, query, spos, qpos, direction: int) -> np.ndarray:
-    """Length of the maximal equal run from (spos, qpos) in `direction`
-    (exclusive of the anchor). Block-compare rounds, then a final per-symbol
-    pass inside the failing block."""
-    ns, nq = src.shape[0], query.shape[0]
-    ext = np.zeros(spos.shape[0], dtype=np.int64)
-    active = np.ones(spos.shape[0], dtype=bool)
-    while active.any():
-        ai = np.nonzero(active)[0]
-        if direction > 0:
-            s = spos[ai] + ext[ai]
-            q = qpos[ai] + ext[ai]
-            room = np.minimum(ns - s, nq - q)
-        else:
-            s = spos[ai] - ext[ai]
-            q = qpos[ai] - ext[ai]
-            room = np.minimum(s, q)
-        blk = np.minimum(room, EXTEND_BLOCK)
-        can = blk > 0
-        if not can.any():
-            active[ai] = False
-            break
-        off = np.arange(EXTEND_BLOCK, dtype=np.int64)
-        if direction > 0:
-            si = s[:, None] + off[None, :]
-            qi = q[:, None] + off[None, :]
-        else:
-            si = s[:, None] - 1 - off[None, :]
-            qi = q[:, None] - 1 - off[None, :]
-        si = np.clip(si, 0, ns - 1)
-        qi = np.clip(qi, 0, nq - 1)
-        eq = src[si] == query[qi]
-        eq &= off[None, :] < blk[:, None]
-        # first inequality position = run length in this block
-        run = np.where(eq.all(axis=1), blk, eq.argmin(axis=1))
-        run = np.minimum(run, blk)
-        ext[ai] += run
-        active[ai] = can & (run == blk) & (blk == EXTEND_BLOCK)
-    return ext
 
 
 def _mark_and_remove(
     src: np.ndarray, index, dest: np.ndarray, min_len: int, self_match: bool
 ):
-    """Replace matches of revcomp(dest) vs src, found through `index` (a
+    """Replace matches of revcomp(dest) vs src, found through `index` (the
     `scan_index` of src), with MARK tokens.
 
     Returns (new_dest, offsets int64 array, lengths int64 array).
@@ -158,27 +48,19 @@ def _mark_and_remove(
         return dest, np.zeros(0, np.int64), np.zeros(0, np.int64)
     with span(_SCAN[self_match], dest=dest_len) as sp:
         query = dna.COMPL_VAL[dest[::-1]]  # revcomp(dest)
-        m, sp.attrs["threads"] = _scan(src, index, query, min_len)
-        sp.attrs["runs"] = m.shape[0]
+        threads = native.scan_threads(query.size, ANCHOR_K, DEST_STRIDE)
+        m = index.find_matches(query, min_len, DEST_STRIDE, CAP * 4, threads)
+        sp.attrs.update(threads=threads, runs=m.shape[0])
     if m.size == 0:
         return dest, np.zeros(0, np.int64), np.zeros(0, np.int64)
     with span(_SELECT[self_match], matches=m.shape[0]):
         return _select(dest, m, min_len, self_match)
 
 
-# span names of a mark & remove's two parts, by self_match: the native or
-# numpy scan for matches, and the Python selection of the marks
+# span names of a mark & remove's two parts, by self_match: the native
+# scan for matches, and the Python selection of the marks
 _SCAN = ("pgmatch.scan", "selfmatch.scan")
 _SELECT = ("pgmatch.select", "selfmatch.select")
-
-
-def _scan(src, index, query, min_len: int):
-    """The matches of query vs src through `index` (a `scan_index`) and the
-    threads the scan took: -> ([M, 3] (src_pos, query_pos, length), n)."""
-    if isinstance(index, native.PgIndex):
-        threads = native.scan_threads(query.size, ANCHOR_K, DEST_STRIDE)
-        return index.find_matches(query, min_len, DEST_STRIDE, CAP * 4, threads), threads
-    return _find_matches(src, index, query, min_len), 1
 
 
 def _select(dest, m, min_len: int, self_match: bool):
@@ -234,18 +116,10 @@ def _select(dest, m, min_len: int, self_match: bool):
     return new_dest, np.asarray(offs, dtype=np.int64), np.asarray(lens, dtype=np.int64)
 
 
-def src_index(src):
-    """The sampled k-mer index of a source pg that the numpy scanner
-    (`_find_matches`) probes."""
-    return align_matcher.build_index(src, k=ANCHOR_K, k1=SRC_STRIDE)
-
-
 def scan_index(src):
-    """The index of a source pg that `_mark_and_remove` scans through, built
-    once and shared by every scan against src: the native `PgIndex`, or
-    without the native library the numpy scanner's (`src_index`)."""
-    index = native.pg_index(src, ANCHOR_K, SRC_STRIDE)
-    return index if index is not None else src_index(src)
+    """The native `PgIndex` of a source pg that `_mark_and_remove` scans
+    through, built once and shared by every scan against src."""
+    return native.pg_index(src, ANCHOR_K, SRC_STRIDE)
 
 
 def self_match_precompute(hq, target_len: int):
@@ -274,8 +148,7 @@ def match_pgs_in_pg(hq, lq, npg, target_len: int, pre=None):
     with span("pgseq.match_lq_n", lq=len(lq), n=len(npg)):
         lq_new, lq_off, lq_len = _mark_and_remove(hq, index, lq, target_len, False)
         n_new, n_off, n_len = _mark_and_remove(hq, index, npg, target_len, False)
-    if isinstance(index, native.PgIndex):
-        index.close()  # the last scan against hq
+    index.close()  # the last scan against hq
     streams = []
     for name, offs, lens in (
         ("lq", lq_off, lq_len), ("n", n_off, n_len), ("hq", hq_off, hq_len)

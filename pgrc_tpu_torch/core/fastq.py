@@ -454,18 +454,7 @@ def contains_n_mask(reads: ReadsSet) -> np.ndarray:
 def write_reads_lines(path: str, codes: np.ndarray) -> None:
     """Write a [N, L] code matrix as ASCII read lines (decoder output format;
     the reference also emits bare read lines, pgrc-decoder.cpp:160-165)."""
-    with open(path, "wb") as f:
-        f.write(reads_lines_bytes(codes))
-
-
-def reads_lines_bytes(codes: np.ndarray) -> bytes:
     from .. import native
 
-    fast = native.reads_write_lines(codes)
-    if fast is not None:
-        return fast
-    n, L = codes.shape
-    out = np.empty((n, L + 1), dtype=np.uint8)
-    out[:, :L] = dna.VAL2SYM[codes]
-    out[:, L] = ord("\n")
-    return out.tobytes()
+    with open(path, "wb") as f:
+        f.write(native.reads_write_lines(codes))

@@ -1,6 +1,6 @@
 """Packed DNA on the host: a copy of pgrc_tpu/core/packed.py's numpy
 packers — `num_lanes`, `pack_2bit`, `unpack_2bit`, `pack_text_2bit`,
-`pack_lanes` (native C++ fast path) and `revcomp_codes_matrix` — with only
+`pack_lanes` (packed by the native library) and `revcomp_codes_matrix` — with only
 the imports changed; the reference's jax.numpy branch of `_xp` is not
 carried, so they take numpy arrays only. `pack_lanes` also takes row ids
 (`rows=`), and finds whether a row holds an N without an [n, L]
@@ -103,9 +103,8 @@ def pack_lanes(codes: np.ndarray, n_pad: int | None = None, rows=None):
     With `rows` ([n] ids) row r packs codes[rows[r]]: the rows are gathered
     while they are packed, never copied out as a matrix.
 
-    Native C++ fast path (native/packcodes.cpp), which also counts the rows
-    with an N, so the mask is made only when there is one; numpy fallback
-    below, a chunk of rows at a time.
+    Packed by native/packcodes.cpp, which also counts the rows with an N,
+    so the mask is made only when there is one.
     """
     n = codes.shape[0] if rows is None else len(rows)
     L = codes.shape[1]
@@ -116,42 +115,11 @@ def pack_lanes(codes: np.ndarray, n_pad: int | None = None, rows=None):
     from .. import native
 
     lanes = np.zeros((n_pad, W + 1), dtype=np.uint32)
-    with_n = native.pack_lanes(codes, lanes[:n], None, rows=rows)
-    if with_n is None:
-        with_n = 0
-        for lo, c in row_chunks(codes, rows):
-            lanes[lo:lo + c.shape[0], :W] = _pack_chunk(c, W)
-            with_n += int((c > 3).any())
-    if not with_n:
+    if not native.pack_lanes(codes, lanes[:n], None, rows=rows):
         return lanes, None
     nmask = np.zeros((n_pad, Wn + 1), dtype=np.uint32)
-    if native.pack_lanes(codes, None, nmask[:n], rows=rows) is None:
-        for lo, c in row_chunks(codes, rows):
-            nmask[lo:lo + c.shape[0], :Wn] = _mask_chunk(c, Wn)
+    native.pack_lanes(codes, None, nmask[:n], rows=rows)
     return lanes, nmask
-
-
-def _pack_chunk(c: np.ndarray, W: int) -> np.ndarray:
-    """[m, L] codes -> [m, W] 2-bit lanes (N packed as A)."""
-    m, L = c.shape
-    pad = W * SYMS_PER_LANE - L
-    c = c & 0x3
-    if pad:
-        c = np.concatenate([c, np.zeros((m, pad), dtype=np.uint8)], axis=1)
-    shifts = np.arange(SYMS_PER_LANE - 1, -1, -1, dtype=np.uint32) * np.uint32(2)
-    return (c.astype(np.uint32).reshape(m, W, SYMS_PER_LANE) << shifts).sum(
-        axis=2, dtype=np.uint32)
-
-
-def _mask_chunk(c: np.ndarray, Wn: int) -> np.ndarray:
-    """[m, L] codes -> [m, Wn] N-position bits."""
-    m, L = c.shape
-    padn = Wn * 32 - L
-    nb = (c > 3).astype(np.uint32)
-    if padn:
-        nb = np.concatenate([nb, np.zeros((m, padn), dtype=np.uint32)], axis=1)
-    shifts_n = np.arange(31, -1, -1, dtype=np.uint32)
-    return (nb.reshape(m, Wn, 32) << shifts_n).sum(axis=2, dtype=np.uint32)
 
 
 def revcomp_codes_matrix(codes):

@@ -1,10 +1,13 @@
-"""Native (C++) fast paths, loaded via ctypes.
+"""Native (C++) host routines, loaded via ctypes.
 
 The reference links vendored C coders directly (coders/rangecoder/*,
 coders/lzma/*); we compile our own translation units into one shared object
-at first use (g++ is in the image, pybind11 is not — hence ctypes). Every
-native routine is bit-compatible with a pure-Python reference implementation
-that remains the fallback when no compiler is available.
+at first use (g++ is in the image, pybind11 is not — hence ctypes). The
+library is required, as the CUDA kernel library is: `get_lib()` raises when
+it cannot be built or loaded, and so does every wrapper. A wrapper returns
+None only for input its C++ routine rejects (an irregular FASTQ, corrupt
+links, a coder's overflowing buffer, a malformed stream), where its caller
+takes the Python path.
 """
 from __future__ import annotations
 
@@ -30,59 +33,54 @@ _SOURCES = [os.path.join(_HERE, "rangecoder.cpp"),
 
 _lock = threading.Lock()
 _lib_handle = None
-_lib_failed = False
 
 
-def _build(so: str = _SO, sources=_SOURCES) -> bool:
-    """Make `so` from `sources` unless it is newer than all of them. One
-    process at a time checks and builds (an flock on `so`.lock), into a
-    file of its own that is renamed into place, so no process ever loads a
-    half-written library, and one that waited finds it built."""
+def _build(so: str, sources) -> str:
+    """Make `so` from `sources` unless it is newer than all of them, and
+    return its path; raise RuntimeError, with g++'s errors, when it cannot
+    be made. One process at a time checks and builds (an flock on
+    `so`.lock), into a file of its own that is renamed into place, so no
+    process ever loads a half-written library, and one that waited finds it
+    built."""
     import fcntl
 
     with open(so + ".lock", "a") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         srcs_mtime = max(os.path.getmtime(s) for s in sources)
         if os.path.exists(so) and os.path.getmtime(so) >= srcs_mtime:
-            return True
+            return so
         tmp = f"{so}.{os.getpid()}.tmp"
         try:
             subprocess.run(
                 ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
                  "-pthread", "-o", tmp, *sources],
-                check=True, capture_output=True, timeout=120,
+                check=True, capture_output=True, text=True, timeout=120,
             )
             os.replace(tmp, so)
-            return True
-        except Exception:
+        except (OSError, subprocess.SubprocessError) as e:
             if os.path.exists(tmp):
                 os.remove(tmp)
-            return False
+            raise RuntimeError(f"g++ could not build {so}: "
+                               f"{getattr(e, 'stderr', None) or e}") from e
+        return so
 
 
 def get_lib():
-    """The loaded shared object, or None when native is unavailable; each
-    None inside an encode counts as one of its `native_fallbacks` (the
-    caller runs its Python fallback)."""
-    lib = _lib_handle if _lib_handle is not None or _lib_failed else _load()
-    if lib is None:
-        trace.count("native_fallbacks")
-    return lib
+    """The loaded shared object, built at first use; raises RuntimeError
+    when it cannot be built or loaded."""
+    return _lib_handle if _lib_handle is not None else _load()
 
 
 def _load():
-    global _lib_handle, _lib_failed
+    global _lib_handle
     with _lock:
-        if _lib_handle is not None or _lib_failed:
+        if _lib_handle is not None:
             return _lib_handle
-        if not _build():
-            _lib_failed = True
-            return None
+        so = _build(_SO, _SOURCES)
         try:
-            lib = ctypes.CDLL(_SO)
-        except OSError:
-            _lib_failed = True
-            return None
+            lib = ctypes.CDLL(so)
+        except OSError as e:
+            raise RuntimeError(f"the native library {so} does not load: {e}") from e
         lib.rc_encode.restype = ctypes.c_int64
         lib.rc_encode.argtypes = [
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
@@ -195,11 +193,11 @@ def _ids(rows, n_rows: int):
 
 def fastq_parse(buf: bytes):
     """Parse a FASTQ buffer -> (codes [N,L] uint8, quality [N,L] uint8) or
-    None when native is unavailable or the input is irregular."""
+    None when the input is empty or irregular."""
     import numpy as np
 
     lib = get_lib()
-    if lib is None or not buf:
+    if not buf:
         return None
     # upper bound on reads: every record is >= 7 bytes ('@\nA\n+\nI\n')
     max_reads = len(buf) // 7 + 1
@@ -232,14 +230,12 @@ def fastq_parse_div_into(buf, read_len: int, qcol: int, final_win: bool,
     where the flag arrays are indexed densely from row_off // row_step.
     With revcomp, reads are written reverse-complemented (fused).
 
-    Returns (n_parsed, bytes_consumed) or None when native is unavailable.
-    With final_win=False a trailing partial record is left unconsumed for
-    the caller to carry into the next window."""
+    Returns (n_parsed, bytes_consumed) or None when the window is
+    irregular. With final_win=False a trailing partial record is left
+    unconsumed for the caller to carry into the next window."""
     import numpy as np
 
     lib = get_lib()
-    if lib is None:
-        return None
     n = len(buf)
     if n == 0:
         return 0, 0
@@ -269,12 +265,10 @@ def reconstruct_lines(pg, pos, read_len: int, rc=None, mis_cum=None,
     """Fused decode: pg windows -> rc -> mismatches -> ASCII lines.
 
     Returns the line bytes ([n*(L+1)] with trailing newlines) or None when
-    native is unavailable (caller falls back to the numpy path)."""
+    the C++ pass rejects its input (caller falls back to the numpy path)."""
     import numpy as np
 
     lib = get_lib()
-    if lib is None:
-        return None
     n = pos.shape[0]
     L = read_len
     out = np.empty(n * (L + 1), dtype=np.uint8)
@@ -308,7 +302,7 @@ def lines_parse(buf: bytes, read_len: int = 0):
     import numpy as np
 
     lib = get_lib()
-    if lib is None or not buf:
+    if not buf:
         return None
     if read_len == 0:
         first_nl = buf.find(b"\n")
@@ -323,12 +317,10 @@ def lines_parse(buf: bytes, read_len: int = 0):
     return codes[:n].copy()
 
 
-def reads_write_lines(codes) -> bytes | None:
+def reads_write_lines(codes) -> bytes:
     import numpy as np
 
     lib = get_lib()
-    if lib is None:
-        return None
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
     n, L = codes.shape
     out = np.empty(n * (L + 1), dtype=np.uint8)
@@ -338,8 +330,6 @@ def reads_write_lines(codes) -> bytes | None:
 
 def rc_encode(data: bytes, order: int, period: int, nsym: int) -> bytes | None:
     lib = get_lib()
-    if lib is None:
-        return None
     cap = len(data) + len(data) // 8 + 64
     out = ctypes.create_string_buffer(cap)
     n = lib.rc_encode(data, len(data), order, period, nsym, out, cap)
@@ -349,10 +339,9 @@ def rc_encode(data: bytes, order: int, period: int, nsym: int) -> bytes | None:
 
 
 def rans_encode(data: bytes) -> bytes | None:
-    """Static order-0 rANS encode (the FSE role); None without native."""
+    """Static order-0 rANS encode (the FSE role); None when the output
+    overflows its buffer."""
     lib = get_lib()
-    if lib is None:
-        return None
     cap = len(data) + len(data) // 4 + 1024
     out = ctypes.create_string_buffer(cap)
     n = lib.rans_encode(data, len(data), out, cap)
@@ -361,10 +350,8 @@ def rans_encode(data: bytes) -> bytes | None:
     return out.raw[:n]
 
 
-def rans_decode(data: bytes, count: int) -> bytes | None:
+def rans_decode(data: bytes, count: int) -> bytes:
     lib = get_lib()
-    if lib is None:
-        return None
     out = ctypes.create_string_buffer(max(count, 1))
     n = lib.rans_decode(data, len(data), count, out)
     if n < 0:
@@ -374,12 +361,10 @@ def rans_decode(data: bytes, count: int) -> bytes | None:
 
 def pair_walk_decode(offs):
     """offs: int64 numpy array of per-pair offsets -> int64 order array
-    [2*n_pairs], or None when native is unavailable / input malformed."""
+    [2*n_pairs], or None when the offsets are malformed."""
     import numpy as np
 
     lib = get_lib()
-    if lib is None:
-        return None
     offs = np.ascontiguousarray(offs, dtype=np.int64)
     out = np.empty(offs.size * 2, dtype=np.int64)
     rc = lib.pair_walk_decode(
@@ -395,13 +380,10 @@ def pack_lanes(codes, lanes_out, nmask_out, rows=None):
     """Pack [n, L] u8 codes, or the rows `rows` ([n] ids) of a [*, L]
     matrix, into pre-allocated u32 lane matrices (see
     core/packed_host.pack_lanes); either output may be None. Returns the
-    number of packed rows holding an N, or None when native is
-    unavailable."""
+    number of packed rows holding an N."""
     import numpy as np
 
     lib = get_lib()
-    if lib is None:
-        return None
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
     rows, rows_p = _ids(rows, codes.shape[0])
     n = codes.shape[0] if rows is None else rows.size
@@ -421,13 +403,11 @@ def chain_walk_assemble(succ, ovl, codes, rows=None):
     """Cycle removal + chain layout + pg assembly (sequential native pass,
     the reference's assemblePseudoGenomeTemplate role); read x is row x of
     `codes`, or row rows[x] with `rows`. Returns (pos [n] i64 in pg order,
-    order [n] i64, pg u8) or None when native is unavailable or the links
-    are corrupt. succ/ovl are not mutated (copies passed)."""
+    order [n] i64, pg u8) or None when the links are corrupt. succ/ovl are
+    not mutated (copies passed)."""
     import numpy as np
 
     lib = get_lib()
-    if lib is None:
-        return None
     succ = np.ascontiguousarray(succ, dtype=np.int32).copy()
     ovl = np.ascontiguousarray(ovl, dtype=np.int32).copy()
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
@@ -523,15 +503,12 @@ class PgIndex:
 
 
 def pg_index(src, k: int, k1: int):
-    """A `PgIndex` of src, or None when native is unavailable."""
-    lib = get_lib()
-    return None if lib is None else PgIndex(lib, src, k, k1)
+    """A `PgIndex` of src."""
+    return PgIndex(get_lib(), src, k, k1)
 
 
 def rcx_encode(data: bytes, nsym: int, order: int) -> bytes | None:
     lib = get_lib()
-    if lib is None:
-        return None
     cap = len(data) + len(data) // 8 + 64
     out = ctypes.create_string_buffer(cap)
     n = lib.rcx_encode(data, len(data), nsym, order, out, cap)
@@ -542,8 +519,6 @@ def rcx_encode(data: bytes, nsym: int, order: int) -> bytes | None:
 
 def rcx_decode(data: bytes, count: int, nsym: int, order: int) -> bytes | None:
     lib = get_lib()
-    if lib is None:
-        return None
     out = ctypes.create_string_buffer(count if count else 1)
     n = lib.rcx_decode(data, len(data), count, nsym, order, out)
     if n != count:
@@ -553,8 +528,6 @@ def rcx_decode(data: bytes, count: int, nsym: int, order: int) -> bytes | None:
 
 def rc_decode(data: bytes, count: int, order: int, period: int, nsym: int) -> bytes | None:
     lib = get_lib()
-    if lib is None:
-        return None
     out = ctypes.create_string_buffer(count if count else 1)
     n = lib.rc_decode(data, len(data), count, order, period, nsym, out)
     if n != count:
@@ -573,12 +546,11 @@ def extract_mismatches(pg, pos, rc, codes, max_mis: int, rows=None,
     a read of odd id is reverse complemented first (the final-output
     orientation of a -r matrix's pair-file reads).
 
-    Returns (mis_cnt uint8 [n], sym flat uint8, off flat uint8) or None."""
+    Returns (mis_cnt uint8 [n], sym flat uint8, off flat uint8), or None
+    when the C++ pass rejects its input."""
     import numpy as np
 
     lib = get_lib()
-    if lib is None:
-        return None
     rows, _ = _ids(rows, codes.shape[0])
     n, L = codes.shape[0] if rows is None else rows.size, codes.shape[1]
     if n == 0:

@@ -334,10 +334,10 @@ def _layout_and_assemble(res: OverlapResult, codes: np.ndarray, rows=None):
     """Chain layout + pg materialisation for a final link set; read x is
     row x of `codes`, or row rows[x] with `rows` ([n] ids).
 
-    Normally one sequential native pass (native/chainwalk.cpp — the
+    One sequential native pass (native/chainwalk.cpp — the
     reference's chain-walk assembly, AbstractOverlapPseudoGenomeGenerator
     .cpp:181-219); the numpy pointer-doubling path is the semantic
-    reference and fallback."""
+    reference, and runs where the native pass finds the links corrupt."""
     if res.succ.size:
         from .. import native
 

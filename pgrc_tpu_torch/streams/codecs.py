@@ -107,12 +107,7 @@ def rans_compress(data: bytes) -> bytes:
 def rans_decompress(data: bytes, raw_len: int) -> bytes:
     from .. import native
 
-    fast = native.rans_decode(data, raw_len)
-    if fast is not None:
-        return fast
-    from . import rans_py
-
-    return rans_py.decode(data, raw_len)
+    return native.rans_decode(data, raw_len)
 
 
 def is_available(codec: "Codec") -> bool:

@@ -15,6 +15,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
+from .. import native
 from ..utils.errors import PgtcFormatError
 from ..utils.varint import read_varint, write_varint
 from . import codecs
@@ -159,6 +160,8 @@ def _read_record(buf: memoryview, pos: int) -> tuple[Codec, int, bytes, int]:
 
 
 def _decompress_record(codec: Codec, payload: bytes, raw_len: int) -> bytes:
+    # a library that cannot be built raises as itself, not as a corrupt stream
+    native.get_lib()
     try:
         out = codec.decompress(payload, raw_len)
     except PgtcFormatError:

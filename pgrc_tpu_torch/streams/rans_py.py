@@ -1,8 +1,9 @@
 """Pure-Python mirror of native/rans.cpp (static order-0 rANS, FSE role).
 
 Bit-compatible with the native coder: same normalization, same stream
-layout, same renormalization — archives encode/decode identically whether
-or not a compiler is available (the native path is the fast one)."""
+layout, same renormalization. It encodes where the native coder's output
+buffer overflows (`codecs.rans_compress`), and is the tests' reference for
+the native coder."""
 from __future__ import annotations
 
 SCALE_BITS = 12

@@ -5,7 +5,7 @@ Every encode (`archive.encoder.encode`) is one recorder, opened by
 and sub-stage, on the main thread and on the encode's worker threads (the
 stage-7 self-match and the pseudogenome writer, started by `start_thread`),
 and the encode's counters (host<->device bytes and device reads from
-`state`, kernel launches, native fallbacks). A span has a stable name
+`state`, kernel launches, the stage-7 index). A span has a stable name
 (sizes go in its attrs, never in the name), its recorder's encode id, its
 parent, its thread's name, and its start and end on
 `time.perf_counter_ns()`. The encode's spans and counters come back on its

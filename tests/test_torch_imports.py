@@ -33,8 +33,8 @@ import pgrc_tpu_torch.kernels.kmer_hash, pgrc_tpu_torch.kernels.sweep
 import pgrc_tpu_torch.kernels.join_carry, pgrc_tpu_torch.kernels.sweep_pair_claim
 import pgrc_tpu_torch.kernels.strand_rows, __graft_entry_torch__
 import pgrc_tpu_torch.archive.decoder, pgrc_tpu_torch.core.analyzer
-import pgrc_tpu_torch.sweep_scale, pgrc_tpu_torch.synth
-import pgrc_tpu_torch.parallel, pgrc_tpu_torch.parallel.mesh, bench_torch
+import pgrc_tpu_torch.synth
+import pgrc_tpu_torch.parallel, pgrc_tpu_torch.parallel.mesh
 from __graft_entry_torch__ import dryrun_multichip, dryrun_multihost, entry
 from pgrc_tpu_torch.kernels import build
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
@@ -75,13 +75,13 @@ REF_IMPORT = re.compile(r"^\s*(import|from)\s+pgrc_tpu(\.\w+)*(\s|,|$)")
 PORT_FILES = sorted(os.path.relpath(f, ROOT) for f in
                     glob.glob(os.path.join(ROOT, "pgrc_tpu_torch", "**", "*.py"),
                               recursive=True)) + ["chip_smoke.py", "__graft_entry_torch__.py",
-                                        "bench_torch.py", "ab.py"]
+                                        "ab.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_no_line_imports_the_jax_package(path):
-    """No module of the port, nor the smoke script, the port's graft entry,
-    its benchmark or ab.py, imports `pgrc_tpu` (nor bench.py, which does)."""
+    """No module of the port, nor the smoke script, the port's graft entry
+    or ab.py, imports `pgrc_tpu` (nor bench.py, which does)."""
     with open(os.path.join(ROOT, path)) as f:
         bad = [(i, line.rstrip()) for i, line in enumerate(f, 1)
                if REF_IMPORT.match(line) or re.match(r"^\s*import\s+bench\b", line)]

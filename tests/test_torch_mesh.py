@@ -151,7 +151,7 @@ def test_match_reads_mesh_identical(tmp_path, mesh8, accept_mis):
                         mesh=mesh8)
     for a, b in ((m1.pos, m8.pos), (m1.rc, m8.rc), (m1.mis, m8.mis)):
         np.testing.assert_array_equal(a, b)
-    port_index = port_matcher.build_index(pg, bits=18)
+    port_index = port_matcher.build_index(pg)
     for pos, rc, mis in on_ranks(tmp_path, rank_match, reads, port_index, pg, 26, accept_mis):
         np.testing.assert_array_equal(pos, m1.pos)
         np.testing.assert_array_equal(rc, m1.rc)

@@ -3,8 +3,8 @@ the encode it instruments, on the CPU: nesting, parents, encode ids and
 thread names, `stage_times` as a view of the stage spans, the main thread's
 cover of the encode, the archive's bytes under the profiler and the
 printer, the spans' place in a profiler's trace, the transfer counters of
-`state`'s helpers, the native fallback counter, and no string built while
-printing is off."""
+`state`'s helpers, the stage-7 scans through one native index, and no
+string built while printing is off."""
 import collections
 import re
 import threading
@@ -398,13 +398,22 @@ def test_a_sweep_counts_the_links_it_cuts(monkeypatch):
     assert rec.counters == {"sweep.links_verified": checked, "sweep.links_cut": cut}
 
 
-def test_native_fallbacks_are_counted(tmp_path, monkeypatch):
-    path = str(tmp_path / "small.fastq")
-    synth_fastq(path, 400, 100, 3000, seed=3)
-    stats, want = _encode(path, str(tmp_path / "n.pgtc"))
-    assert "native_fallbacks" not in stats.counters
-    monkeypatch.setattr(native, "_lib_handle", None)
-    monkeypatch.setattr(native, "_lib_failed", True)
-    stats, got = _encode(path, str(tmp_path / "f.pgtc"))
-    assert stats.counters["native_fallbacks"] > 0
-    assert got == want
+def test_stage_7_scans_run_through_one_native_index(src, encoded, tmp_path, monkeypatch):
+    """An encode counts no fallback of any kind, and every stage-7 scan
+    (the self-match, the LQ and the N scans) runs through the one
+    `native.PgIndex` it builds: as many scans as scan spans, one index
+    build, and the same archive as the encode without the spy."""
+    indexes, real = [], native.PgIndex.find_matches
+
+    def spy(self, *args):
+        indexes.append(self)
+        return real(self, *args)
+
+    monkeypatch.setattr(native.PgIndex, "find_matches", spy)
+    stats, got = _encode(src, str(tmp_path / "spy.pgtc"))
+    assert not any("fallback" in name for name in stats.counters)
+    scans = [s for s in stats.spans if s["name"] in ("selfmatch.scan", "pgmatch.scan")]
+    assert len(indexes) == len(scans) >= 2
+    assert all(type(i) is native.PgIndex for i in indexes) and len(set(map(id, indexes))) == 1
+    assert stats.counters["pgmatch.index_builds"] == 1
+    assert got == encoded[1]
