@@ -50,7 +50,13 @@ Phases, each printed with its times; the first failure exits nonzero:
      links bad) and on 9 edge cases (L 37, 64, 150 and 255, rows off the
      block, one row, N against A inside overlaps, a third of the links bad,
      a table at the head of wider storage), each over 10 launches; kernels
-     A, G, G2, D, H, I and J at L 150 (W 10 lanes a
+     K (rescue_table) and L (rescue_best) at SE 2M's rescue (a 10.78M-symbol
+     pg, k1 4, 3,046 leftover reads) and on 16 edge cases (L 37 to 256, k 12
+     with an odd k1, k1 2 and 8, one read, reads off L's block, reads at
+     both ends of the pg, a pg shorter than the reads, reads shorter than
+     an anchor, max_mis 0, reads all N, a pg that holds N, buckets past the
+     cap), L over 10 launches; kernels
+     A, G, G2, D, H, I, J, K and L at L 150 (W 10 lanes a
      row) at an SE 2M encode's sizes (the 2x150 bp cell's 2M reads), each
      bit-equal and timed beside its bound; then the port's graft entry
      (__graft_entry_torch__.entry) on the card against its CPU run;
@@ -59,11 +65,11 @@ Phases, each printed with its times; the first failure exits nonzero:
      round trip, the port's validator (`-d -i`) to pass, every kernel
      launched, and bits/base <= 0.1412;
   5. SE 2M (bench.py's scale input): the same, with bits/base <= 0.1384;
-     A, E, F, G, G2 (and its fill), D, H, I and J against their plain
+     A, E, F, G, G2 (and its fill), D, H, I, J, K and L against their plain
      versions on the inputs of
      this encode's first probe, first join, first init, first sweep round,
-     first compaction and first link check (and its share of tied init
-     positions) and its
+     first compaction, first link check (and its share of tied init
+     positions) and rescue, and its
      strand prep (I's take form also on a seeded half of those reads), the
      init on the card against its CPU run there; the same first sweep round
      cut into MESH_RANKS simulated shards (SimRound: the port's own
@@ -78,8 +84,9 @@ Phases, each printed with its times; the first failure exits nonzero:
      elementwise kernel by name), no cummax kernel, the join's sort
      dispatching torch.sort alone (its keys are B's and C's outputs), no
      op but a view between the join's anchors and kernel A, match_reads
-     building its strand rows with kernel I alone (beside the reads' upload)
-     and running no index_select (StrandOps), and
+     building its strand rows with kernel I alone (beside the reads' upload;
+     its passes, index and rescue apart) and running no index_select
+     (StrandOps), and
      the sweep (every find_overlaps call) dispatching no nonzero, cat, any
      or boolean-mask indexing, with its host syncs counted;
   6. large pg: the matcher with the encoder's lazy index where the blocked
@@ -91,7 +98,10 @@ Phases, each printed with its times; the first failure exits nonzero:
      not held), the peak device memory. On the same pgs, kernel B at a
      block start (int32 and int64), kernel A's int64 form (on synthetic
      rows and on the match's first probe) and kernel E on the match's
-     first join (111M entries) against their plain versions; a
+     first join (111M entries) against their plain versions, and on the
+     2.3G pg (its first 2^31 symbols cleared, so that the buckets' first
+     entries lie past 2^31) kernel K over the whole pg (k1 8) and L on
+     3,046 reads from 2^31 on; a
      second match_reads under torch.profiler, as in phase 5;
   7. modes at 30k reads (bench.py's generator, with a pair file): SE -l 2,
      PE, MIN_PE, SE_ORD, PE_ORD, and SE with the sweep and index caps
@@ -127,7 +137,8 @@ Phases, each printed with its times; the first failure exits nonzero:
      run across ranks, every entry on one rank, send buffers filled to
      their last word, one run over 80 tiles), each over 10 launches.
 "Kernels launched" is each run's expected set, no more and no fewer among
-the sweep's: the matcher's A, B, C, E and I; G, D, F and J wherever a device
+the sweep's: the matcher's A, B, C, E and I (and K and L in SE 200k and
+SE 2M, whose matchers leave 16 or more reads to the rescue); G, D, F and J wherever a device
 sweep ran (inputs past 3072 reads; any input under a mesh, where D and F
 run their sharded forms, and the key layout), G2 and its fill (sweep_link_defaults)
 where one ran its init (not a repair), and H where a device sweep table
@@ -196,6 +207,8 @@ REPLACES = {
                     "pgrc_tpu/align/matcher.py:654, pgrc_tpu/core/packed.py:205"),
     "sweep_verify_links": ("pgrc_tpu_torch/kernels/csrc/sweep_verify.cu",
                            "pgrc_tpu/overlap/greedy_scs.py:866"),
+    "rescue_table": ("pgrc_tpu_torch/kernels/csrc/rescue.cu", "pgrc_tpu/align/matcher.py:763"),
+    "rescue_best": ("pgrc_tpu_torch/kernels/csrc/rescue.cu", "pgrc_tpu/align/matcher.py:794"),
 }
 # variants: JSON name -> (kernel, the launch counter of the path that runs it)
 VARIANTS = {
@@ -283,6 +296,11 @@ OPS_A_LANE, OPS_A_SLOT, OPS_HASH_SYM, OPS_HASH_KMER, OPS_SCAN = 8, 7, 4, 2, 8
 OPS_D_ENTRY, OPS_G_BYTE, OPS_G_NIBBLE, OPS_G_ROW, OPS_G2_POS, OPS_G2_TIED = 18, 10, 8, 2, 2, 6
 OPS_I_LANE, OPS_I_N_LANE = 8, 8 + 1 + 14 + 2
 OPS_J_WORD, OPS_J_LINK = 6, 3
+# K per sampled entry past its hash: the bucket's shift, the slot's compose
+# (shift, and, or) and one compare; L per slot of an anchor's bucket: the
+# empty test, the low bits' compare, the start (multiply, subtract) and its
+# two range tests
+OPS_K_ENTRY, OPS_L_SLOT = 5, 6
 # the read lengths of kernel I's edge cases: every lane count's ends
 STRAND_LENGTHS = (16, 17, 31, 32, 33, 37, 63, 64, 65, 80, 100, 128, 129, 150, 200, 255)
 # launches of E and F held against one plain result on each input: a race
@@ -1412,6 +1430,148 @@ def strand_edge_cases(dev) -> int:
     return cases
 
 
+def rescue_work(codes, pg_lanes, pg_len, k, k1, pg_bytes, table):
+    """Bytes and operations of kernels K and L on these inputs. K: the pg
+    read once (its lanes, and its codes where given) and the table written
+    once; its entries' interleaved hashes as prefix hashes (a prefix over
+    the symbols of the parities its entries start on, one difference an
+    entry) and OPS_K_ENTRY an entry. L: the reads' codes read and an int64
+    written a read and strand; per strand row its prefix hash and, per
+    anchor offset, one difference, its bucket's 32-byte sector and
+    OPS_L_SLOT a slot; per distinct candidate window (`candidate_windows`)
+    its W + 1 pg lanes (L bytes of codes) and OPS_A_LANE a lane.
+    -> ((K bytes, K ops), (L bytes, L ops))"""
+    from pgrc_tpu_torch.kernels import rescue as kr
+
+    n_ent = kr.n_entries(pg_len, k, k1)
+    k_bytes = 4 * pg_lanes.numel() + table.numel() * 8 + (0 if pg_bytes is None else pg_len)
+    k_ops = hash_ops(pg_len // 2 if k1 % 2 == 0 else pg_len, n_ent) + OPS_K_ENTRY * n_ent
+    n, L_ = codes.shape
+    rows, W = 2 * n, (L_ + 15) // 16
+    n_off = max(L_ - 2 * k + 1, 0)
+    windows = kr.candidate_windows(kr.strands(codes), table, pg_len, k, k1).numel()
+    l_bytes = (codes.numel() + 8 * rows + 32 * rows * n_off
+               + windows * (L_ if pg_bytes is not None else 4 * (W + 1)))
+    l_ops = (hash_ops(rows * L_, rows * n_off) + OPS_L_SLOT * kr.TABLE_CAP * rows * n_off
+             + OPS_A_LANE * W * windows)
+    return (k_bytes, k_ops), (l_bytes, l_ops)
+
+
+def check_rescue(args, note, reps, timed=True):
+    """Kernels K and L against their plain versions on (codes, pg_lanes,
+    pg_len, k, k1, max_mis, pg_bytes): K's table bit-equal to the plain
+    table, and L's output on K's table, over CHECK_LAUNCHES launches,
+    bit-equal to the plain output on the plain table. Timed: each beside
+    its bound. -> {"rescue_table": fields, "rescue_best": fields}, or None
+    untimed."""
+    from pgrc_tpu_torch.kernels import rescue as kr
+
+    codes, pg_lanes, pg_len, k, k1, max_mis, pg_bytes = args
+    table_args = (pg_lanes, pg_len, k, k1, pg_bytes)
+    want_table = kr.rescue_table_plain(*table_args)
+    table = kr.rescue_table(*table_args)
+    err_k = max_abs_err((table,), (want_table,))
+    require(err_k == 0, f"rescue_table {note}: kernel differs from its plain version")
+    best_args = (codes, table, pg_lanes, pg_len, k, k1, max_mis, pg_bytes)
+    want = kr.rescue_best_plain(codes, want_table, *best_args[2:])
+    del want_table
+    err_l = max(max_abs_err((kr.rescue_best(*best_args),), (want,))
+                for _ in range(CHECK_LAUNCHES))
+    require(err_l == 0, f"rescue_best {note}: kernel differs from its plain version")
+    found = want.view(2, -1) >= 0
+    say(f"[kernel] rescue_table, rescue_best {note}: bit-equal, {codes.shape[0]} reads, "
+        f"{int(found[0].sum())} forward and {int(found[1].sum())} reverse complement rows "
+        f"found, {int((table[:, 0] >= 0).sum())} buckets filled, "
+        f"{int((table[:, -1] >= 0).sum())} full")
+    if not timed:
+        return None
+    (k_bytes, k_ops), (l_bytes, l_ops) = rescue_work(codes, *table_args, table)
+    return {"rescue_table": record(
+                "rescue_table", lambda: (kr.rescue_table(*table_args),),
+                lambda: (kr.rescue_table_plain(*table_args),), reps, note, k_bytes, k_ops,
+                err=err_k),
+            "rescue_best": record(
+                "rescue_best", lambda: (kr.rescue_best(*best_args),),
+                lambda: (kr.rescue_best_plain(*best_args),), reps, note, l_bytes, l_ops,
+                err=err_l)}
+
+
+def rescue_reads(rng, pg, n, L_, lo=0):
+    """n leftover reads of L_ symbols, as a rescue finds them: half of them
+    sampled from the pg (from `lo` on) with an error every 14 columns on
+    odd columns (every contiguous 32-mer dead), a quarter of those with N
+    in 3% of their symbols, half of them reverse complemented; the other
+    half random, 1% N."""
+    from pgrc_tpu_torch.core import packed
+
+    half = n // 2
+    st = rng.integers(lo, pg.size - L_ + 1, size=half)
+    reads = pg[st[:, None] + np.arange(L_)[None, :]]
+    cols = np.arange(1, L_, 14)
+    reads[:, cols] = (reads[:, cols] + 1) % 4
+    n_at = (rng.random(reads.shape) < 0.03) & (np.arange(half) % 4 == 0)[:, None]
+    reads[n_at] = 4
+    rc = rng.random(half) < 0.5
+    reads[rc] = packed.revcomp_codes_matrix(reads[rc])
+    junk = rng.integers(0, 4, size=(n - half, L_), dtype=np.uint8)
+    junk[rng.random(junk.shape) < 0.01] = 4
+    return np.ascontiguousarray(rng.permutation(np.concatenate([reads, junk])))
+
+
+def rescue_args(dev, pg, codes, k, k1, max_mis):
+    """check_rescue's arguments for a host pg and reads: the pg's lanes, and
+    its 1-byte codes where it holds a code above 3 (as the matcher makes
+    them)."""
+    from pgrc_tpu_torch import state
+
+    pg_bytes = torch.from_numpy(pg).to(dev) if pg.max() > 3 else None
+    return (torch.from_numpy(codes).to(dev), state.pg_lanes_to_device(pg, dev), pg.size, k, k1,
+            max_mis, pg_bytes)
+
+
+def rescue_edge_cases(dev) -> int:
+    """Kernels K and L (check_rescue, untimed: every L launch over
+    CHECK_LAUNCHES) at L 37, 100, 150, 255 and 256 (L's largest), k 12 with
+    k1 3 (odd), k1 2 and 8, one read and reads off L's block of 4 warps, a
+    pg of 4099 symbols with reads at its first and last start, a pg shorter
+    than the reads, reads shorter than an anchor (2k), max_mis 0, reads all
+    N, a pg that holds N (read from its codes), and a repeat of 100 copies
+    whose buckets overflow the cap. -> the number of cases."""
+    rng = np.random.default_rng(24)
+    cases = 0
+
+    def one(label, pg, codes, k=16, k1=2, max_mis=None):
+        nonlocal cases
+        max_mis = codes.shape[1] // 3 if max_mis is None else max_mis
+        check_rescue(rescue_args(dev, pg, codes, k, k1, max_mis), label, 0, timed=False)
+        cases += 1
+
+    pg = rng.integers(0, 4, size=50_000, dtype=np.uint8)
+    for L_ in (37, 100, 150, 255, 256):
+        one(f"L {L_}", pg, rescue_reads(rng, pg, 301, L_))
+    one("k 12, k1 3", pg, rescue_reads(rng, pg, 300, 100), k=12, k1=3)
+    one("k1 8", pg, rescue_reads(rng, pg, 300, 100), k1=8)
+    one("one read", pg, rescue_reads(rng, pg, 2, 100)[:1])
+    one("5 reads", pg, rescue_reads(rng, pg, 5, 100))
+    short = rng.integers(0, 4, size=4099, dtype=np.uint8)
+    ends = short[np.array([0, 0, 4099 - 100, 4099 - 100])[:, None] + np.arange(100)[None, :]]
+    ends[:, np.arange(1, 100, 14)] ^= 1
+    one("pg of 4099 symbols, reads at its ends", short,
+        np.concatenate([ends, rescue_reads(rng, short, 40, 100)]))
+    one("pg shorter than the reads", short[:99], rescue_reads(rng, short, 20, 100))
+    one("reads shorter than an anchor", pg, rescue_reads(rng, pg, 20, 31))
+    one("max_mis 0", pg, pg[rng.integers(0, pg.size - 100, size=64)[:, None]
+                              + np.arange(100)[None, :]].copy(), max_mis=0)
+    one("reads all N", pg, np.full((33, 100), 4, dtype=np.uint8))
+    with_n = pg.copy()
+    with_n[rng.random(pg.size) < 0.02] = 4
+    one("pg with N", with_n, rescue_reads(rng, with_n, 300, 100))
+    unit = rng.integers(0, 4, size=256, dtype=np.uint8)
+    rep = np.concatenate([pg[:1000], np.tile(unit, 100), pg[:1000]])
+    one("100 copies of a 256-symbol unit", rep, rescue_reads(rng, rep, 300, 100))
+    return cases
+
+
 def records_outputs(fn, args):
     """A callable that runs kernel D's sharded form (or its plain version)
     on its own copies of the round's hashes, send buffer and scratch -> (the
@@ -1958,6 +2118,12 @@ def phase_kernels(dev) -> dict:
     args = links_table(dev, 1_760_000, rng)
     check_verify_links(args, f"n={args[3].numel()} L {L} at 40x, N in 5% of the rows", 20)
     del args
+    # K and L at SE 2M's rescue: a 10.78M-symbol pg (k1 4), 3,046 leftover
+    # reads; their main-path row comes from SE 2M's encode (phase 5)
+    pg = rng.integers(0, 4, size=10_780_000, dtype=np.uint8)
+    out.update(check_rescue(rescue_args(dev, pg, rescue_reads(rng, pg, 3046, L), 16, 4, L // 3),
+                            f"pg {pg.size}, k1 4, 3046 reads", 20))
+    del pg
 
     phase_kernels_l150(dev)
 
@@ -1976,6 +2142,10 @@ def phase_kernels(dev) -> dict:
         f"sweep_verify_links: "
         f"{cases} edge cases bit-equal in {time.time() - t0:.1f} s")
     t0 = time.time()
+    cases = rescue_edge_cases(dev)
+    say(f"[kernel] rescue_table, rescue_best: {cases} edge cases bit-equal in "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
     cases = hash_edge_cases(dev)
     say(f"[kernel] index_kmer_hash, probe_kmer_hash: {cases} edge cases bit-equal in {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -1990,11 +2160,11 @@ def phase_kernels(dev) -> dict:
 
 
 def phase_kernels_l150(dev) -> None:
-    """Kernels A, G, G2, D, H, I and J at L 150 (W 10 lanes a
+    """Kernels A, G, G2, D, H, I, J, K and L at L 150 (W 10 lanes a
     row; A verifies in batches of 4 from W 9), at the shapes of an SE 2M
-    encode's first probe, init, round, compaction, link check and strand
-    prep (the 2x150 bp cell encodes 2M reads): each against its plain
-    version on the card, bit-equal, and timed beside its bound."""
+    encode's first probe, init, round, compaction, link check, strand
+    prep and rescue (the 2x150 bp cell encodes 2M reads): each against its
+    plain version on the card, bit-equal, and timed beside its bound."""
     from pgrc_tpu_torch import state
     from pgrc_tpu_torch.core import packed
 
@@ -2036,6 +2206,11 @@ def phase_kernels_l150(dev) -> None:
     args = links_table(dev, n, rng, L150, step=5.0, n_frac=0.0)
     check_verify_links(args, f"L {L150}: n={n} at 30x, no N", 20)
     del args
+    # K and L: a 20M-symbol pg (k1 4), 3,046 leftover reads of 150
+    pg = rng.integers(0, 4, size=20_000_000, dtype=np.uint8)
+    check_rescue(rescue_args(dev, pg, rescue_reads(rng, pg, 3046, L150), 16, 4, L150 // 3),
+                 f"L {L150}: pg {pg.size}, k1 4, 3046 reads", 20)
+    del pg
 
 
 class FirstCall:
@@ -2247,12 +2422,13 @@ class RoundGap:
 
 class StrandOps:
     """Spy on matcher.match_reads: the aten ops each call dispatches outside
-    its passes (matcher.probe_rows) and its index (matcher.device_index),
-    which are the reads' upload, kernel I's strand rows for pass 1 and its
-    row take for pass 2; every op it dispatches anywhere; and kernel I's
-    calls in each form. Outside the passes and the index only the upload's
-    copies and kernel I's output allocation may run (the wrapper dispatches
-    nothing else on the card), and no index_select may run at all."""
+    its passes (matcher.probe_rows), its index (matcher.device_index) and
+    its rescue (matcher.rescue), which are the reads' upload, kernel I's
+    strand rows for pass 1 and its row take for pass 2; every op it
+    dispatches anywhere; and kernel I's calls in each form. Outside the
+    passes, the index and the rescue only the upload's copies and kernel
+    I's output allocation may run (the wrapper dispatches nothing else on
+    the card), and no index_select may run at all."""
 
     # beside the upload's ops, the profiler markers of the matcher's spans
     # (utils.trace mirrors each span as a record_function under
@@ -2260,7 +2436,7 @@ class StrandOps:
     ALLOWED = {"aten._to_copy", "aten.copy_", "aten.empty", "aten.lift_fresh", "aten.alias",
                "aten.view", "aten.detach", "profiler._record_function_enter_new",
                "profiler._record_function_exit"}
-    NAMES = ("match_reads", "probe_rows", "device_index", "strand_rows")
+    NAMES = ("match_reads", "probe_rows", "device_index", "rescue", "strand_rows")
 
     def __enter__(self):
         from torch.utils._python_dispatch import TorchDispatchMode
@@ -2303,7 +2479,8 @@ class StrandOps:
             return real["strand_rows"](lanes, nmask, L_, rows)
 
         for name, fn in zip(self.NAMES, (match_reads, within("probe_rows"),
-                                         within("device_index"), strand_rows)):
+                                         within("device_index"), within("rescue"),
+                                         strand_rows)):
             setattr(matcher, name, fn)
         return self
 
@@ -2451,7 +2628,8 @@ TRACED_GROUPS = (("A", "verify_best"), ("B", "index_kmer_hash"), ("C", "probe_km
                  ("G", "sweep_full_hashes"), ("G2 fill", "sweep_link_defaults"),
                  ("G2", "sweep_init_links"),
                  ("D", "sweep_roll_entries"), ("F", "sweep_pair_claim"),
-                 ("H", "sweep_compact"), ("J", "sweep_verify_links"), ("sorts", "Sort"),
+                 ("H", "sweep_compact"), ("J", "sweep_verify_links"),
+                 ("K", "rescue_table"), ("L", "rescue_best"), ("sorts", "Sort"),
                  ("memset", "Memset"),
                  ("cat", "CatArray"), ("elementwise", "elementwise_kernel"))
 
@@ -2586,6 +2764,8 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
             # J's first call: the full sweep's links (its table kept as it is)
             firsts["sweep_verify_links"] = stack.enter_context(
                 FirstCall(greedy_scs, "sweep_verify_links", hold=(0, 1)))
+            # L's call: the leftover reads, K's table and the pg's lanes
+            rescue = stack.enter_context(FirstCall(matcher, "rescue_best", hold=(1, 2)))
         t0 = time.time()
         rc = cli.main(argv)
         torch.cuda.synchronize()
@@ -2690,9 +2870,15 @@ def phase_se(label, n_reads, genome, seed, gate, ref_bytes, card_archive, work,
         timings["sweep_verify_links"] = check_verify_links(
             args, f"{label}'s first sweep's links: n={args[3].numel()} rows, "
             f"N mask {args[1] is not None}", 20)
+        require(rescue.args is not None, f"{label}: the matcher ran no rescue")
+        missed, _, pg_lanes, pg_len, k, k1, max_mis, pg_bytes = rescue.args
+        timings.update(check_rescue(
+            (missed, pg_lanes, pg_len, k, k1, max_mis, pg_bytes), f"{label}'s rescue: pg "
+            f"{pg_len}, k1 {k1}, {missed.shape[0]} reads, pg codes {pg_bytes is not None}", 20))
         for fc in firsts.values():
             fc.args = None
-        del args
+        rescue.args = None
+        del args, missed, pg_lanes, pg_bytes
         free_card()
         torch.cuda.synchronize()
         held_mb = torch.cuda.memory_allocated() / 2**20
@@ -2797,8 +2983,8 @@ def phase_large_pg(dev, label, pg_len, seed, lane_off, banned):
     # symbols of the planted window: every read keeps >= 5 exact anchors at
     # indexed positions. With one uniform substitution some reads kept one,
     # and a hash collision with a lower entry of a 2^26-entry block lost it
-    # (46 of 2^20 reads at the 300M pg); 16 or more unmatched reads send the
-    # host rescue to build its index over the whole pg, minutes at 2G symbols
+    # (46 of 2^20 reads at the 300M pg); the rescue's kernels are checked on
+    # this pg apart
     sub = np.nonzero(rng.random(PLANTED) < 0.5)[0]
     col = rng.integers(L - 4, L, size=sub.size)
     reads[sub, col] = (reads[sub, col] + rng.integers(1, 4, size=sub.size, dtype=np.uint8)) % 4
@@ -2841,6 +3027,19 @@ def phase_large_pg(dev, label, pg_len, seed, lane_off, banned):
         check_verify((lanes, res, offs, pg_lanes, pg_len, L, max_mis, 6, True),
                      f"int64 R={R} S={S} n_verify=6, starts from {PAST_INT32}", 20)
         del lanes, res
+        # K over the whole pg (k1 8) and L on reads past 2^31. The pg's first
+        # 2^31 symbols are cleared to A here: a bucket's candidates are its
+        # first four entries, which in a random pg this long all lie below
+        # 2^31; cleared, every window there falls in one bucket, and the
+        # first entries of the others lie past 2^31, where the reads are
+        free_card()
+        lanes = pg_lanes.clone()
+        lanes[:PAST_INT32 // 16] = 0
+        codes = rescue_reads(rng, pg[:PAST_INT32 + (1 << 24)], 3046, L, lo=PAST_INT32)
+        check_rescue((torch.from_numpy(codes).to(dev), lanes, pg_len, 16, 8, max_mis, None),
+                     f"pg {pg_len} (its first {PAST_INT32} symbols A), k1 8, 3046 reads "
+                     f"from {PAST_INT32} on", 3)
+        del codes, lanes
     del pg_lanes
     free_card()
     say(f"[{label}] kernel checks {time.time() - t0:.1f} s")

@@ -4,12 +4,10 @@ device-neutral pieces, with only the imports changed.
 The defaults (:39-43), the sampled k-mer index and its host build
 (`KmerIndex`, `_window_hashes`, `build_index`, :46-145), the join's position
 field (`_POS_BITS`, :148), the probe offsets (`probe_offsets`,
-`_spread_offsets`, :354-395), `MatchResult` (:398-402), the interleaved-anchor
-rescue of reads both device passes missed (:763-849) and the batch sizing
+`_spread_offsets`, :354-395), `MatchResult` (:398-402) and the batch sizing
 (`_pow2_floor`, `_batch_cap`, `_probe_bucket`, :852-870). The device probe
-lives in `matcher.py` beside this module. The window hashes are made in
-blocks of 2^21 symbols, and the rescue index keeps only the sampled
-hashes (`_window_hashes(..., step)`), never the half-length hash array.
+and the interleaved-anchor rescue (kernels K and L) live in `matcher.py`
+beside this module. The window hashes are made in blocks of 2^21 symbols.
 """
 from __future__ import annotations
 
@@ -49,27 +47,20 @@ class KmerIndex:
 _HASH_BLOCK = 1 << 21
 
 
-def _window_hashes(codes: np.ndarray, k: int, step: int = 1) -> np.ndarray:
+def _window_hashes(codes: np.ndarray, k: int) -> np.ndarray:
     """Rolling polynomial hash of every k-window of a 1-D code array:
     H(i) = sum codes[i+t] * B^(k-1-t) mod 2^32, computed via prefix sums of
     codes[j] * B^(-j). Processed in blocks (k-1 overlap) so the transient
     working set stays ~20 bytes per symbol of one block instead of ~16 bytes
     per pg symbol (a 54M-symbol pg cost ~0.9 GB of temporaries, twice
-    concurrently with the stage-7 worker thread). With `step`, only the
-    hashes of windows 0, step, 2 * step, ... are kept."""
+    concurrently with the stage-7 worker thread)."""
     n = codes.shape[0]
     if n < k:
         return np.zeros(0, dtype=np.uint32)
-    out = np.empty(-(-(n - k + 1) // step), dtype=np.uint32)
-    block = _HASH_BLOCK // step * step
-    for lo in range(0, n - k + 1, block):
-        hi = min(lo + block + k - 1, n)
-        if step == 1:
-            _window_hashes_block(codes[lo:hi], k, out[lo : hi - k + 1])
-            continue
-        h = np.empty(hi - k + 1 - lo, dtype=np.uint32)
-        _window_hashes_block(codes[lo:hi], k, h)
-        out[lo // step : lo // step + -(-h.size // step)] = h[::step]
+    out = np.empty(n - k + 1, dtype=np.uint32)
+    for lo in range(0, n - k + 1, _HASH_BLOCK):
+        hi = min(lo + _HASH_BLOCK + k - 1, n)
+        _window_hashes_block(codes[lo:hi], k, out[lo : hi - k + 1])
     return out
 
 
@@ -172,98 +163,6 @@ class MatchResult:
     pos: np.ndarray       # [R] int64, -1 = unmatched
     rc: np.ndarray        # [R] bool
     mis: np.ndarray       # [R] uint8 (255 = unmatched)
-
-
-def _build_rescue_index(pg_codes: np.ndarray, k: int, k1: int = 2,
-                        bits: int = 20):
-    """Interleaved-anchor CSR index of the pg: hash of every 2nd symbol
-    over a 2k window at positions sampled every k1. Built once per stage
-    and shared by the forward and rc rescue calls.
-
-    Interleaved window hash at pg position p = contiguous window hash of
-    the parity-(p%2) downsampled sequence at index p//2. With an EVEN k1
-    every sampled position is even, so only the even-parity half sequence
-    is ever hashed and the hash array is a strided view — the index then
-    costs one half-length hash pass + one int radix argsort."""
-    span = 2 * k
-    n_s = max(pg_codes.size - span + 1, 0)
-    if k1 % 2 == 0:
-        # only the sampled windows' hashes are kept, and the sampled
-        # position of entry j is j * k1
-        sampled = None
-        hs = _window_hashes(pg_codes[0::2], k, k1 // 2)[: len(range(0, n_s, k1))]
-    else:
-        half = [_window_hashes(pg_codes[0::2], k),
-                _window_hashes(pg_codes[1::2], k)]
-        sampled = np.arange(0, n_s, k1, dtype=np.int64)
-        hs = np.where(sampled % 2 == 0,
-                      half[0][np.clip(sampled // 2, 0, half[0].size - 1)],
-                      half[1][np.clip(sampled // 2, 0,
-                                      max(half[1].size - 1, 0))])
-    hb = (hs >> np.uint32(32 - bits)).astype(np.int32)
-    order = np.argsort(hb, kind="stable")
-    counts = np.bincount(hb, minlength=1 << bits)
-    del hb
-    starts = np.zeros((1 << bits) + 1, dtype=np.int64)
-    np.cumsum(counts, out=starts[1:])
-    pos = order * k1 if sampled is None else sampled[order]
-    return pos, hs[order], starts, bits
-
-
-def _interleaved_rescue(read_codes: np.ndarray, pg_codes: np.ndarray,
-                        k: int, max_mis: int, k1: int = 2, k2: int = 1,
-                        bits: int = 20, cap: int = 4, ridx=None):
-    """Interleaved-pattern anchor matching for leftover reads (the
-    InterleavedReadsApproxMatcher role, matching/ReadsMatchers.cpp:343-409):
-    anchors hash every SECOND symbol of a 2k-wide window, so a burst of
-    errors inside one contiguous k-mer cannot kill every anchor. Host
-    numpy — this only ever runs on the few reads both device passes missed.
-
-    Returns (mis uint8 [R], pos int64 [R]) in forward orientation.
-    """
-    n, L = read_codes.shape
-    out_mis = np.full(n, 255, dtype=np.uint8)
-    out_pos = np.full(n, -1, dtype=np.int64)
-    span = 2 * k  # window width covered by one interleaved anchor
-    if n == 0 or pg_codes.size < span or L < span:
-        return out_mis, out_pos
-    if ridx is None:
-        ridx = _build_rescue_index(pg_codes, k, k1, bits)
-    pos_s, h_s, starts, bits = ridx
-
-    r_half0 = np.stack([_window_hashes(read_codes[r, 0::2], k)
-                        for r in range(n)])
-    r_half1 = np.stack([_window_hashes(read_codes[r, 1::2], k)
-                        for r in range(n)])
-    offs = np.arange(0, L - span + 1, k2, dtype=np.int64)
-    for o in offs:
-        rh = r_half0[:, o // 2] if o % 2 == 0 else r_half1[:, o // 2]
-        b = (rh >> np.uint32(32 - bits)).astype(np.int64)
-        lo = starts[b]
-        cnt = np.minimum(starts[b + 1] - lo, cap)
-        for c in range(cap):
-            rows = np.nonzero(c < cnt)[0]
-            if rows.size == 0:
-                break
-            j = lo[rows] + c
-            okh = h_s[j] == rh[rows]
-            # anchor parity must match the read offset parity relative to
-            # the aligned start (start = anchor_pos - o)
-            start = pos_s[j] - o
-            valid = okh & (start >= 0) & (start <= pg_codes.size - L)
-            rr = rows[valid]
-            if rr.size == 0:
-                continue
-            st = start[valid]
-            win = pg_codes[st[:, None] + np.arange(L)[None, :]]
-            mis = (win != read_codes[rr]).sum(axis=1)
-            better = (mis <= max_mis) & (
-                (mis < out_mis[rr])
-                | ((mis == out_mis[rr]) & (st < out_pos[rr]))
-            )
-            out_mis[rr[better]] = mis[better].astype(np.uint8)
-            out_pos[rr[better]] = st[better]
-    return out_mis, out_pos
 
 
 def _pow2_floor(x: int) -> int:

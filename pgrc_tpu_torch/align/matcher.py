@@ -10,17 +10,20 @@ against the packed pg, keeping the (mismatches, position) minimum (kernel
 A, which reads the join's anchors itself). Blocks merge by the reference's rule (matcher.py:447-458).
 With `accept_mis > 0` (`-l N`) a spread-offset first pass accepts reads
 early and only the others fan out (:625-724). Reads both strands missed go
-to the reference's host rescue. Pgs past 2^31 symbols carry int64
+to the reference's interleaved-anchor rescue, on the device: kernel K
+builds its candidate table from the packed pg, kernel L takes each read's
+best window on both strands (`rescue`). Pgs past 2^31 symbols carry int64
 positions (the wide probe). Results are bit-identical to the reference's;
-the host pieces (offsets, batch cap, rescue) are the port's copy of its
-own, in `host.py`. Kernel I writes each pass's rows: every read on both
-strands for pass 1, the reads pass 1 did not accept for pass 2.
+the host pieces (offsets, batch cap) are the port's copy of its own, in
+`host.py`. Kernel I writes each pass's rows: every read on both strands
+for pass 1, the reads pass 1 did not accept for pass 2.
 
 With a `mesh` of more than one rank (the reference's shard_map probe,
 matcher.py:313-348) every rank builds the index and uploads the reads
 itself, probes both strands of one contiguous block of each pass's reads
 against the whole index, and the ranks' (mis, pos) are gathered in rank
-order; the host rescue and merge then run on every rank on the same data.
+order; the rescue (on each rank's device) and the merge then run on every
+rank on the same data.
 A read's result does not depend on the rows probed beside it, so the
 matches are the one-device matches.
 """
@@ -36,14 +39,14 @@ from .. import state
 from ..core import packed
 from ..kernels.join_carry import JOIN_MAX, join_carry
 from ..kernels.kmer_hash import index_keys, index_kmer_hash, probe_kmer_hash
+from ..kernels.rescue import POS_BITS, rescue_best, rescue_table
 from ..kernels.strand_rows import strand_rows
 from ..kernels.verify import verify_best
 from ..parallel.mesh import active
-from ..utils.trace import span
+from ..utils.trace import count, span
 from .host import (  # noqa: F401  (re-exported host layer)
-    DEFAULT_CAP, DEFAULT_K2, KmerIndex, MatchResult, _batch_cap,
-    _build_rescue_index, _interleaved_rescue, _probe_bucket, _spread_offsets,
-    _window_hashes, build_index, probe_offsets)
+    DEFAULT_CAP, DEFAULT_K2, KmerIndex, MatchResult, _batch_cap, _probe_bucket,
+    _spread_offsets, _window_hashes, build_index, probe_offsets)
 
 # index entries per block, the reference's value (matcher.py:466); read at
 # call time, so setting it here reaches every call
@@ -217,6 +220,30 @@ def probe_pass(lanes, nmask, L: int, take, offs, args: tuple, n_verify: int, bat
                                      for parts in got))
 
 
+def rescue(read_codes: np.ndarray, pg_codes: np.ndarray, pg_lanes: torch.Tensor, k: int,
+           k1: int, max_mis: int):
+    """The interleaved-anchor rescue (matcher.py:763-849) of the reads
+    `read_codes` [m, L] (1-byte codes) against the pg, on pg_lanes' device:
+    kernel K builds the candidate table from the packed pg, kernel L takes
+    each read's best window on both strands, the reverse complement's codes
+    above 3 as 0. The lanes pack N as A, so a pg that holds a code above 3
+    (the encoder's HQ pg never does) is also uploaded as its 1-byte codes,
+    which K and L then read in place of the lanes. -> (mis uint8 [2, m],
+    pos int64 [2, m]): row 0 forward, row 1 reverse complement, 255 and -1
+    where none is within max_mis."""
+    dev, pg_len = pg_lanes.device, pg_codes.shape[0]
+    with span("match.rescue_index", k1=k1):
+        pg_bytes = state.to_device(pg_codes, dev) if pg_codes.max() > 3 else None
+        table = rescue_table(pg_lanes, pg_len, k, k1, pg_bytes)
+    with span("match.rescue", rows=read_codes.shape[0]):
+        codes = state.to_device(np.ascontiguousarray(read_codes), dev)
+        best = rescue_best(codes, table, pg_lanes, pg_len, k, k1, min(max_mis, 254), pg_bytes)
+        best = state.to_host(best).numpy().reshape(2, -1)
+    found = best >= 0
+    return (np.where(found, best >> POS_BITS, 255).astype(np.uint8),
+            np.where(found, best & ((1 << POS_BITS) - 1), -1))
+
+
 def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
                 max_mismatches: int, cap: int = DEFAULT_CAP, k2: int = DEFAULT_K2,
                 accept_mis: int = 0, *, force_wide: bool = False,
@@ -287,29 +314,23 @@ def match_reads(read_codes: np.ndarray, index: KmerIndex, pg_codes: np.ndarray,
         rm[p2] = np.where(better_r, mis_t[k:], rm[p2])
         rp[p2] = np.where(better_r, pos_t[k:], rp[p2])
 
-    # interleaved-anchor rescue for reads both strands missed (host, the
-    # reference's own pass 3, matcher.py:726-752)
+    # interleaved-anchor rescue for reads both strands missed (the
+    # reference's own pass 3, matcher.py:726-752), on the device
     missed = np.nonzero(np.minimum(fm, rm) == 255)[0]
     k_resc = min(index.k, 16)
     k1_r = 2 if index.pg_len < (4 << 20) else 4 if index.pg_len < (32 << 20) else 8
     if missed.size >= 16 and L >= 2 * k_resc and pg_codes.size >= 2 * k_resc:
-        with span("match.rescue_index", k1=k1_r):
-            ridx = _build_rescue_index(pg_codes, k_resc, k1=k1_r)
-        with span("match.rescue", rows=missed.size):
-            resc = read_codes[missed if rows is None else rows[missed]]
-            im, ip = _interleaved_rescue(resc, pg_codes, k_resc,
-                                         max_mismatches, k1=k1_r, ridx=ridx)
-            better = im < fm[missed]
-            fm[missed] = np.where(better, im, fm[missed])
-            fp[missed] = np.where(better, ip, fp[missed])
-            rc_sub = packed.revcomp_codes_matrix(resc)
-            del resc
-            rc_sub[rc_sub > 3] = 0
-            im, ip = _interleaved_rescue(rc_sub, pg_codes, k_resc, max_mismatches,
-                                         ridx=ridx)
-            better = im < rm[missed]
-            rm[missed] = np.where(better, im, rm[missed])
-            rp[missed] = np.where(better, ip, rp[missed])
+        resc = read_codes[missed if rows is None else rows[missed]]
+        (im, rim), (ip, rip) = rescue(resc, pg_codes, pg_lanes, k_resc, k1_r, max_mismatches)
+        del resc
+        count("rescue.rows", missed.size)
+        count("rescue.found", int(((im != 255) | (rim != 255)).sum()))
+        better = im < fm[missed]
+        fm[missed] = np.where(better, im, fm[missed])
+        fp[missed] = np.where(better, ip, fp[missed])
+        better = rim < rm[missed]
+        rm[missed] = np.where(better, rim, rm[missed])
+        rp[missed] = np.where(better, rip, rp[missed])
 
     take_r = rm < fm  # strict: forward wins ties (deterministic)
     out_mis[:] = np.where(take_r, rm, fm)

@@ -24,7 +24,8 @@ launches = {"verify_best": 0, "verify_best.int64": 0, "index_kmer_hash": 0,
             "sweep_full_hashes": 0, "sweep_link_defaults": 0, "sweep_init_links": 0,
             "sweep_compact": 0, "strand_rows": 0, "strand_rows.take": 0,
             "sweep_roll_entries.sharded": 0, "sweep_pair_claim.sharded": 0,
-            "sweep_pair_claim.keys": 0, "sweep_verify_links": 0}
+            "sweep_pair_claim.keys": 0, "sweep_verify_links": 0, "rescue_table": 0,
+            "rescue_best": 0}
 # scratch word of a compacting scan's first total (csrc/seg_scan.cuh
 # kTotalsWord): kernel D's entry count (its sharded form's active prefixes
 # in the next word), kernel H's three counts

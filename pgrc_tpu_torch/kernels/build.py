@@ -56,6 +56,8 @@ SIGNATURES = {
     "pgrc_sharded_keys": [_I, _P, _I64, _P, _I64, _P, _I, _P],
     "pgrc_strand_rows": [_I, _P, _P, _P, _I, _P, _I64, _I, _P],
     "pgrc_sweep_verify_links": [_I, _P, _I64, _P, _I64, _P, _I64, _I, _P, _P, _P],
+    "pgrc_rescue_table": [_I, _P, _P, _I64, _P, _I64, _I, _I, _P],
+    "pgrc_rescue_best": [_I, _P, _P, _I64, _I, _I, _I, _I, _P, _P, _I64, _P, _I64, _P],
 }
 # geometry queries (no launch): entry point -> (argtypes, restype)
 QUERIES = {

@@ -19,8 +19,10 @@ from pgrc_tpu.archive import encoder as ref_encoder
 from pgrc_tpu.config import PgRCParams as RefParams
 from pgrc_tpu.core import analyzer as ref_analyzer
 from pgrc_tpu.core import fastq as ref_fastq
+from pgrc_tpu.core import packed as ref_packed
 from pgrc_tpu_torch import cli as port_cli
-from pgrc_tpu_torch.align import host as port_host
+from pgrc_tpu_torch import state
+from pgrc_tpu_torch.align import matcher as port_matcher
 from pgrc_tpu_torch.archive import decoder as port_decoder
 from pgrc_tpu_torch.archive import encoder as port_encoder
 from pgrc_tpu_torch.config import PgRCParams as PortParams
@@ -168,9 +170,9 @@ def test_leftover_heavy_rescue_matches_reference(tmp_path):
 
 
 def test_interleaved_rescue_large_set_matches_reference():
-    """tests/test_flags.py:114's input: the port's host rescue on 5000
-    leftover reads gives the reference's (mis, pos), within the reference
-    test's 60 s."""
+    """tests/test_flags.py:114's input: the port's rescue (kernels K and L,
+    their plain versions here) on 5000 leftover reads gives the reference's
+    (mis, pos) on both strands, within the reference test's 60 s."""
     rng = np.random.default_rng(9)
     pg = rng.integers(0, 4, size=60_000).astype(np.uint8)
     n, L = 5000, 100
@@ -179,10 +181,13 @@ def test_interleaved_rescue_large_set_matches_reference():
     err_cols = np.arange(1, L, 14)
     reads[:, err_cols] = (reads[:, err_cols] + 1) % 4
     t0 = time.time()
-    mis, pos = port_host._interleaved_rescue(reads, pg, 16, max_mis=33)
+    mis, pos = port_matcher.rescue(reads, pg, state.pg_lanes_to_device(pg, "cpu"), 16, 2, 33)
     wall = time.time() - t0
     assert wall < 60, f"rescue of {n} reads took {wall:.1f}s"
-    want_mis, want_pos = ref_matcher._interleaved_rescue(reads, pg, 16, max_mis=33)
-    np.testing.assert_array_equal(mis, want_mis)
-    np.testing.assert_array_equal(pos, want_pos)
-    assert (mis != 255).mean() > 0.4
+    rc = ref_packed.revcomp_codes_matrix(reads)
+    rc[rc > 3] = 0
+    for strand, r in enumerate((reads, rc)):
+        want_mis, want_pos = ref_matcher._interleaved_rescue(r, pg, 16, max_mis=33)
+        np.testing.assert_array_equal(mis[strand], want_mis)
+        np.testing.assert_array_equal(pos[strand], want_pos)
+    assert (mis[0] != 255).mean() > 0.4

@@ -183,13 +183,13 @@ def test_match_reads_by_ids(monkeypatch):
     reads among the candidates and the rescue pass reached."""
     pg, codes, ids = match_input()
     rescued = []
-    real = matcher._interleaved_rescue
+    real = matcher.rescue
 
-    def spy(read_codes, *a, **k):
+    def spy(read_codes, *a):
         rescued.append(read_codes.shape[0])
-        return real(read_codes, *a, **k)
+        return real(read_codes, *a)
 
-    monkeypatch.setattr(matcher, "_interleaved_rescue", spy)
+    monkeypatch.setattr(matcher, "rescue", spy)
     index = matcher.build_index(pg, k=24, device_sort=True)
     got = matcher.match_reads(codes, index, pg, max_mismatches=20, device="cpu", rows=ids)
     want = matcher.match_reads(codes[ids], index, pg, max_mismatches=20, device="cpu")
