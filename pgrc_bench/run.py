@@ -23,7 +23,10 @@ The run, in one process:
    runs under torch.profiler and the encoder records each stage's own peak
    resident size (PGRC_TPU_RSS_TRACE=1).
 3. The reference (`reference.py`) decodes every distinct archive the window
-   wrote with its frozen decoder copy and compares the reads with the input.
+   wrote with its frozen decoder copy and holds it to the guarantee of the
+   mode the configuration asks for (`guarantee`): the reads back as a
+   multiset (of pairs, or of pairs without their mates' order, in the pair
+   modes), and in input order under `-o`.
 4. The last line of standard output is the result as one JSON object; the
    numbers compared, beside their limits, are its last key and the last
    lines of standard error.
@@ -60,7 +63,7 @@ from pgrc_bench import devtrace, reference, rss  # noqa: E402
 # top-level module names that may not be loaded in a run
 FORBIDDEN = ("jax", "jaxlib", "flax", "pgrc_tpu")
 # each number compared, and its limit: an exact comparison
-LIMITS = {"reads_differ": 0, "archives_failed": 0}
+LIMITS = {"reads_differ": 0, "archives_failed": 0, "reads_out_of_order": 0}
 SPAN = "pgrc_bench.encode."
 # the caches of the libraries under the port, at fixed places in the checkout
 # (the port builds its own kernel and native libraries inside its package)
@@ -146,6 +149,14 @@ def parse_flags(flags: list[str]) -> argparse.Namespace:
     ap.add_argument("-t", type=int, default=0)
     ap.add_argument("-v", action="count", default=0)
     return ap.parse_args(flags)
+
+
+def guarantee(config: dict) -> reference.Guarantee:
+    """What the configuration's archives have to give back: the guarantee
+    of the mode its flags and its paired input ask for."""
+    a = parse_flags(config["flags"])
+    return reference.Guarantee.of(config["paired"], preserve_order=a.o, single_reads=a.S,
+                                  ignore_pair_order=a.s or a.I)
 
 
 def params_for(a: argparse.Namespace, files: list[str], archive: str):
@@ -268,9 +279,7 @@ def _run(root, bench, cell, config, files, work, gen, seconds, trace, device,
         kbuild.lib()
         info["kernel_lib_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    if native.get_lib() is None:
-        print("[bench] the port's native library did not build: its Python "
-              "fallbacks run", file=sys.stderr, flush=True)
+    native.get_lib()   # builds the library where absent; raises where it cannot
     info["native_lib_s"] = time.perf_counter() - t
     flags = parse_flags(config["flags"])
     logchan.set_verbosity(flags.v)
@@ -333,7 +342,7 @@ def _run(root, bench, cell, config, files, work, gen, seconds, trace, device,
 
     # the reference, once the window has closed and its readings are taken
     t = time.perf_counter()
-    checks, failed = judge_window(window, files)
+    checks, failed = judge_window(window, files, guarantee(config))
     info["reference_s"] = time.perf_counter() - t
     record = {
         "setup_s": setup_s, "encodes": window, "rss_base_mb": sampler.base_mb,
@@ -371,17 +380,23 @@ def _run(root, bench, cell, config, files, work, gen, seconds, trace, device,
     return result
 
 
-def judge_window(window: list[dict], files: list[str]):
-    """Judge every archive the window wrote; archives with the same bytes
+def judge_window(window: list[dict], files: list[str],
+                 g: reference.Guarantee | None = None):
+    """Judge every archive the window wrote by the guarantee `g` (by default
+    SE's for one input file, PE's for two); archives with the same bytes
     decode alike, so each distinct one is decoded once. Returns the numbers
-    compared, each beside its limit, and how many encodes failed."""
+    compared, each beside its limit, and how many encodes failed. An archive
+    that does not decode, or whose mode is not the guarantee's, counts in
+    `archives_failed`."""
     if not reference.native_ready():
         raise RuntimeError("the reference decoder's native library did not build")
+    g = g or reference.Guarantee.of(paired=len(files) == 2)
     t = time.perf_counter()
-    want = reference.input_keys(files)
+    want = reference.expected(files, g)
     print(f"[bench] reference: the input's keys in {time.perf_counter() - t:.3f} s",
           flush=True)
-    verdicts, failed, worst, unreadable = {}, 0, 0, 0
+    verdicts, failed, unreadable = {}, 0, 0
+    worst = dict.fromkeys(["reads_differ"] + (["reads_out_of_order"] if g.in_order else []), 0)
     for w in window:
         if not os.path.exists(w["archive"]):
             unreadable += 1
@@ -389,25 +404,31 @@ def judge_window(window: list[dict], files: list[str]):
             continue
         h = w["sha256"] = _sha256(w["archive"])
         if h not in verdicts:
+            name = os.path.basename(w["archive"])
             t = time.perf_counter()
             try:
-                verdicts[h] = reference.judge(w["archive"], want, len(files))
-                print(f"[bench] reference: {os.path.basename(w['archive'])} decoded and "
-                      f"compared in {time.perf_counter() - t:.3f} s", flush=True)
+                verdicts[h] = reference.verdict(w["archive"], want, g)
+                print(f"[bench] reference: {name} decoded and compared in "
+                      f"{time.perf_counter() - t:.3f} s", flush=True)
+            except reference.ModeMismatch as e:
+                print(f"[bench] {name}: {e}", file=sys.stderr, flush=True)
+                verdicts[h] = None
             except Exception as e:  # any fault of a decode is the archive's
-                print(f"[bench] {os.path.basename(w['archive'])} does not decode: "
-                      f"{type(e).__name__}: {e}", file=sys.stderr, flush=True)
+                print(f"[bench] {name} does not decode: {type(e).__name__}: {e}",
+                      file=sys.stderr, flush=True)
                 verdicts[h] = None
         if verdicts[h] is None:
             unreadable += 1
             failed += 1
         else:
-            worst = max(worst, verdicts[h])
-            failed += verdicts[h] > 0
+            for k, v in verdicts[h].items():
+                worst[k] = max(worst[k], v)
+            failed += any(verdicts[h].values())
         w["archive_bytes"] = os.path.getsize(w["archive"])
     if unreadable == len(window):
-        worst = len(want)   # nothing came back: every input read is missing
-    counts = {"reads_differ": worst, "archives_failed": unreadable}
+        # nothing came back: every input read (pair) is missing, and out of place
+        worst = dict.fromkeys(worst, want.keys.size)
+    counts = {"reads_differ": worst.pop("reads_differ"), "archives_failed": unreadable, **worst}
     return {k: {"value": v, "limit": LIMITS[k]} for k, v in counts.items()}, failed
 
 

@@ -30,19 +30,32 @@ def card():
         pytest.skip("needs an NVIDIA card")
 
 
-def make_root(path, extra_configs=()):
+# the tiny configurations: (name, the configuration they copy, its flags),
+# one for each guarantee of PgRC's modes
+TINY_CONFIGS = (
+    ("tiny_se", "se100_human", []),            # SE
+    ("tiny_pe", "pe100_human", []),            # PE
+    ("tiny_pe_min", "pe100_human", ["-s"]),    # MIN_PE: pairs without mate order
+    ("tiny_pe_single", "pe100_human", ["-S"]),  # SE of both files of a pair
+    ("tiny_se_ord", "se100_human", ["-o"]),    # SE_ORD: reads in input order
+    ("tiny_pe_ord", "pe100_human", ["-o"]),    # PE_ORD: pairs in input order
+)
+TINY_CELLS = [f"{name}.lq12" for name, _, _ in TINY_CONFIGS]
+
+
+def make_root(path):
     """A benchmark root at `path`: the repo's BENCHMARK.json and data files,
-    plus `tiny_se` and `tiny_pe`, the two configurations at 6,000 reads of
-    a 15,000-base genome, and their cells `tiny_se.lq12`, `tiny_pe.lq12`."""
+    plus the TINY_CONFIGS, each a configuration at 6,000 reads of a
+    15,000-base genome with its flags, and a cell `<name>.lq12` of each."""
     bench_dir = os.path.join(path, "pgrc_bench")
     for sub in ("configs", "traffic", "metrics"):
         shutil.copytree(os.path.join(ROOT, "pgrc_bench", sub), os.path.join(bench_dir, sub))
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         bench = json.load(f)
-    for name, base in (("tiny_se", "se100_human"), ("tiny_pe", "pe100_human")):
+    for name, base, flags in TINY_CONFIGS:
         with open(os.path.join(bench_dir, "configs", base + ".json")) as f:
             cfg = json.load(f)
-        cfg.update(TINY)
+        cfg.update(TINY, flags=flags)
         with open(os.path.join(bench_dir, "configs", name + ".json"), "w") as f:
             json.dump(cfg, f)
         bench["configs"].append({"name": name, "source": cfg["source"],
