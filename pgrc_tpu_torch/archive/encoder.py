@@ -484,7 +484,8 @@ def _encode_tail(params, stats, lq_codes, n_codes, hq_pg, hq_entries,
             write_varint(header, len(n_pg))
             out.write(bytes(header))
             if ord_mode:
-                entry_perm = np.argsort(hq_entries["org"], kind="stable")
+                with span("order.hq_entry_perm", entries=stats.hq_count):
+                    entry_perm = np.argsort(hq_entries["org"], kind="stable")
             else:
                 entry_perm = np.arange(stats.hq_count)
             _write_hq_section(out, hq_entries, entry_perm, store_off=not ord_mode,
@@ -501,10 +502,12 @@ def _encode_tail(params, stats, lq_codes, n_codes, hq_pg, hq_entries,
                 order_enc.encode_pair_order(out, joined_org,
                                             store_file_flags=(mode == MODE_PE))
             elif ord_mode:
-                pos_by_org = np.zeros(n_total, dtype=np.int64)
-                pos_by_org[hq_entries["org"]] = hq_entries["pos"]
-                pos_by_org[lq_org] = lq_pos + len(hq_pg)
-                pos_by_org[n_org] = n_pos + len(hq_pg) + len(lq_pg)
+                with span("order.ord_positions", reads=n_total) as sp:
+                    pos_by_org = np.zeros(n_total, dtype=np.int64)
+                    pos_by_org[hq_entries["org"]] = hq_entries["pos"]
+                    pos_by_org[lq_org] = lq_pos + len(hq_pg)
+                    pos_by_org[n_org] = n_pos + len(hq_pg) + len(lq_pg)
+                    sp.attrs["wide"] = int(order_enc.wide_positions(pos_by_org))
                 if mode == MODE_ORD_PE:
                     order_enc.encode_positions_pe(out, pos_by_org)
                 else:

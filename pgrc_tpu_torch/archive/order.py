@@ -124,16 +124,34 @@ def decode_pair_order(reader: StreamReader, store_file_flags: bool) -> np.ndarra
 # ---------------------------------------------------------------------------
 
 
-def encode_positions_se(out, pos: np.ndarray) -> None:
-    """SE_ORD: raw per-original-read joined-pg positions (u32 or u64 varints)."""
+def wide_positions(pos: np.ndarray) -> bool:
+    """Whether the positions need the varint64 arm: one past 2^32 - 1."""
+    return bool(pos.size) and int(pos.max()) > 0xFFFFFFFF
+
+
+def _write_positions(out, jobs, reads: int, wide: bool) -> None:
+    """Write the ORD position streams, as the span `order.ord_streams` (the
+    codec probes and the compression), and count `ord.reads` (the reads
+    whose position is stored), `ord.position_bytes` (the streams' records)
+    and `ord.wide` (1 on the varint64 arm)."""
     from ..streams.container import write_streams
 
-    if pos.size and int(pos.max()) > 0xFFFFFFFF:
+    with trace.span("order.ord_streams", streams=len(jobs)) as sp:
+        stored = sp.attrs["bytes"] = sum(write_streams(out, jobs))
+    trace.count("ord.reads", reads)
+    trace.count("ord.position_bytes", stored)
+    trace.count("ord.wide", int(wide))
+
+
+def encode_positions_se(out, pos: np.ndarray) -> None:
+    """SE_ORD: raw per-original-read joined-pg positions (u32 or u64 varints)."""
+    wide = wide_positions(pos)
+    if wide:
         job = props.blob_job("ord positions (varint64)",
                              encode_varints(pos.astype(np.uint64)))
     else:
         job = _u32_job("ord positions", pos.astype(np.uint32))
-    write_streams(out, [job])
+    _write_positions(out, [job], pos.size, wide)
 
 
 def decode_positions_se(reader: StreamReader, count: int, wide: bool) -> np.ndarray:
@@ -151,8 +169,6 @@ def encode_positions_pe(out, pos: np.ndarray) -> None:
     A leading raw flag byte selects wide (varint64) position streams when
     the joined pg exceeds 4 GB (reference uint_pg_len widening,
     pgrc/pg-config.h:39-44)."""
-    from ..streams.container import write_streams
-
     r = pos.shape[0]
     base = pos[0::2]
     mate = pos[1::2]
@@ -162,7 +178,7 @@ def encode_positions_pe(out, pos: np.ndarray) -> None:
     is_base_first = b <= m
     rel = np.abs(m.astype(np.int64) - b.astype(np.int64))
     in_u16 = rel <= 0xFFFF
-    wide = bool(pos.size) and int(pos.max()) > 0xFFFFFFFF
+    wide = wide_positions(pos)
     out.write(bytes([1 if wide else 0]))
     if wide:
         base_job = props.blob_job("ord-pe base positions (varint64)",
@@ -180,7 +196,7 @@ def encode_positions_pe(out, pos: np.ndarray) -> None:
         props.u16_job("ord-pe offset u16 values", rel[in_u16]),
         full_job,
     ]
-    write_streams(out, jobs)
+    _write_positions(out, jobs, r, wide)
 
 
 def decode_positions_pe(reader: StreamReader, count: int) -> np.ndarray:
